@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of the Dragonfly2 compute plane, for NVIDIA Hopper.
+
+A package of its own beside ``dragonfly2_tpu`` (the JAX reference): its
+modules mirror the reference's paths so each counterpart is easy to find,
+and it imports neither JAX nor anything of the reference package. Entry
+points take ``device=`` and default to ``"cuda"``; asking for CUDA on a
+machine without a card raises instead of running on the CPU.
+
+Ported so far: the scoring plane the scheduler's ``ml`` evaluator calls
+(topology rtt join, MLP ranked scoring, wave helpers) and the
+piece-sequence transformer encoder, whose attention is a hand-written
+CUDA flash kernel (``ops.flash``, ``csrc/flash_fwd.cu``).
+"""
+
+from dragonfly2_torch.device import compute_dtype, resolve_device
+
+__all__ = ["compute_dtype", "resolve_device"]

@@ -1,0 +1,142 @@
+"""Host-side adjacency store + padded CSR build (copy of the reference's
+``topology/csr.py``).
+
+The store is the exact mutable truth (EWMA fold per probe, host purge);
+the CSR build turns it into fixed-capacity arrays the engine uploads.
+Capacities only grow, by doubling, so array shapes change rarely.
+
+Padding convention: unused edge slots carry ``src = dst = 0`` with
+``weight = 0`` — in bounds for gathers, zeroed out of every reduction by
+the weight.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+NS_PER_MS = 1e6
+# the probe EWMA of the scheduler's network topology:
+# averageRTT = 0.1·old + 0.9·new
+EWMA_OLD_WEIGHT = 0.1
+
+
+def _next_capacity(needed: int, current: int) -> int:
+    cap = max(current, 8)
+    while cap < needed:
+        cap *= 2
+    return cap
+
+
+class AdjacencyStore:
+    """Interned directed edge store: (src_idx, dst_idx) → EWMA RTT +
+    update time, with the same EWMA the scheduler's KV path applies."""
+
+    def __init__(self):
+        self.index: dict[str, int] = {}
+        self.ids: list[str] = []
+        # (src_idx, dst_idx) -> [avg_rtt_ns, updated_at_s]
+        self.edges: dict[tuple[int, int], list[float]] = {}
+
+    # -- interning --------------------------------------------------------
+    def intern(self, host_id: str) -> int:
+        idx = self.index.get(host_id)
+        if idx is None:
+            idx = len(self.ids)
+            self.index[host_id] = idx
+            self.ids.append(host_id)
+        return idx
+
+    @property
+    def num_hosts(self) -> int:
+        return len(self.ids)
+
+    @property
+    def num_edges(self) -> int:
+        return len(self.edges)
+
+    # -- mutation ---------------------------------------------------------
+    def apply_probe(self, src: str, dest: str, rtt_ns: float, at: float) -> None:
+        s, d = self.intern(src), self.intern(dest)
+        e = self.edges.get((s, d))
+        if e is None or e[0] <= 0:
+            self.edges[(s, d)] = [float(rtt_ns), at]
+        else:
+            e[0] = float(
+                int(EWMA_OLD_WEIGHT * e[0] + (1 - EWMA_OLD_WEIGHT) * rtt_ns)
+            )
+            e[1] = max(e[1], at)
+
+    def adopt_edge(
+        self, src: str, dest: str, avg_rtt_ns: float, updated_at: float
+    ) -> bool:
+        """Install an already-averaged edge (KV hydration / cross-scheduler
+        merge) — no EWMA fold, and never clobber a fresher local value."""
+        s, d = self.intern(src), self.intern(dest)
+        e = self.edges.get((s, d))
+        if e is not None and e[1] >= updated_at:
+            return False
+        self.edges[(s, d)] = [float(avg_rtt_ns), updated_at]
+        return True
+
+    def purge_host(self, host_id: str) -> bool:
+        """Remove a host's node and every incident edge. The node index is
+        not recycled (the id string is tombstoned) so other edge keys stay
+        valid."""
+        idx = self.index.pop(host_id, None)
+        if idx is None:
+            return False
+        self.ids[idx] = ""
+        self.edges = {
+            (s, d): v for (s, d), v in self.edges.items() if s != idx and d != idx
+        }
+        return True
+
+    def purge_stale(self, now: float, max_age_s: float) -> int:
+        """Drop edges whose last update is older than ``max_age_s``."""
+        stale = [k for k, v in self.edges.items() if now - v[1] > max_age_s]
+        for k in stale:
+            del self.edges[k]
+        return len(stale)
+
+    # -- CSR build --------------------------------------------------------
+    def build_arrays(
+        self, now: float, node_cap: int = 0, edge_cap: int = 0
+    ) -> dict[str, np.ndarray]:
+        """→ padded CSR + COO arrays (numpy). Keys: ``row_ptr``
+        [node_cap+1], ``edge_src``/``edge_dst`` [edge_cap] (sorted by src,
+        so ``col_idx`` == ``edge_dst``), ``rtt_log_ms``, ``age_s``,
+        ``valid`` [edge_cap] float32."""
+        n = self.num_hosts
+        node_cap = _next_capacity(max(n, 1), node_cap)
+        edge_cap = _next_capacity(max(self.num_edges, 1), edge_cap)
+
+        e = self.num_edges
+        src = np.zeros(edge_cap, dtype=np.int32)
+        dst = np.zeros(edge_cap, dtype=np.int32)
+        rtt = np.zeros(edge_cap, dtype=np.float32)
+        age = np.zeros(edge_cap, dtype=np.float32)
+        valid = np.zeros(edge_cap, dtype=np.float32)
+        if e:
+            keys = sorted(self.edges)  # CSR order
+            vals = np.array([self.edges[key] for key in keys], dtype=np.float64)
+            keys = np.array(keys, dtype=np.int64)
+            src[:e] = keys[:, 0]
+            dst[:e] = keys[:, 1]
+            rtt[:e] = np.log1p(np.maximum(vals[:, 0], 0.0) / NS_PER_MS)
+            age[:e] = np.maximum(now - vals[:, 1], 0.0)
+            valid[:e] = 1.0
+
+        row_ptr = np.zeros(node_cap + 1, dtype=np.int32)
+        if e:
+            counts = np.bincount(src[:e], minlength=node_cap)
+            row_ptr[1:] = np.cumsum(counts)
+        return {
+            "row_ptr": row_ptr,
+            "edge_src": src,
+            "edge_dst": dst,
+            "rtt_log_ms": rtt,
+            "age_s": age,
+            "valid": valid,
+            "num_nodes": n,
+            "num_edges": e,
+        }

@@ -5,8 +5,8 @@
 
 Phases (any failed check raises and the script exits non-zero):
 
-1. device and build: the card's name and power limit, then every CUDA
-   source under ``dragonfly2_torch/csrc`` built with ``nvcc`` (timed);
+1. device and build: the card's name and power limit, then the flash
+   kernel's CUDA source built with ``nvcc`` (timed);
 2. the flash kernel against its plain PyTorch version at every checked
    shape, with max|err| of O and LSE, kernel / plain / SDPA times and the
    card's bound for the same work;
@@ -53,7 +53,12 @@ from dragonfly2_torch.trainer.serving import (
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
-FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # summation order / one bf16 rounding
+# O is held per element as |o - ref| <= atol + rtol·|ref|: float32 leaves
+# room for another summation order only, bfloat16 for the two f32 sums
+# landing on either side of a rounding point (2^-7·|ref| is one bf16 step)
+# and one step more. LSE is float32 on both sides, whatever the inputs.
+FLASH_O_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 2**-6)}
+FLASH_LSE_TOL = 1e-4
 # (B, T, H, D, causal, dtype): the reference's on-chip set, a D=8 and a
 # D=16 case, and the encoder's own shape last
 FLASH_SHAPES = [
@@ -127,13 +132,22 @@ def flash_case(b, t, h, d, causal, dtype, seed, timed: bool) -> dict:
         o, lse = flash.flash_attention_with_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
         o_ref, lse_ref = flash.flash_attention_reference(q, k, v, causal=causal)
-    err_o = (o.float() - o_ref.float()).abs().max().item()
+    atol, rtol = FLASH_O_TOL[dtype]
+    diff = (o.float() - o_ref.float()).abs()
+    err_o = diff.max().item()
+    # worst share of the per-element limit used (<= 1 passes)
+    o_ratio = (diff / (atol + rtol * o_ref.float().abs())).max().item()
+    o_rel_rms = err_o / o_ref.float().pow(2).mean().sqrt().item()
     err_lse = (lse - lse_ref).abs().max().item()
-    tol = FLASH_TOL[dtype]
     name = f"flash B={b} T={t} H={h} D={d} causal={causal} {str(dtype)[6:]}"
-    print(f"{name}: max|err| O={err_o:.3g} LSE={err_lse:.3g} tol={tol:g}")
+    print(
+        f"{name}: max|err| O={err_o:.3g} (max|err|/rms(ref)={o_rel_rms:.3g};"
+        f" per element {o_ratio:.3g} of the limit {atol:g}+{rtol:g}*|ref|)"
+        f" LSE={err_lse:.3g} (limit {FLASH_LSE_TOL:g})"
+    )
     check(o.shape == q.shape and o.dtype == dtype and torch.isfinite(o).all().item(), name)
-    check(err_o <= tol and err_lse <= tol, f"{name}: kernel disagrees with plain version")
+    check(o_ratio <= 1.0, f"{name}: kernel's O disagrees with the plain version")
+    check(err_lse <= FLASH_LSE_TOL, f"{name}: kernel's LSE disagrees with the plain version")
     out = {"max_abs_err": max(err_o, err_lse)}
     bound, by = flash_bound_ms(b, t, h, d, causal, dtype)
     out.update(bound_ms=bound, bound_by=by)
@@ -302,12 +316,11 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    libs = _build.build_all()
-    print(f"build: {len(libs)} librar{'y' if len(libs) == 1 else 'ies'} in {time.perf_counter() - t0:.1f}s")
-    for name in libs:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    _build.load("flash_fwd")
+    print(f"build: flash_fwd in {time.perf_counter() - t0:.1f}s")
+    for line in _build.build_log("flash_fwd").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  flash_fwd: {line.strip()}")
 
     for i, shape in enumerate(FLASH_SHAPES):
         flash_case(*shape, seed=100 + i, timed=False)

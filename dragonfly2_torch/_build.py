@@ -5,8 +5,7 @@ plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds). Libraries go to ``build/torch_kernels/`` at the root of the
 checkout, named by the hash of their source, so an edited source rebuilds
 and an unchanged one is reused. Nothing is built when a module is imported:
-``load`` builds on the first launch, ``build_all`` builds every source in
-parallel (one ``nvcc`` each, all started together).
+``load`` builds on the first launch.
 """
 
 from __future__ import annotations
@@ -55,49 +54,26 @@ def _paths(name: str) -> tuple[Path, Path]:
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _start(name: str):
-    """Start ``nvcc`` for ``name`` unless its library is built → (process,
-    temporary output, final path) or None."""
+def _compile(name: str) -> None:
+    """Run ``nvcc`` for ``name`` unless its library is built."""
     src, lib = _paths(name)
     if lib.exists():
-        return None
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.Popen(
+    proc = subprocess.run(
         [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT,
         text=True,
     )
-    return proc, tmp, lib
-
-
-def _finish(name: str, proc: subprocess.Popen, tmp: Path, lib: Path) -> None:
-    out, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{out}")
+        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{proc.stdout}")
     # the compiler's report (registers, shared memory, spills) beside the
     # library; the rename makes the library appear whole or not at all
-    lib.with_suffix(".log").write_text(out)
+    lib.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, lib)
-
-
-def build_all() -> dict[str, Path]:
-    """Build every source not yet built, all ``nvcc`` processes at once →
-    {name: library path}."""
-    with _lock:
-        started = {name: _start(name) for name in SOURCES}
-        try:
-            for name, job in started.items():
-                if job is not None:
-                    _finish(name, *job)
-        finally:
-            for job in started.values():
-                if job is not None and job[0].poll() is None:
-                    job[0].kill()
-                    job[0].wait()
-        return {name: _paths(name)[1] for name in SOURCES}
 
 
 def build_log(name: str) -> str:
@@ -111,8 +87,6 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
-        job = _start(name)
-        if job is not None:
-            _finish(name, *job)
+        _compile(name)
         lib = _loaded[name] = ctypes.CDLL(str(_paths(name)[1]))
         return lib

@@ -65,8 +65,9 @@ class MLPScorer:
 
     def __init__(self, params: "Any", device="cuda"):
         self.device = resolve_device(device)
-        mlp = params if isinstance(params, MLP) else mlp_from_numpy(params)
-        self._mlp = mlp.to(self.device).requires_grad_(False)
+        if not isinstance(params, MLP):
+            params = mlp_from_numpy(params, device=self.device)
+        self._mlp = params.to(self.device).requires_grad_(False)
 
     @property
     def feature_dim(self) -> int:

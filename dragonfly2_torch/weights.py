@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from dragonfly2_torch.device import resolve_device
 from dragonfly2_torch.models.attention import TransformerEncoder
 from dragonfly2_torch.models.mlp import MLP
 
@@ -94,18 +95,20 @@ def _load(module: nn.Module, tree: dict, device) -> nn.Module:
         if key not in getattr(module, "tree_ints", ())
     }
     module.load_state_dict(state, strict=True)
-    return module.to(device)
+    return module.to(resolve_device(device))
 
 
-def mlp_from_numpy(tree: dict, device="cpu") -> MLP:
-    """The reference's ``{'layers': [{'w', 'b'}, ...]}`` → ``MLP``."""
+def mlp_from_numpy(tree: dict, device="cuda") -> MLP:
+    """The reference's ``{'layers': [{'w', 'b'}, ...]}`` → ``MLP`` on
+    ``device``."""
     layers = tree["layers"]
     dims = [np.shape(layers[0]["w"])[0]] + [np.shape(l["w"])[1] for l in layers]
     return _load(MLP(dims), tree, device)
 
 
-def transformer_from_numpy(tree: dict, device="cpu") -> TransformerEncoder:
-    """The reference's ``init_transformer`` tree → ``TransformerEncoder``."""
+def transformer_from_numpy(tree: dict, device="cuda") -> TransformerEncoder:
+    """The reference's ``init_transformer`` tree → ``TransformerEncoder`` on
+    ``device``."""
     in_dim, model_dim = np.shape(tree["embed"])
     num_heads = int(np.asarray(tree["num_heads"]))
     hidden = np.shape(tree["layers"][0]["w1"])[1] if tree["layers"] else 4 * model_dim

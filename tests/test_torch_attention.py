@@ -78,14 +78,14 @@ def test_noncausal_encoder_matches_reference(tree):
     )
     with torch.no_grad():
         got = t_apply(
-            transformer_from_numpy(tree), torch.from_numpy(x), causal=False,
+            transformer_from_numpy(tree, device="cpu"), torch.from_numpy(x), causal=False,
             compute_dtype=torch.float32,
         )
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
 
 def test_transformer_bytes_cross_both_ways(tree):
-    enc = transformer_from_numpy(tree)
+    enc = transformer_from_numpy(tree, device="cpu")
     back = jserving.deserialize_params_auto(serialize_params(enc))
     assert int(back["num_heads"]) == HEADS and int(back["head_dim"]) == MODEL_DIM // HEADS
     flat_want = jax.tree_util.tree_leaves_with_path(tree)
@@ -96,7 +96,9 @@ def test_transformer_bytes_cross_both_ways(tree):
     for path, leaf in flat_want:
         np.testing.assert_array_equal(np.asarray(flat_got[jax.tree_util.keystr(path)]), leaf)
     # and the reference's bytes load in the port
-    again = transformer_from_numpy(deserialize_params_auto(jserving.serialize_params(tree)))
+    again = transformer_from_numpy(
+        deserialize_params_auto(jserving.serialize_params(tree)), device="cpu"
+    )
     for name, p in enc.named_parameters():
         assert torch.equal(p, dict(again.named_parameters())[name])
 

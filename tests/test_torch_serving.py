@@ -67,7 +67,7 @@ def test_predict_ranked_is_rank_order_of_its_scores(params, counts):
 
 
 def test_port_bytes_load_in_the_reference(params):
-    mlp = mlp_from_numpy(params)
+    mlp = mlp_from_numpy(params, device="cpu")
     back = jserving.deserialize_params_auto(tserving.serialize_params(mlp))
     assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(params)
     for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(params)):

@@ -5,7 +5,8 @@ plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds). Libraries go to ``build/torch_kernels/`` at the root of the
 checkout, named by the hash of their source, so an edited source rebuilds
 and an unchanged one is reused. Nothing is built when a module is imported:
-``load`` builds on the first launch.
+``load`` builds on the first launch; different libraries may be loaded
+from several threads at once, and then compile in parallel.
 """
 
 from __future__ import annotations
@@ -23,14 +24,14 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
 # library name → source file under csrc/
-SOURCES = {"flash_fwd": "flash_fwd.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_fwd_sm90": "flash_fwd_sm90.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_locks = {name: threading.Lock() for name in SOURCES}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -81,12 +82,17 @@ def build_log(name: str) -> str:
     return _paths(name)[1].with_suffix(".log").read_text()
 
 
+def library_path(name: str) -> Path:
+    """Where library ``name`` is (or will be) built."""
+    return _paths(name)[1]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The ``ctypes`` handle of library ``name``, built if needed."""
-    with _lock:
+    with _locks[name]:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
         _compile(name)
-        lib = _loaded[name] = ctypes.CDLL(str(_paths(name)[1]))
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return lib

@@ -1,13 +1,22 @@
-"""Fused attention forward: the hand-written CUDA kernel
-``csrc/flash_fwd.cu`` (counterpart of the Pallas kernel ``_flash_forward``
-in the reference's ``ops/flash.py``) and its plain PyTorch version.
+"""Fused attention forward: two hand-written CUDA kernels (counterparts of
+the Pallas kernel ``_flash_forward`` in the reference's ``ops/flash.py``)
+and their plain PyTorch version.
 
 ``flash_attention`` / ``flash_attention_with_lse`` take [B, T, H, D] q, k, v
 and return O [B, T, H, D] in the input dtype (and LSE [B, H, T] float32).
-A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-or raises — there is no fallback between the two. Forward only: the
-backward comes with the training slice, so a call that would need a
-gradient raises ``NotImplementedError``.
+A CPU tensor goes to the plain version; a CUDA tensor launches a kernel or
+raises — there is no fallback between them. The kernel is chosen by dtype
+and head dim alone (``kernel_for``):
+
+- ``"sm90"`` (``csrc/flash_fwd_sm90.cu``): bfloat16 with D in 16, 32, 64,
+  128 — wgmma tensor-core products fed by TMA. It rounds the softmax
+  weights P to bfloat16 before P·V, as every tensor-core flash kernel does;
+  ``p_rounding_term`` gives the worst case of that rounding.
+- ``"fma"`` (``csrc/flash_fwd.cu``): float32 at any built D and bfloat16 at
+  D = 8 — float32 FMAs on the CUDA cores, P kept in float32.
+
+Forward only: the backward comes with the training slice, so a call that
+would need a gradient raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,29 +32,46 @@ DEFAULT_BLOCK_K = 128
 NEG_INF = -1e30  # large-negative sentinel: exp() underflows to exact 0
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
+SM90_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_Y = 65535  # the kernel's grid is (query tiles, B·H)
+_MAX_GRID_Y = 65535  # both kernels' grid is (query tiles, B·H)
+_TMA_ALIGN = 16  # bytes: TMA wants base addresses and strides on this
 
-# kernel launches since the counter was last reset; the plain version
-# never touches it
+# kernel launches since the counters were last reset, in total and by
+# kernel; the plain version never touches them
 LAUNCHES = 0
+LAUNCHES_BY = {"sm90": 0, "fma": 0}
 
-_fn = None
+_LIBRARY = {"sm90": "flash_fwd_sm90", "fma": "flash_fwd"}
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("flash_fwd").df_flash_fwd
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    global LAUNCHES
+    LAUNCHES = 0
+    for name in LAUNCHES_BY:
+        LAUNCHES_BY[name] = 0
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call of this dtype and head dim launches."""
+    return "sm90" if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS else "fma"
+
+
+def _kernel(kernel: str):
+    fn = _fns.get(kernel)
+    if fn is None:
+        lib = _build.load(_LIBRARY[kernel])
+        fn = getattr(lib, f"df_{_LIBRARY[kernel]}")
+        n_ints = 5 if kernel == "sm90" else 6  # the fma kernel also takes a dtype code
         fn.argtypes = (
-            [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 6
-            + [ctypes.c_longlong] * 9
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints + [ctypes.c_longlong] * 9
             + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[kernel] = fn
+    return fn
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -67,12 +93,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
 
 
-def flash_attention_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
-) -> "tuple[torch.Tensor, torch.Tensor]":
-    """Plain PyTorch version of the kernel: the same float32 arithmetic on
-    the whole [T, T] score matrix, the same -1e30 masking, ``max(l, 1e-30)``
-    and LSE sentinel → (O [B, T, H, D] in q's dtype, LSE [B, H, T] f32)."""
+def _softmax_parts(q, k, v, causal):
+    """float32 (p = exp(s - m) [B, H, T, T], m, l = Σp, v [B, H, T, D]) on
+    the whole score matrix, masked with the -1e30 sentinel."""
     t, d = q.shape[1], q.shape[3]
     qf = q.float().permute(0, 2, 1, 3) * (1.0 / d**0.5)
     kf = k.float().permute(0, 2, 1, 3)
@@ -83,38 +106,86 @@ def flash_attention_reference(
         s = s.masked_fill(~keep, NEG_INF)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
-    l = p.sum(dim=-1)
+    return p, m, p.sum(dim=-1), vf
+
+
+def flash_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Plain PyTorch version of the kernels: the same float32 arithmetic on
+    the whole [T, T] score matrix, the same -1e30 masking, ``max(l, 1e-30)``
+    and LSE sentinel → (O [B, T, H, D] in q's dtype, LSE [B, H, T] f32)."""
+    p, m, l, vf = _softmax_parts(q, k, v, causal)
     denom = l.clamp_min(1e-30)
     o = (p @ vf) / denom[..., None]
     lse = torch.where(l > 0, m + torch.log(denom), torch.full_like(m, NEG_INF))
     return o.permute(0, 2, 1, 3).to(q.dtype), lse
 
 
-def _launch(q, k, v, causal):
+def p_rounding_term(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+) -> torch.Tensor:
+    """(P·|V|)/l [B, T, H, D] float32, from the same float32 P as the plain
+    version. Rounding each weight p to bfloat16 moves it by at most 2⁻⁸·p,
+    so a kernel that rounds P before P·V moves O by at most 2⁻⁸ times this."""
+    p, _, l, vf = _softmax_parts(q, k, v, causal)
+    return ((p @ vf.abs()) / l.clamp_min(1e-30)[..., None]).permute(0, 2, 1, 3)
+
+
+def _tma_strides(x: torch.Tensor) -> "tuple[int, int, int]":
+    """x's (B, T, H) strides for a tensor map; a dimension of size 1 is never
+    stepped over, so it gets its contiguous stride instead of whatever the
+    view carries."""
+    b, t, h, d = x.shape
+    return tuple(
+        st if n > 1 else dense
+        for st, n, dense in ((x.stride(0), b, t * h * d), (x.stride(1), t, h * d), (x.stride(2), h, d))
+    )
+
+
+def launch_kernel(q, k, v, causal, kernel: "str | None" = None):
+    """Launch a kernel on CUDA q, k, v → (O, LSE). ``kernel`` defaults to
+    ``kernel_for(dtype, D)``; naming one picks it for a comparison."""
     global LAUNCHES
     b, t, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not built; the kernel takes {HEAD_DIMS}")
+    kernel = kernel or kernel_for(q.dtype, d)
+    allowed = SM90_HEAD_DIMS if kernel == "sm90" else HEAD_DIMS
+    if d not in allowed:
+        raise ValueError(f"head dim {d} not built; the {kernel} kernel takes {allowed}")
+    if kernel == "sm90" and q.dtype != torch.bfloat16:
+        raise TypeError(f"the sm90 kernel takes bfloat16, got {q.dtype}")
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"B·H = {b * h} exceeds the kernel's grid limit {_MAX_GRID_Y}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1:
             raise ValueError(f"{name}'s head dimension must be contiguous (stride 1)")
+    strides = [_tma_strides(x) if kernel == "sm90" else x.stride()[:3] for x in (q, k, v)]
+    if kernel == "sm90":
+        size = q.element_size()
+        for name, x, st in zip("qkv", (q, k, v), strides):
+            if x.data_ptr() % _TMA_ALIGN or any(s * size % _TMA_ALIGN for s in st):
+                raise ValueError(
+                    f"{name}: the sm90 kernel's TMA loads need a {_TMA_ALIGN}-byte aligned base"
+                    f" address and B/T/H strides, got address {x.data_ptr():#x} and strides"
+                    f" {st} of {size}-byte elements"
+                )
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if t == 0 or b * h == 0:
         return o, lse
-    err = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, t, h, d, _DTYPE_CODE[q.dtype], int(bool(causal)),
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, d]
+    if kernel == "fma":
+        head.append(_DTYPE_CODE[q.dtype])
+    err = _kernel(kernel)(
+        *head,
+        int(bool(causal)),
+        *strides[0], *strides[1], *strides[2],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"{_LIBRARY[kernel]} launch failed: error {err}")
     LAUNCHES += 1
+    LAUNCHES_BY[kernel] += 1
     return o, lse
 
 
@@ -128,14 +199,14 @@ def flash_attention_with_lse(
 ) -> "tuple[torch.Tensor, torch.Tensor]":
     """[B, T, H, D] q/k/v → (O [B, T, H, D], LSE [B, H, T] float32).
     ``block_q``/``block_k`` are scheduling hints kept for the reference's
-    signature; the kernel's tiles are fixed at build time."""
+    signature; the kernels' tiles are fixed at build time."""
     del block_q, block_k
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
-    return _launch(q, k, v, causal)
+    return launch_kernel(q, k, v, causal)
 
 
 def flash_attention(

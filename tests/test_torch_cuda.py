@@ -1,6 +1,7 @@
-"""The port on an NVIDIA card: the CUDA flash kernel against its plain
-PyTorch version (strided inputs and launch counting included), and the
-serving and topology planes on the card against the same port on the CPU.
+"""The port on an NVIDIA card: both CUDA flash kernels against their plain
+PyTorch version (strided inputs, alignment checks and per-kernel launch
+counting included), and the serving and topology planes on the card
+against the same port on the CPU.
 
 Every test here needs a card and skips without one. It imports neither jax
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -30,15 +31,37 @@ def cuda():
 
 # O per element within atol + rtol·|ref| (another f32 summation order; in
 # bfloat16 a rounding point between the two f32 sums and one step more);
-# LSE is float32 on both sides
+# the sm90 kernel rounds P to bfloat16 before P·V, which adds at most
+# 2⁻⁸·(P·|V|)/l (``flash.p_rounding_term``). LSE is float32 on both sides.
 O_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 2**-6)}
+P_ROUNDING = 2**-8
 LSE_TOL = 1e-4
 
 
-def _assert_o_close(o, ref):
+def _assert_o_close(o, ref, term=None):
     atol, rtol = O_TOL[ref.dtype]
     diff = (o.float() - ref.float()).abs()
-    assert (diff <= atol + rtol * ref.float().abs()).all(), diff.max().item()
+    limit = atol + rtol * ref.float().abs()
+    if term is not None:
+        limit = limit + P_ROUNDING * term
+    assert (diff <= limit).all(), (diff / limit).max().item()
+
+
+def _check_against_plain(q, k, v, causal):
+    """One call through the wrapper, held against the plain version with the
+    limit of the kernel it took → that kernel's name."""
+    kernel = flash.kernel_for(q.dtype, q.shape[-1])
+    before = dict(flash.LAUNCHES_BY)
+    with torch.no_grad():
+        o, lse = flash.flash_attention_with_lse(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = flash.flash_attention_reference(q, k, v, causal=causal)
+        term = flash.p_rounding_term(q, k, v, causal) if kernel == "sm90" else None
+    assert flash.LAUNCHES_BY == {**before, kernel: before[kernel] + 1}
+    assert o.shape == q.shape and o.dtype == q.dtype and lse.dtype == torch.float32
+    _assert_o_close(o, o_ref, term)
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    return kernel
 
 
 def _qkv(shape, dtype, seed):
@@ -60,19 +83,63 @@ def _qkv(shape, dtype, seed):
 def test_kernel_matches_plain_version(cuda, shape, dtype, causal):
     q, k, v = _qkv(shape, dtype, seed=sum(shape))
     before = flash.LAUNCHES
-    with torch.no_grad():
-        o, lse = flash.flash_attention_with_lse(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = flash.flash_attention_reference(q, k, v, causal=causal)
+    _check_against_plain(q, k, v, causal)
     assert flash.LAUNCHES == before + 1
-    assert o.dtype == dtype and lse.dtype == torch.float32
-    _assert_o_close(o, o_ref)
-    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (1, 1, 2, 64),  # one row
+        (1, 129, 2, 64),  # one row past a tile
+        (2, 512, 4, 64),
+        (1, 300, 2, 128),
+        (1, 333, 2, 32),
+        (1, 77, 2, 16),
+        (32, 130, 3, 32),  # B·H = 96
+        (1, 8192, 2, 64),  # the encoder's length
+        (1, 8190, 1, 16),  # long, ragged
+    ],
+)
+def test_sm90_kernel_matches_plain_version(cuda, shape, causal):
+    q, k, v = _qkv(shape, torch.bfloat16, seed=sum(shape) + causal)
+    assert _check_against_plain(q, k, v, causal) == "sm90"
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_sm90_kernel_reads_packed_qkv(cuda, d):
+    """q, k, v as views of one packed [B, T, 3, H, D] bf16 projection: the
+    tensor maps walk their strides instead of copying."""
+    g = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v = torch.randn((2, 200, 3, 4, d), generator=g, device="cuda").bfloat16().unbind(dim=2)
+    assert not q.is_contiguous()
+    assert _check_against_plain(q, k, v, causal=True) == "sm90"
+
+
+@pytest.mark.parametrize(
+    "dtype,d,kernel",
+    [(torch.bfloat16, 64, "sm90"), (torch.float32, 64, "fma"), (torch.bfloat16, 8, "fma")],
+)
+def test_launches_are_counted_by_kernel(cuda, dtype, d, kernel):
+    q, k, v = _qkv((1, 100, 2, d), dtype, seed=d)
+    assert _check_against_plain(q, k, v, causal=False) == kernel
+
+
+def test_sm90_kernel_refuses_unaligned_inputs(cuda):
+    k = v = torch.zeros((1, 16, 2, 64), dtype=torch.bfloat16, device="cuda")
+    wide = torch.zeros((1, 16, 2, 68), dtype=torch.bfloat16, device="cuda")
+    flat = torch.zeros(1 + 16 * 2 * 64, dtype=torch.bfloat16, device="cuda")
+    before = dict(flash.LAUNCHES_BY)
+    for q in (wide[..., :64], flat[1:].view(1, 16, 2, 64)):  # H stride 136 B; address + 2 B
+        with pytest.raises(ValueError, match="16-byte"):
+            flash.flash_attention(q, k, v)
+    assert flash.LAUNCHES_BY == before
 
 
 def test_kernel_reads_strided_inputs(cuda):
-    """q, k, v as views of one packed [B, T, 3, H, D] projection: the
-    kernel walks their strides instead of copying."""
+    """q, k, v as views of one packed [B, T, 3, H, D] float32 projection:
+    the fma kernel walks their strides instead of copying."""
     b, t, h, d = 2, 100, 4, 32
     g = torch.Generator(device="cuda").manual_seed(5)
     qkv = torch.randn((b, t, 3, h, d), generator=g, device="cuda")

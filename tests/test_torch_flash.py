@@ -137,3 +137,115 @@ def test_bad_inputs_raise(bad):
     q = torch.zeros(1, 16, 2, 8)
     with pytest.raises((ValueError, TypeError)):
         tflash.flash_attention(*bad(q))
+
+
+def _tensor_core_emulation(q, k, v, causal, l_from_rounded_p=False, block=128):
+    """The sm90 kernel's arithmetic in plain torch: 128-key tiles, online
+    softmax in base 2 on float32 scores, P rounded to bfloat16 before P·V,
+    and l summed from the float32 P (or, to pin the trap, from the rounded
+    P) → (O in bfloat16, LSE float32)."""
+    b, t, h, d = q.shape
+    scale_log2 = (1.0 / d**0.5) * 1.4426950408889634
+    qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
+    m = torch.full((b, h, t), tflash.NEG_INF)
+    l = torch.zeros(b, h, t)
+    acc = torch.zeros(b, h, t, d)
+    rows = torch.arange(t)[:, None]
+    for k0 in range(0, t, block):
+        s = qf @ kf[:, :, k0 : k0 + block].transpose(-1, -2)
+        if causal:
+            s = s.masked_fill(torch.arange(k0, min(k0 + block, t))[None, :] > rows, tflash.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2((m - m_new) * scale_log2)
+        p = torch.exp2(s * scale_log2 - (m_new * scale_log2)[..., None])
+        p_bf16 = p.bfloat16().float()
+        l = l * alpha + (p_bf16 if l_from_rounded_p else p).sum(-1)
+        acc = acc * alpha[..., None] + p_bf16 @ vf[:, :, k0 : k0 + block]
+        m = m_new
+    o = (acc / l.clamp_min(1e-30)[..., None]).permute(0, 2, 1, 3).bfloat16()
+    lse = torch.where(
+        l > 0, (m * scale_log2 + torch.log2(l)) * 0.6931471805599453, torch.full_like(m, tflash.NEG_INF)
+    )
+    return o, lse
+
+
+def _bf16_qkv(shape, seed):
+    return [torch.from_numpy(x).bfloat16() for x in _qkv(shape, seed)]
+
+
+# the sm90 kernel's O limit per element: the bf16 limit of the plain path
+# plus the worst case of rounding P to bfloat16, 2⁻⁸·(P·|V|)/l
+def _sm90_o_share(o, ref, term):
+    diff = (o.float() - ref.float()).abs()
+    return (diff / (1e-5 + 2**-6 * ref.float().abs() + 2**-8 * term)).max().item()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_rounding_p_stays_inside_the_sm90_limit(causal):
+    q, k, v = _bf16_qkv((1, 1024, 2, 64), seed=21)
+    o_ref, lse_ref = tflash.flash_attention_reference(q, k, v, causal)
+    term = tflash.p_rounding_term(q, k, v, causal)
+    o, lse = _tensor_core_emulation(q, k, v, causal)
+    assert _sm90_o_share(o, o_ref, term) <= 1.0
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    # the plain path's own bf16 limit has no room for the rounded P
+    diff = (o.float() - o_ref.float()).abs()
+    assert (diff > 1e-5 + 2**-6 * o_ref.float().abs()).any()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_l_from_rounded_p_breaks_the_lse_limit(causal):
+    q, k, v = _bf16_qkv((1, 1024, 2, 64), seed=21)
+    _, lse_ref = tflash.flash_attention_reference(q, k, v, causal)
+    _, lse = _tensor_core_emulation(q, k, v, causal, l_from_rounded_p=True)
+    assert (lse - lse_ref).abs().max().item() > 1e-4
+
+
+def test_p_rounding_term_is_the_weighted_mean_of_abs_v():
+    q, k, v = (torch.from_numpy(x) for x in _qkv((1, 50, 2, 16), seed=4))
+    got = tflash.p_rounding_term(q, k, v, causal=True)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / 4.0
+    s = s.masked_fill(~torch.ones(50, 50, dtype=torch.bool).tril(), float("-inf"))
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v.abs())
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+    assert (got >= 0).all()
+
+
+@pytest.mark.parametrize(
+    "dtype,d,kernel",
+    [
+        (torch.bfloat16, 16, "sm90"),
+        (torch.bfloat16, 32, "sm90"),
+        (torch.bfloat16, 64, "sm90"),
+        (torch.bfloat16, 128, "sm90"),
+        (torch.bfloat16, 8, "fma"),
+        (torch.float32, 64, "fma"),
+        (torch.float32, 8, "fma"),
+    ],
+)
+def test_kernel_is_chosen_by_dtype_and_head_dim(dtype, d, kernel):
+    assert tflash.kernel_for(dtype, d) == kernel
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: torch.zeros((1, 16, 2, 68), dtype=torch.bfloat16)[..., :64],  # 136-byte H stride
+        lambda: torch.zeros(1 + 16 * 2 * 64, dtype=torch.bfloat16)[1:].view(1, 16, 2, 64),  # address
+    ],
+    ids=["stride", "address"],
+)
+def test_sm90_refuses_unaligned_tma_inputs_before_launching(make):
+    """Checked before anything is built or launched, so it runs here too."""
+    q = make()
+    k = v = torch.zeros((1, 16, 2, 64), dtype=torch.bfloat16)
+    before = dict(tflash.LAUNCHES_BY)
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.launch_kernel(q, k, v, causal=False)
+    assert tflash.LAUNCHES_BY == before
+
+
+def test_reset_launches():
+    tflash.LAUNCHES_BY["sm90"] += 3
+    tflash.reset_launches()
+    assert tflash.LAUNCHES == 0 and tflash.LAUNCHES_BY == {"sm90": 0, "fma": 0}

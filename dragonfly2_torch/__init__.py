@@ -8,8 +8,9 @@ machine without a card raises instead of running on the CPU.
 
 Ported so far: the scoring plane the scheduler's ``ml`` evaluator calls
 (topology rtt join, MLP ranked scoring, wave helpers) and the
-piece-sequence transformer encoder, whose attention is a hand-written
-CUDA flash kernel (``ops.flash``, ``csrc/flash_fwd.cu``).
+piece-sequence transformer encoder, whose attention runs on hand-written
+CUDA flash kernels (``ops.flash``: ``csrc/flash_fwd_sm90.cu`` for
+bfloat16, ``csrc/flash_fwd_tf32x3.cu`` for float32).
 """
 
 from dragonfly2_torch.device import compute_dtype, resolve_device

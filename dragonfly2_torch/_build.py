@@ -2,9 +2,10 @@
 
 Each source under ``csrc/`` compiles with ``nvcc`` into one ``.so`` with a
 plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds). Libraries go to ``build/torch_kernels/`` at the root of the
-checkout, named by the hash of their source, so an edited source rebuilds
-and an unchanged one is reused. Nothing is built when a module is imported:
+takes seconds); the sources share the headers ``csrc/*.cuh``. Libraries go
+to ``build/torch_kernels/`` at the root of the checkout, named by the hash
+of their source and the headers, so an edited source or header rebuilds and
+an unchanged one is reused. Nothing is built when a module is imported:
 ``load`` builds on the first launch; different libraries may be loaded
 from several threads at once, and then compile in parallel.
 """
@@ -24,11 +25,12 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
 # library name → source file under csrc/
-SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_fwd_sm90": "flash_fwd_sm90.cu"}
+SOURCES = {"flash_fwd_sm90": "flash_fwd_sm90.cu", "flash_fwd_tf32x3": "flash_fwd_tf32x3.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-I", str(CSRC_DIR),  # the shared headers, also for sources built elsewhere
 )
 
 _locks = {name: threading.Lock() for name in SOURCES}
@@ -51,8 +53,10 @@ def nvcc_path() -> str:
 
 def _paths(name: str) -> tuple[Path, Path]:
     src = CSRC_DIR / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _compile(name: str) -> None:

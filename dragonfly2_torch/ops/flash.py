@@ -12,8 +12,14 @@ and head dim alone (``kernel_for``):
   128 — wgmma tensor-core products fed by TMA. It rounds the softmax
   weights P to bfloat16 before P·V, as every tensor-core flash kernel does;
   ``p_rounding_term`` gives the worst case of that rounding.
-- ``"fma"`` (``csrc/flash_fwd.cu``): float32 at any built D and bfloat16 at
-  D = 8 — float32 FMAs on the CUDA cores, P kept in float32.
+- ``"tf32x3"`` (``csrc/flash_fwd_tf32x3.cu``): float32 at every D in
+  ``HEAD_DIMS`` and bfloat16 at D = 8 — the same tensor-core design with
+  every product in 3xTF32: x = hi + lo with both parts TF32
+  (``tf32_split``) and a·b ≈ a_hi·b_hi + a_hi·b_lo + a_lo·b_hi, which keeps
+  the float32 limits. A pre-pass in the same launch writes the hi/lo
+  planes of Q, K and Vᵀ to scratch that the wrapper allocates
+  (``tf32x3_prepass_reference`` is its plain version); bfloat16 needs no
+  lo part, and P is split in registers.
 
 Forward only: the backward comes with the training slice, so a call that
 would need a gradient raises ``NotImplementedError``.
@@ -36,13 +42,25 @@ SM90_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535  # both kernels' grid is (query tiles, B·H)
 _TMA_ALIGN = 16  # bytes: TMA wants base addresses and strides on this
+_TF32_MASK = -0x2000  # int32 view of 0xFFFFE000: sign, exponent, 10 mantissa bits
+# Vᵀ position c of each group of 8 keys holds key VT_KEY_ORDER[c]: the
+# score accumulator gives a thread keys (2t, 2t+1) of every 8, and the
+# tf32 A fragment of P·V reads them as positions (t, t + 4)
+VT_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 # kernel launches since the counters were last reset, in total and by
 # kernel; the plain version never touches them
 LAUNCHES = 0
-LAUNCHES_BY = {"sm90": 0, "fma": 0}
+LAUNCHES_BY = {"sm90": 0, "tf32x3": 0}
 
-_LIBRARY = {"sm90": "flash_fwd_sm90", "fma": "flash_fwd"}
+_LIBRARY = {"sm90": "flash_fwd_sm90", "tf32x3": "flash_fwd_tf32x3"}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry → its argument types: pointers, then ints, then the 9 strides and the stream
+_ARGTYPES = {
+    "df_flash_fwd_sm90": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_P],
+    "df_flash_fwd_tf32x3": [_P] * 8 + [_I] * 6 + [_L] * 9 + [_P],
+    "df_tf32x3_split": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_P],
+}
 _fns: dict = {}
 
 
@@ -56,21 +74,17 @@ def reset_launches() -> None:
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA call of this dtype and head dim launches."""
-    return "sm90" if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS else "fma"
+    return "sm90" if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS else "tf32x3"
 
 
-def _kernel(kernel: str):
-    fn = _fns.get(kernel)
+def _entry(library: str, symbol: str):
+    """The C function ``symbol`` of library ``library``, built if needed."""
+    fn = _fns.get(symbol)
     if fn is None:
-        lib = _build.load(_LIBRARY[kernel])
-        fn = getattr(lib, f"df_{_LIBRARY[kernel]}")
-        n_ints = 5 if kernel == "sm90" else 6  # the fma kernel also takes a dtype code
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints + [ctypes.c_longlong] * 9
-            + [ctypes.c_void_p]
-        )
+        fn = getattr(_build.load(library), symbol)
+        fn.argtypes = _ARGTYPES[symbol]
         fn.restype = ctypes.c_int
-        _fns[kernel] = fn
+        _fns[symbol] = fn
     return fn
 
 
@@ -132,6 +146,80 @@ def p_rounding_term(
     return ((p @ vf.abs()) / l.clamp_min(1e-30)[..., None]).permute(0, 2, 1, 3)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (11 significant bits) to nearest, ties away
+    from zero, the 13 low bits cleared: ``cvt.rna.tf32.f32`` on its int32
+    view (adding half an ulp to the magnitude carries into the exponent
+    where it must)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & _TF32_MASK).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
+    """float32 x → (hi, lo), both TF32: hi = round(x), lo = round(x − hi).
+    x − hi is exact, so hi + lo is x to 2⁻²³·|x|, and exactly x when x has
+    at most 22 significant bits."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def tf32x3_prepass_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
+    """Plain version of the tf32x3 kernel's pre-pass → float32 (qs, ks
+    [P, B·H, T, D], vt [P, B·H, D, T8]): P = 2 planes (hi, lo) for float32
+    and 1 (the exact upcast) for bfloat16; T8 is T rounded up to 8, Vᵀ holds
+    the keys of each group of 8 in ``VT_KEY_ORDER`` and zeros past T."""
+    b, t, h, d = q.shape
+    t8 = -(-t // 8) * 8
+
+    def heads_major(x):
+        return x.float().permute(0, 2, 1, 3).reshape(b * h, t, d)
+
+    order = torch.arange(0, t8, 8, device=q.device)[:, None] + torch.tensor(
+        VT_KEY_ORDER, device=q.device
+    )
+    vf = torch.nn.functional.pad(heads_major(v), (0, 0, 0, t8 - t))
+    vt = vf[:, order.reshape(-1)].transpose(1, 2)
+
+    def planes(x):
+        return torch.stack(tf32_split(x)) if q.dtype == torch.float32 else x[None]
+
+    return planes(heads_major(q)), planes(heads_major(k)), planes(vt)
+
+
+def _prepass_buffers(q: torch.Tensor):
+    """Uninitialised float32 scratch of the tf32x3 pre-pass → (qs, ks, vt)."""
+    b, t, h, d = q.shape
+    n = 2 if q.dtype == torch.float32 else 1
+    t8 = -(-t // 8) * 8
+    qk = [torch.empty((n, b * h, t, d), dtype=torch.float32, device=q.device) for _ in range(2)]
+    return (*qk, torch.empty((n, b * h, d, t8), dtype=torch.float32, device=q.device))
+
+
+def tf32x3_prepass(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
+    """The tf32x3 kernel's pre-pass alone on CUDA q, k, v (the forward runs
+    it inside its own launch) → (qs, ks, vt) as
+    ``tf32x3_prepass_reference`` lays them out. For checking it against
+    that plain version; it counts no launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the pre-pass kernel runs on cuda tensors, not {q.device}")
+    _check(q, k, v)
+    _check_layout(q, k, v)
+    b, t, h, d = q.shape
+    bufs = _prepass_buffers(q)
+    err = _entry("flash_fwd_tf32x3", "df_tf32x3_split")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *(x.data_ptr() for x in bufs),
+        b, t, h, d, _DTYPE_CODE[q.dtype],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"df_tf32x3_split launch failed: error {err}")
+    return bufs
+
+
 def _tma_strides(x: torch.Tensor) -> "tuple[int, int, int]":
     """x's (B, T, H) strides for a tensor map; a dimension of size 1 is never
     stepped over, so it gets its contiguous stride instead of whatever the
@@ -143,22 +231,34 @@ def _tma_strides(x: torch.Tensor) -> "tuple[int, int, int]":
     )
 
 
+def _check_layout(q, k, v) -> None:
+    """What every kernel's grid and loads need of [B, T, H, D] q, k, v."""
+    b, _, h, _ = q.shape
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"B·H = {b * h} exceeds the kernel's grid limit {_MAX_GRID_Y}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1:
+            raise ValueError(f"{name}'s head dimension must be contiguous (stride 1)")
+
+
 def launch_kernel(q, k, v, causal, kernel: "str | None" = None):
     """Launch a kernel on CUDA q, k, v → (O, LSE). ``kernel`` defaults to
     ``kernel_for(dtype, D)``; naming one picks it for a comparison."""
     global LAUNCHES
     b, t, h, d = q.shape
     kernel = kernel or kernel_for(q.dtype, d)
-    allowed = SM90_HEAD_DIMS if kernel == "sm90" else HEAD_DIMS
+    allowed = {
+        ("sm90", torch.bfloat16): SM90_HEAD_DIMS,
+        ("tf32x3", torch.float32): HEAD_DIMS,
+        ("tf32x3", torch.bfloat16): (8,),
+    }.get((kernel, q.dtype))
+    if allowed is None:
+        raise TypeError(f"the {kernel} kernel does not take {q.dtype}")
     if d not in allowed:
-        raise ValueError(f"head dim {d} not built; the {kernel} kernel takes {allowed}")
-    if kernel == "sm90" and q.dtype != torch.bfloat16:
-        raise TypeError(f"the sm90 kernel takes bfloat16, got {q.dtype}")
-    if b * h > _MAX_GRID_Y:
-        raise ValueError(f"B·H = {b * h} exceeds the kernel's grid limit {_MAX_GRID_Y}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1:
-            raise ValueError(f"{name}'s head dimension must be contiguous (stride 1)")
+        raise ValueError(
+            f"head dim {d} not built; the {kernel} kernel takes {allowed} in {q.dtype}"
+        )
+    _check_layout(q, k, v)
     strides = [_tma_strides(x) if kernel == "sm90" else x.stride()[:3] for x in (q, k, v)]
     if kernel == "sm90":
         size = q.element_size()
@@ -173,10 +273,15 @@ def launch_kernel(q, k, v, causal, kernel: "str | None" = None):
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if t == 0 or b * h == 0:
         return o, lse
-    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, d]
-    if kernel == "fma":
-        head.append(_DTYPE_CODE[q.dtype])
-    err = _kernel(kernel)(
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr()]
+    if kernel == "tf32x3":
+        # the pre-pass's scratch; the caching allocator hands it out again
+        # only to work queued behind this launch on the stream
+        scratch = _prepass_buffers(q)
+        head += [x.data_ptr() for x in scratch] + [b, t, h, d, _DTYPE_CODE[q.dtype]]
+    else:
+        head += [b, t, h, d]
+    err = _entry(_LIBRARY[kernel], f"df_{_LIBRARY[kernel]}")(
         *head,
         int(bool(causal)),
         *strides[0], *strides[1], *strides[2],

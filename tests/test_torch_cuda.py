@@ -1,7 +1,7 @@
 """The port on an NVIDIA card: both CUDA flash kernels against their plain
-PyTorch version (strided inputs, alignment checks and per-kernel launch
-counting included), and the serving and topology planes on the card
-against the same port on the CPU.
+PyTorch version (strided inputs, alignment checks, the tf32x3 pre-pass bit
+for bit and per-kernel launch counting included), and the serving and
+topology planes on the card against the same port on the CPU.
 
 Every test here needs a card and skips without one. It imports neither jax
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -78,6 +78,10 @@ def _qkv(shape, dtype, seed):
         ((1, 300, 2, 128), torch.bfloat16),
         ((3, 64, 1, 16), torch.bfloat16),
         ((1, 250, 4, 32), torch.float32),
+        ((1, 8192, 2, 128), torch.float32),  # tf32x3's widest head at the encoder's length
+        ((1, 8192, 2, 8), torch.bfloat16),  # tf32x3's bf16 role at the encoder's length
+        ((1, 1, 2, 16), torch.float32),  # one row
+        ((2, 77, 3, 16), torch.float32),
     ],
 )
 def test_kernel_matches_plain_version(cuda, shape, dtype, causal):
@@ -119,7 +123,7 @@ def test_sm90_kernel_reads_packed_qkv(cuda, d):
 
 @pytest.mark.parametrize(
     "dtype,d,kernel",
-    [(torch.bfloat16, 64, "sm90"), (torch.float32, 64, "fma"), (torch.bfloat16, 8, "fma")],
+    [(torch.bfloat16, 64, "sm90"), (torch.float32, 64, "tf32x3"), (torch.bfloat16, 8, "tf32x3")],
 )
 def test_launches_are_counted_by_kernel(cuda, dtype, d, kernel):
     q, k, v = _qkv((1, 100, 2, d), dtype, seed=d)
@@ -139,7 +143,7 @@ def test_sm90_kernel_refuses_unaligned_inputs(cuda):
 
 def test_kernel_reads_strided_inputs(cuda):
     """q, k, v as views of one packed [B, T, 3, H, D] float32 projection:
-    the fma kernel walks their strides instead of copying."""
+    the tf32x3 kernel's pre-pass walks their strides instead of copying."""
     b, t, h, d = 2, 100, 4, 32
     g = torch.Generator(device="cuda").manual_seed(5)
     qkv = torch.randn((b, t, 3, h, d), generator=g, device="cuda")
@@ -151,6 +155,33 @@ def test_kernel_reads_strided_inputs(cuda):
             q.contiguous(), k.contiguous(), v.contiguous(), causal=True
         )
     _assert_o_close(o, want)
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,packed",
+    [
+        ((2, 129, 3, 64), torch.float32, False),
+        ((1, 8190, 2, 128), torch.float32, False),
+        ((2, 100, 4, 32), torch.float32, True),
+        ((1, 333, 2, 8), torch.bfloat16, False),
+    ],
+)
+def test_tf32x3_prepass_matches_its_plain_split_bit_for_bit(cuda, shape, dtype, packed):
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    if packed:
+        b, t, h, d = shape
+        q, k, v = torch.randn((b, t, 3, h, d), generator=g, device="cuda").to(dtype).unbind(dim=2)
+    else:
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3))
+    before = dict(flash.LAUNCHES_BY)
+    with torch.no_grad():
+        got = flash.tf32x3_prepass(q, k, v)
+        torch.cuda.synchronize()
+        want = flash.tf32x3_prepass_reference(q, k, v)
+    assert flash.LAUNCHES_BY == before  # a check, not a forward
+    for g_, w in zip(got, want):
+        assert g_.shape == w.shape
+        assert torch.equal(g_.view(torch.int32), w.contiguous().view(torch.int32))
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):

@@ -24,7 +24,18 @@ Phases (any failed check raises and the script exits non-zero):
    15 candidates joined (rtt affinity) and ranked by a [19, 128, 128, 1]
    MLP loaded from npz bytes — rankings against ``rank_order``, scores and
    affinities against the same port on the CPU;
-4. encoder leg at full width: the piece-sequence transformer (model_dim
+4. scheduler leg at cluster scale: the same 10,000 hosts × 16 probes in
+   the topology engine, a swarm of 40 tasks × 256 peers (a quarter
+   succeeded, the rest running with one parent each) in the scheduler's
+   resource model, and a [19, 128, 128, 1] MLP installed by the
+   ``ModelRefresher`` from an in-process manager; then waves of 256
+   running children through ``Scheduling.find_candidate_parents_wave`` →
+   ``MLEvaluator.evaluate_wave`` → ``ScoringService`` → ``MLPScorer`` on
+   the card. Every checked wave must stay on the ``serving`` rung with no
+   demotion, rank each decision by ``rank_order`` of its card scores, and
+   match the same waves run on the CPU (candidate sets equal, scores
+   within 2e-2);
+5. encoder leg at full width: the piece-sequence transformer (model_dim
    256, 4 heads, 4 layers) on B = 2, T = 8192 with flash attention, against
    the plain ``local_attention``: once in bfloat16, which must launch
    ``flash_fwd_sm90`` once per layer and ``flash_fwd_tf32x3`` never, and
@@ -39,13 +50,16 @@ and prints no result. Weights and data are random, made from seeds.
 from __future__ import annotations
 
 import json
+import random
 import re
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -57,13 +71,20 @@ from dragonfly2_torch.models.attention import apply_transformer, init_transforme
 from dragonfly2_torch.models.mlp import init_mlp
 from dragonfly2_torch.ops import flash
 from dragonfly2_torch.schema.features import GRU_FEATURE_DIM, MLP_FEATURE_DIM
+from dragonfly2_torch.scheduler import metrics as scheduler_metrics
+from dragonfly2_torch.scheduler import resource as res
 from dragonfly2_torch.scheduler import wave
+from dragonfly2_torch.scheduler.evaluator import MLEvaluator
+from dragonfly2_torch.scheduler.model_refresher import ModelRefresher, PlainRequests
+from dragonfly2_torch.scheduler.scheduling import Scheduling
+from dragonfly2_torch.scheduler.serving import ScoringService
 from dragonfly2_torch.topology import TopologyConfig, TopologyEngine
 from dragonfly2_torch.trainer.serving import (
     MLPScorer,
     deserialize_params_auto,
     serialize_params,
 )
+from dragonfly2_torch.utils import flight
 
 # NVIDIA H100 SXM data sheet, dense rates. A float32-accurate product is
 # fastest as 3xTF32 on the tensor cores: three TF32 products at 495 TFLOP/s
@@ -121,6 +142,9 @@ ENCODER_BT = (2, 8192)
 ENCODER_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
 D8_BF16 = (2, 8192, 4, 8)  # tf32x3's bf16 role at the encoder's B, T and H
 KERNEL_NAMES = {"sm90": "flash_fwd_sm90", "tf32x3": "flash_fwd_tf32x3"}
+MLP_DIMS = [MLP_FEATURE_DIM, 128, 128, 1]  # the trainer's default MLP
+# bfloat16 products on the card against float32 on the CPU
+SCORE_TOL = 2e-2
 
 
 def check(ok: bool, what: str) -> None:
@@ -386,25 +410,36 @@ def flash_phase() -> dict:
     return rows
 
 
-def serve_leg(device, hosts=10_000, probes=16, waves=(256, 15), repeats=20, seed=0) -> dict:
-    """Topology flush + wave join + ranked MLP scoring on ``device``, held
-    against the same port on the CPU."""
-    device = torch.device(device)
-    rng = np.random.default_rng(seed)
+PROBED_AT = 1_000_000.0  # the engines' clock: probes land a minute before
+
+
+def probe_graph(hosts: int, probes: int, rng: np.random.Generator):
+    """Probe measurements drawn from ``rng``: each host probes ``probes``
+    distinct other hosts, RTTs log-normal around 20 ms → (host ids, a
+    function that feeds them into a new engine on a device)."""
     ids = [f"host-{i:05d}" for i in range(hosts)]
     peers = np.stack([rng.choice(hosts - 1, probes, replace=False) for _ in range(hosts)])
     peers += peers >= np.arange(hosts)[:, None]  # distinct peers, no self probe
     rtts = rng.lognormal(np.log(20e6), 0.6, (hosts, probes)).astype(np.int64)
-    now = 1_000_000.0
     cfg = TopologyConfig(flush_threshold=10**9, max_pending=hosts * probes + 1)
 
     def fed(dev):
         eng = TopologyEngine(cfg, device=dev)
         for i in range(hosts):
             for j, rtt in zip(peers[i], rtts[i]):
-                eng.enqueue(ids[i], ids[int(j)], int(rtt), created_at=now - 60.0)
+                eng.enqueue(ids[i], ids[int(j)], int(rtt), created_at=PROBED_AT - 60.0)
         return eng
 
+    return ids, fed
+
+
+def serve_leg(device, hosts=10_000, probes=16, waves=(256, 15), repeats=20, seed=0) -> dict:
+    """Topology flush + wave join + ranked MLP scoring on ``device``, held
+    against the same port on the CPU."""
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    ids, fed = probe_graph(hosts, probes, rng)
+    now = PROBED_AT
     eng = fed(device)
     t0 = time.perf_counter()
     eng.flush(now=now)
@@ -419,7 +454,7 @@ def serve_leg(device, hosts=10_000, probes=16, waves=(256, 15), repeats=20, seed
         f" first_ms={first_flush_ms:.1f} refresh_ms={refresh_ms:.1f}"
     )
 
-    mlp = init_mlp(torch.Generator().manual_seed(seed), [MLP_FEATURE_DIM, 128, 128, 1])
+    mlp = init_mlp(torch.Generator().manual_seed(seed), MLP_DIMS)
     blob = serialize_params(mlp)
     scorer = MLPScorer(deserialize_params_auto(blob), device=device)
     check(scorer.feature_dim == MLP_FEATURE_DIM, "scorer feature_dim")
@@ -475,6 +510,277 @@ def serve_leg(device, hosts=10_000, probes=16, waves=(256, 15), repeats=20, seed
         check(score_err <= 2e-2, "scores differ from the CPU scorer")
         check(float((aff > 0).mean()) > 0.9, "affinity column mostly missing")
         out.update(aff_err=aff_err, score_err=score_err)
+    return out
+
+
+@dataclass
+class _Model:
+    """The fields the refresher reads of the manager's ``Model`` message."""
+
+    model_id: str
+    type: str
+    version: int
+    state: str
+    updated_at_ns: int
+    created_at_ns: int
+
+
+class _Manager:
+    """In-process stand-in for the manager's model registry: one active MLP
+    whose weights are ``blob`` (npz bytes)."""
+
+    def __init__(self, blob: bytes):
+        self.model = _Model("mlp-smoke", "mlp", 1, "active", 1, 1)
+        self.blob = blob
+
+    def ListModels(self, request):
+        return SimpleNamespace(models=[self.model])
+
+    def GetModelWeights(self, request):
+        check((request.model_id, request.version) == ("mlp-smoke", 1), "unknown model asked for")
+        return SimpleNamespace(weights=self.blob)
+
+
+class _RecordingEvaluator(MLEvaluator):
+    """The ``ml`` evaluator, keeping the last wave's candidate sets."""
+
+    def evaluate_wave(self, children, candidate_sets, total_piece_counts):
+        self.last_sets = [list(c) for c in candidate_sets]
+        return super().evaluate_wave(children, candidate_sets, total_piece_counts)
+
+
+class _RecordingService(ScoringService):
+    """The scoring service, keeping the last wave's features and what it
+    handed back: per decision (scores, ranking)."""
+
+    def score_wave(self, features, pairs, counts, budget_s=None):
+        out = super().score_wave(features, pairs, counts, budget_s=budget_s)
+        self.last = (np.asarray(features, np.float32), out)
+        return out
+
+
+def device_busy(fn) -> "tuple[float, float | None]":
+    """One ``fn()`` under ``torch.profiler`` → (its host wall in ms, the
+    summed durations of the CUDA kernels and copies it ran, in ms; None
+    when the trace holds no device activity)."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us = sum(
+        e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA
+    )
+    return wall_ms, (busy_us / 1e3 if busy_us else None)
+
+
+def build_swarm(ids, tasks: int, peers: int, rng: np.random.Generator):
+    """The scheduler's resource model over the hosts ``ids``: host stats in
+    their valid ranges (about 1 host in 50 a seed peer), ``tasks`` image
+    layers of ``peers`` peers each on distinct hosts; a quarter of each
+    task's peers have succeeded, the rest are running with one succeeded
+    parent each → (resource, the running peers)."""
+    n = len(ids)
+    resource = res.Resource()
+    seed_hosts = rng.random(n) < 1 / 50
+    for i, hid in enumerate(ids):
+        h = res.Host(
+            id=hid,
+            type=res.HostType.SUPER if seed_hosts[i] else res.HostType.NORMAL,
+            hostname=hid,
+            ip=f"10.{i >> 16}.{(i >> 8) & 255}.{i & 255}",
+            port=65000,
+            download_port=65002,
+        )
+        h.cpu.logical_count = h.cpu.physical_count = 32
+        h.cpu.percent = float(rng.uniform(0, 100))
+        h.cpu.process_percent = float(rng.uniform(0, h.cpu.percent))
+        h.memory.total = 64 << 30
+        h.memory.used_percent = float(rng.uniform(5, 95))
+        h.memory.available = int(h.memory.total * (1 - h.memory.used_percent / 100))
+        h.network.tcp_connection_count = int(rng.integers(0, 2000))
+        h.network.upload_tcp_connection_count = int(rng.integers(0, 200))
+        h.network.location = f"cn|r{rng.integers(4)}|z{rng.integers(8)}|rack{rng.integers(64)}"
+        h.network.idc = f"idc-{rng.integers(16)}"
+        h.disk.used_percent = float(rng.uniform(5, 95))
+        h.disk.inodes_used_percent = float(rng.uniform(1, 60))
+        h.upload_count = int(rng.integers(0, 500))
+        h.upload_failed_count = int(rng.integers(0, h.upload_count // 10 + 1))
+        resource.host_manager.store(h)
+    hosts = resource.host_manager
+    running = []
+    for t in range(tasks):
+        task = res.Task(f"layer-{t:02d}", url=f"https://registry.example/v2/app/blobs/sha256:{t:064x}")
+        task.content_length = int(rng.lognormal(np.log(48 << 20), 0.8))
+        task.total_piece_count = -(-task.content_length // task.piece_length)
+        task.fsm.event(res.TASK_EVENT_DOWNLOAD)
+        resource.task_manager.store(task)
+        done, fed = [], []
+        for k, hi in enumerate(rng.choice(n, peers, replace=False)):
+            peer = res.Peer(f"peer-{t:02d}-{k:03d}", task, hosts.load(ids[hi]))
+            peer.fsm.event(res.PEER_EVENT_REGISTER_NORMAL)
+            peer.fsm.event(res.PEER_EVENT_DOWNLOAD)
+            for cost in rng.lognormal(np.log(40.0), 0.5, rng.integers(2, 9)):
+                peer.append_piece_cost(float(cost))
+            if k < peers // 4:
+                peer.fsm.event(res.PEER_EVENT_DOWNLOAD_SUCCEEDED)
+                peer.finished_pieces = set(range(task.total_piece_count))
+                done.append(peer)
+            else:
+                peer.finished_pieces = set(range(int(rng.integers(0, task.total_piece_count))))
+                fed.append(peer)
+            resource.peer_manager.store(peer)
+        for peer in fed:
+            task.add_peer_edge(done[int(rng.integers(len(done)))], peer)
+        running += fed
+    return resource, running
+
+
+def scheduler_leg(
+    device, hosts=10_000, probes=16, tasks=40, peers=256, wave_size=256, waves=20, warmup=2, seed=0
+) -> dict:
+    """The scheduler's ``ml`` decision path on ``device``: a model installed
+    by the refresher, then ``warmup`` + ``waves`` waves of ``wave_size``
+    running children through ``Scheduling.find_candidate_parents_wave``.
+    Each checked wave must be scored by the service (rung ``serving``, one
+    service wave, no demotion, no fallback) and rank every decision by
+    ``rank_order`` of its scores; on the card the same waves then run on
+    the CPU and must give the same candidate sets and scores within
+    ``SCORE_TOL``."""
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    ids, fed = probe_graph(hosts, probes, rng)
+    resource, running = build_swarm(ids, tasks, peers, rng)
+    children = [
+        [running[i] for i in rng.choice(len(running), wave_size, replace=False)]
+        for _ in range(warmup + waves)
+    ]
+    blob = serialize_params(init_mlp(torch.Generator().manual_seed(seed), MLP_DIMS))
+
+    def run(dev):
+        """The leg's waves on ``dev`` → per checked wave (candidate ids per
+        decision, features, per-decision (scores, ranking)), and times."""
+        eng = fed(dev)
+        eng.flush(now=PROBED_AT)
+        service = _RecordingService()
+        service.start()
+        try:
+            evaluator = _RecordingEvaluator(topology=eng, serving=service)
+            refresher = ModelRefresher(
+                _Manager(blob), evaluator, serving=service, device=dev, requests=PlainRequests()
+            )
+            t0 = time.perf_counter()
+            check(refresher.refresh_once(), "the refresher installed no model")
+            install_ms = (time.perf_counter() - t0) * 1e3
+            check(service.model_kind() == "mlp" and evaluator._model is not None, "model not installed")
+            sched = Scheduling(evaluator)
+            fallbacks = scheduler_metrics.SERVING_FALLBACK_TOTAL
+            phases = (wave.PH_WAVE_PACK, wave.PH_WAVE_SCORE)
+            out, walls, rows = [], [], []
+            for w, kids in enumerate(children):
+                if w == warmup:
+                    phase0 = [(ph.count, ph.total_s) for ph in phases]
+                    batches0 = service.batches
+                before = (service.waves, sum(fallbacks.labels(r).value for r in ("mlp", "base")))
+                t_start = time.time_ns()
+                random.seed(seed * 1000 + w)
+                t0 = time.perf_counter()
+                found = sched.find_candidate_parents_wave(kids)
+                sync(dev)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                if w < warmup:
+                    print(f"scheduler[{dev}]: warm-up wave {w}: {wall_ms:.1f} ms, rung {evaluator._rung!r}")
+                    continue
+                walls.append(wall_ms)
+                feats, scored = service.last
+                sets = evaluator.last_sets
+                last = [
+                    e for e in flight.snapshot(["scheduler"])["scheduler"]
+                    if e["type"] == "scheduler.wave_evaluated" and e["ts_ns"] >= t_start
+                ]
+                name = f"scheduler[{dev}] wave {w}"
+                check(evaluator._rung == "serving", f"{name}: rung {evaluator._rung!r}, not serving")
+                check(service.waves == before[0] + 1, f"{name}: the service scored no wave")
+                check(len(last) == 1 and last[0]["demoted"] == 0, f"{name}: demoted decisions {last}")
+                check(
+                    sum(fallbacks.labels(r).value for r in ("mlp", "base")) == before[1],
+                    f"{name}: a serving fallback was counted",
+                )
+                check(all(ok for _, ok in found) and len(sets) == len(kids), f"{name}: a child found no parent")
+                check(feats.shape == (sum(map(len, sets)), MLP_FEATURE_DIM), f"{name}: feature shape")
+                for (parents, _), cands, (scores, ranking) in zip(found, sets, scored):
+                    check(np.isfinite(scores).all() and len(scores) == len(cands), f"{name}: scores")
+                    check(
+                        np.array_equal(ranking, wave.rank_order(scores, np.zeros(len(scores)))),
+                        f"{name}: a ranking differs from rank_order of its scores",
+                    )
+                    check(
+                        [p.id for p in parents] == [cands[int(k)].id for k in ranking[:4]],
+                        f"{name}: the decision is not its ranking's head",
+                    )
+                rows.append(feats.shape[0])
+                out.append(([[p.id for p in c] for c in sets], feats, scored))
+            times = {
+                "install_ms": install_ms,
+                "rows_per_wave": statistics.mean(rows),
+                "service_batches": service.batches - batches0,
+                "schedule_wave_ms": statistics.median(walls),
+                "schedule_wave_mean_ms": statistics.mean(walls),
+            }
+            for key, ph, (n0, s0) in zip(("pack_ms", "score_ms"), phases, phase0):
+                times[key] = (ph.total_s - s0) / (ph.count - n0) * 1e3
+            if dev.type == "cuda":  # one more wave, traced, outside the times above
+                random.seed(seed * 1000 + warmup)
+                try:  # the trace is a reading aid; the checked waves stand
+                    traced = device_busy(lambda: sched.find_candidate_parents_wave(children[warmup]))
+                except Exception as exc:
+                    traced = (None, None)
+                    print(f"scheduler[{dev}]: no device trace: {exc}")
+                wall_ms, busy_ms = traced
+                if busy_ms is not None:
+                    times.update(traced_wave_ms=wall_ms, device_busy_ms=busy_ms,
+                                 device_idle_share=1 - busy_ms / wall_ms)
+                    print(
+                        f"scheduler[{dev}]: traced wave: {wall_ms:.2f} ms wall, device busy"
+                        f" {busy_ms:.3f} ms (idle share {times['device_idle_share']:.4f})"
+                    )
+            return out, times
+        finally:
+            service.stop()
+
+    got, times = run(device)
+    decisions = waves * wave_size
+    mean_cands = sum(f.shape[0] for _, f, _ in got) / decisions
+    times["filter_ms"] = times["schedule_wave_mean_ms"] - times["pack_ms"] - times["score_ms"]
+    print(
+        f"scheduler[{device}]: {len(ids)} hosts, {tasks} tasks x {peers} peers,"
+        f" {waves} waves of {wave_size}: rows/wave={times['rows_per_wave']:.1f}"
+        f" (mean {mean_cands:.2f} candidates per decision) service_batches={times['service_batches']}"
+        f" install_ms={times['install_ms']:.1f} schedule_wave_ms={times['schedule_wave_ms']:.2f}"
+        f" (mean {times['schedule_wave_mean_ms']:.2f}: pack_ms={times['pack_ms']:.2f}"
+        f" score_ms={times['score_ms']:.2f} filter_ms={times['filter_ms']:.2f})"
+    )
+    if mean_cands < 8:
+        print(f"scheduler[{device}]: only {mean_cands:.2f} candidates per decision (fewer than 8)")
+    check(mean_cands >= 8, "fewer than 8 candidates per decision")
+    out = {**times, "decisions": decisions, "mean_candidates": mean_cands}
+    if device.type == "cuda":
+        want, _ = run(torch.device("cpu"))
+        score_err = rtt_err = 0.0
+        for w, ((sets, feats, scored), (cpu_sets, cpu_feats, cpu_scored)) in enumerate(zip(got, want)):
+            check(sets == cpu_sets, f"wave {w}: candidate sets differ from the CPU run")
+            check(np.array_equal(feats[:, :-1], cpu_feats[:, :-1]), f"wave {w}: host features differ")
+            rtt_err = max(rtt_err, float(np.abs(feats[:, -1] - cpu_feats[:, -1]).max()))
+            for (s, _), (cs, _) in zip(scored, cpu_scored):
+                score_err = max(score_err, float(np.abs(s - cs).max()))
+        print(
+            f"scheduler: candidate sets equal the CPU run's in {waves} waves;"
+            f" max|rtt_affinity - cpu|={rtt_err:.3g} (tol 1e-5)"
+            f" max|score(bf16) - cpu(f32)|={score_err:.3g} (tol {SCORE_TOL:g})"
+        )
+        check(rtt_err <= 1e-5, "rtt_affinity differs from the CPU engine")
+        check(score_err <= SCORE_TOL, "scores differ from the CPU run")
+        out.update(rtt_err=rtt_err, score_err=score_err)
     return out
 
 
@@ -552,6 +858,9 @@ def main() -> int:
     flash.reset_launches()
     serve = serve_leg("cuda")
     check(flash.LAUNCHES == 0, "the serve leg runs no attention")
+    flash.reset_launches()
+    scheduler = scheduler_leg("cuda")
+    check(flash.LAUNCHES == 0, "the scheduler leg runs no attention")
     encoders = {
         kern: encoder_leg("cuda", dtype=dtype)
         for kern, dtype in (("sm90", torch.bfloat16), ("tf32x3", torch.float32))
@@ -561,6 +870,7 @@ def main() -> int:
 
     print(json.dumps({
         "serve": serve,
+        "scheduler": scheduler,
         "encoder": encoders,
         "tf32x3_d8_bf16": rows["tf32x3_d8_bf16"],
         "tf32x3_prepass_ms": prepass_ms,

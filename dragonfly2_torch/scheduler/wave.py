@@ -11,6 +11,16 @@ from __future__ import annotations
 
 import numpy as np
 
+from dragonfly2_torch.utils import flight, profiling
+
+# phases: the wave feature pack (id intern + rtt gather + column assembly)
+# and the wave score leg (submit → scores + rankings in hand)
+PH_WAVE_PACK = profiling.phase_type("scheduler.wave_pack")
+PH_WAVE_SCORE = profiling.phase_type("scheduler.wave_score")
+
+# flight event: one record per evaluated wave (never per decision)
+EV_WAVE = flight.event_type("scheduler.wave_evaluated")
+
 
 def segment_ids(counts) -> np.ndarray:
     """[Σ counts] non-decreasing segment id per flattened row."""

@@ -1,7 +1,8 @@
 """The port on an NVIDIA card: both CUDA flash kernels against their plain
 PyTorch version (strided inputs, alignment checks, the tf32x3 pre-pass bit
 for bit and per-kernel launch counting included), and the serving and
-topology planes on the card against the same port on the CPU.
+topology planes on the card against the same port on the CPU, and one wave
+of the scheduler's ``ml`` decision path on the card.
 
 Every test here needs a card and skips without one. It imports neither jax
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -9,13 +10,19 @@ nor the JAX package, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import random
+
 import numpy as np
 import pytest
 import torch
 
 from dragonfly2_torch.models.mlp import init_mlp
 from dragonfly2_torch.ops import flash
+from dragonfly2_torch.scheduler import resource as res
 from dragonfly2_torch.scheduler import wave
+from dragonfly2_torch.scheduler.evaluator import MLEvaluator
+from dragonfly2_torch.scheduler.scheduling import Scheduling
+from dragonfly2_torch.scheduler.serving import MLPServed, ScoringService
 from dragonfly2_torch.topology import TopologyConfig, TopologyEngine
 from dragonfly2_torch.trainer.serving import MLPScorer
 
@@ -228,3 +235,68 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     )
     for s, d in zip(src[:50], dst[:50]):
         assert engines[0].est_rtt_ns(s, d) == engines[1].est_rtt_ns(s, d)
+
+
+def test_one_wave_of_the_decision_path_on_the_card(cuda):
+    """Scheduling → MLEvaluator → ScoringService → MLPScorer on the card:
+    the wave is served (rung ``serving``), each decision is the head of
+    ``rank_order`` of the card's scores for its candidates, and the scores
+    are within 2e-2 of the same features scored on the CPU."""
+    rng = np.random.default_rng(2)
+    task = res.Task("layer", "https://registry.example/blob")
+    task.content_length = 64 << 20
+    task.total_piece_count = 16
+    peers = []
+    for i in range(48):
+        host = res.Host(id=f"h{i}", type=res.HostType.SUPER if i % 8 == 0 else res.HostType.NORMAL)
+        host.cpu.percent = float(rng.uniform(0, 100))
+        host.memory.used_percent = float(rng.uniform(0, 100))
+        host.network.location = f"cn|r{i % 3}|z{i % 5}"
+        peer = res.Peer(f"p{i}", task, host)
+        peer.fsm.event(res.PEER_EVENT_REGISTER_NORMAL)
+        peer.fsm.event(res.PEER_EVENT_DOWNLOAD)
+        if i < 12:
+            peer.fsm.event(res.PEER_EVENT_DOWNLOAD_SUCCEEDED)
+        peer.finished_pieces = set(range(int(rng.integers(0, 17))))
+        task.store_peer(peer)
+        peers.append(peer)
+    for peer in peers[12:]:
+        task.add_peer_edge(peers[int(rng.integers(12))], peer)
+    mlp = init_mlp(torch.Generator().manual_seed(0), [19, 128, 128, 1])
+    scorer = MLPScorer(mlp, device="cuda")
+
+    class Recording(ScoringService):
+        def score_wave(self, features, pairs, counts, budget_s=None):
+            self.last = (features, super().score_wave(features, pairs, counts, budget_s))
+            return self.last[1]
+
+    class Evaluator(MLEvaluator):
+        def evaluate_wave(self, children, candidate_sets, totals):
+            self.last_sets = candidate_sets
+            return super().evaluate_wave(children, candidate_sets, totals)
+
+    service = Recording()
+    service.start()
+    try:
+        service.install(MLPServed(scorer), version="mlp/v1")
+        evaluator = Evaluator(scorer, serving=service)
+        scheduling = Scheduling(evaluator)
+        children = peers[12:44]
+        random.seed(0)
+        scheduling.find_candidate_parents_wave(children)  # warms the service thread
+        random.seed(1)
+        found = scheduling.find_candidate_parents_wave(children)
+        assert evaluator._rung == "serving"
+        assert service.snapshot()["waves"] == 2
+        features, scored = service.last
+        for (parents, ok), cands, (scores, ranking) in zip(found, evaluator.last_sets, scored):
+            assert ok and len(scores) == len(cands) and np.isfinite(scores).all()
+            assert np.array_equal(ranking, wave.rank_order(scores, np.zeros(len(scores))))
+            assert [p.id for p in parents] == [cands[int(k)].id for k in ranking[:4]]
+        np.testing.assert_allclose(
+            np.concatenate([s for s, _ in scored]),
+            MLPScorer(mlp, device="cpu").predict(features),
+            atol=2e-2,
+        )
+    finally:
+        service.stop()

@@ -35,7 +35,20 @@ Phases (any failed check raises and the script exits non-zero):
    demotion, rank each decision by ``rank_order`` of its card scores, and
    match the same waves run on the CPU (candidate sets equal, scores
    within 2e-2);
-5. encoder leg at full width: the piece-sequence transformer (model_dim
+5. trainer leg: one upload round of the scheduler's record sink (11
+   files × 100 MiB of binary train blocks, ~1.8 M download records, and
+   the serve leg's probe graph as ~40,000 topology records) fed through
+   ``TrainerService.Train`` in 128 MiB chunks; ``Training`` as the trainer
+   server builds it from its defaults fits the MLP on the streamed path
+   (pinned buffers, a side-stream copy stage, 2 passes) and the GNN (60
+   epochs) at once on the card and uploads both through ``CreateModel``
+   to a manager stand-in; each holdout mse must beat the mean predictor's;
+   the refresher then installs the trained MLP and scheduler waves rank
+   on it (rung ``serving``, no demotion, scores as on the CPU); a reduced
+   streamed fit is held against the CPU's (each step's loss and the
+   holdout mse within ``FIT_TOL``), and ~20 superbatches are traced for
+   the device's idle share;
+6. encoder leg at full width: the piece-sequence transformer (model_dim
    256, 4 heads, 4 layers) on B = 2, T = 8192 with flash attention, against
    the plain ``local_attention``: once in bfloat16, which must launch
    ``flash_fwd_sm90`` once per layer and ``flash_fwd_tf32x3`` never, and
@@ -52,6 +65,7 @@ from __future__ import annotations
 import json
 import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -70,21 +84,35 @@ from dragonfly2_torch import _build
 from dragonfly2_torch.models.attention import apply_transformer, init_transformer
 from dragonfly2_torch.models.mlp import init_mlp
 from dragonfly2_torch.ops import flash
-from dragonfly2_torch.schema.features import GRU_FEATURE_DIM, MLP_FEATURE_DIM
+from dragonfly2_torch.schema import records as R
+from dragonfly2_torch.schema import synth, wire
+from dragonfly2_torch.schema.features import GRU_FEATURE_DIM, MLP_FEATURE_DIM, build_probe_graph
 from dragonfly2_torch.scheduler import metrics as scheduler_metrics
 from dragonfly2_torch.scheduler import resource as res
 from dragonfly2_torch.scheduler import wave
 from dragonfly2_torch.scheduler.evaluator import MLEvaluator
-from dragonfly2_torch.scheduler.model_refresher import ModelRefresher, PlainRequests
+from dragonfly2_torch.scheduler.model_refresher import (
+    ManagerUploader,
+    ModelRefresher,
+    PlainRequests,
+)
 from dragonfly2_torch.scheduler.scheduling import Scheduling
 from dragonfly2_torch.scheduler.serving import ScoringService
 from dragonfly2_torch.topology import TopologyConfig, TopologyEngine
+from dragonfly2_torch.trainer import metrics as M_T
+from dragonfly2_torch.trainer.ingest import holdout_mask, stream_train_mlp
 from dragonfly2_torch.trainer.serving import (
     MLPScorer,
     deserialize_params_auto,
     serialize_params,
 )
+from dragonfly2_torch.trainer.service import PlainMessages, TrainerService
+from dragonfly2_torch.trainer.storage import TrainerStorage
+from dragonfly2_torch.trainer.train import FitConfig, GNNFitConfig, _batch_steps, _split_eval
+from dragonfly2_torch.trainer.training import Training, TrainingConfig
 from dragonfly2_torch.utils import flight
+from dragonfly2_torch.utils.idgen import gnn_model_id_v1, mlp_model_id_v1
+from dragonfly2_torch.weights import module_tree
 
 # NVIDIA H100 SXM data sheet, dense rates. A float32-accurate product is
 # fastest as 3xTF32 on the tensor cores: three TF32 products at 495 TFLOP/s
@@ -145,6 +173,15 @@ KERNEL_NAMES = {"sm90": "flash_fwd_sm90", "tf32x3": "flash_fwd_tf32x3"}
 MLP_DIMS = [MLP_FEATURE_DIM, 128, 128, 1]  # the trainer's default MLP
 # bfloat16 products on the card against float32 on the CPU
 SCORE_TOL = 2e-2
+# one upload round of the scheduler's record sink — 10 rotated backups and
+# the active file, 100 MiB each (dragonfly2_tpu/scheduler/storage.py:76-77)
+# — shipped in the announcer's 128 MiB chunks (scheduler/announcer.py:38)
+UPLOAD_FILES, FILE_MIB, UPLOAD_CHUNK = 11, 100, 128 << 20
+TRAINER_IP, TRAINER_HOST = "10.0.0.2", "scheduler-0"
+TRAINER_WORK = Path(__file__).resolve().parent / "build" / "trainer_leg"
+# a streamed fit on the card (bfloat16 matmul inputs) against the same fit
+# on the CPU (float32): each step's loss and the holdout mse, relative
+FIT_TOL = 5e-2  # twice what bf16 inputs emulated on the CPU may move them (tests/test_torch_ingest.py)
 
 
 def check(ok: bool, what: str) -> None:
@@ -415,12 +452,18 @@ PROBED_AT = 1_000_000.0  # the engines' clock: probes land a minute before
 
 def probe_graph(hosts: int, probes: int, rng: np.random.Generator):
     """Probe measurements drawn from ``rng``: each host probes ``probes``
-    distinct other hosts, RTTs log-normal around 20 ms → (host ids, a
-    function that feeds them into a new engine on a device)."""
+    distinct other hosts; the RTT follows seeded latent host coordinates
+    in the unit square (the reference synth's model: 1 ms + 80 ms ×
+    distance + exponential noise of mean 2 ms), so it is learnable from
+    host identity → (host ids, a function that feeds them into a new
+    engine on a device, the probed peers [hosts, probes] and their RTTs
+    in ns)."""
     ids = [f"host-{i:05d}" for i in range(hosts)]
     peers = np.stack([rng.choice(hosts - 1, probes, replace=False) for _ in range(hosts)])
     peers += peers >= np.arange(hosts)[:, None]  # distinct peers, no self probe
-    rtts = rng.lognormal(np.log(20e6), 0.6, (hosts, probes)).astype(np.int64)
+    coords = rng.uniform(0, 1, (hosts, 2))
+    dist = np.linalg.norm(coords[:, None, :] - coords[peers], axis=-1)
+    rtts = ((1.0 + 80.0 * dist + rng.exponential(2.0, (hosts, probes))) * 1e6).astype(np.int64)
     cfg = TopologyConfig(flush_threshold=10**9, max_pending=hosts * probes + 1)
 
     def fed(dev):
@@ -430,7 +473,7 @@ def probe_graph(hosts: int, probes: int, rng: np.random.Generator):
                 eng.enqueue(ids[i], ids[int(j)], int(rtt), created_at=PROBED_AT - 60.0)
         return eng
 
-    return ids, fed
+    return ids, fed, peers, rtts
 
 
 def serve_leg(device, hosts=10_000, probes=16, waves=(256, 15), repeats=20, seed=0) -> dict:
@@ -438,7 +481,7 @@ def serve_leg(device, hosts=10_000, probes=16, waves=(256, 15), repeats=20, seed
     against the same port on the CPU."""
     device = torch.device(device)
     rng = np.random.default_rng(seed)
-    ids, fed = probe_graph(hosts, probes, rng)
+    ids, fed, _, _ = probe_graph(hosts, probes, rng)
     now = PROBED_AT
     eng = fed(device)
     t0 = time.perf_counter()
@@ -526,19 +569,26 @@ class _Model:
 
 
 class _Manager:
-    """In-process stand-in for the manager's model registry: one active MLP
-    whose weights are ``blob`` (npz bytes)."""
+    """In-process stand-in for the manager's model registry: ``CreateModel``
+    stores a model as version 1, active at once (the manager's activation
+    step is an operator's), ``ListModels`` lists them and
+    ``GetModelWeights`` returns a stored model's npz bytes."""
 
-    def __init__(self, blob: bytes):
-        self.model = _Model("mlp-smoke", "mlp", 1, "active", 1, 1)
-        self.blob = blob
+    def __init__(self):
+        self.created = {}  # model_id → the CreateModel request
+
+    def CreateModel(self, request):
+        self.created[request.model_id] = request
 
     def ListModels(self, request):
-        return SimpleNamespace(models=[self.model])
+        return SimpleNamespace(models=[
+            _Model(r.model_id, r.type, 1, "active", n + 1, n + 1)
+            for n, r in enumerate(self.created.values())
+        ])
 
     def GetModelWeights(self, request):
-        check((request.model_id, request.version) == ("mlp-smoke", 1), "unknown model asked for")
-        return SimpleNamespace(weights=self.blob)
+        check(request.model_id in self.created and request.version == 1, "unknown model asked for")
+        return SimpleNamespace(weights=self.created[request.model_id].weights)
 
 
 class _RecordingEvaluator(MLEvaluator):
@@ -637,25 +687,30 @@ def build_swarm(ids, tasks: int, peers: int, rng: np.random.Generator):
 
 
 def scheduler_leg(
-    device, hosts=10_000, probes=16, tasks=40, peers=256, wave_size=256, waves=20, warmup=2, seed=0
+    device, hosts=10_000, probes=16, tasks=40, peers=256, wave_size=256, waves=20, warmup=2,
+    seed=0, manager=None,
 ) -> dict:
-    """The scheduler's ``ml`` decision path on ``device``: a model installed
-    by the refresher, then ``warmup`` + ``waves`` waves of ``wave_size``
-    running children through ``Scheduling.find_candidate_parents_wave``.
-    Each checked wave must be scored by the service (rung ``serving``, one
-    service wave, no demotion, no fallback) and rank every decision by
-    ``rank_order`` of its scores; on the card the same waves then run on
-    the CPU and must give the same candidate sets and scores within
-    ``SCORE_TOL``."""
+    """The scheduler's ``ml`` decision path on ``device``: the active MLP of
+    ``manager`` (by default a stand-in holding a seeded random one)
+    installed by the refresher, then ``warmup`` + ``waves`` waves of
+    ``wave_size`` running children through
+    ``Scheduling.find_candidate_parents_wave``. Each checked wave must be
+    scored by the service (rung ``serving``, one service wave, no
+    demotion, no fallback) and rank every decision by ``rank_order`` of
+    its scores; on the card the same waves then run on the CPU and must
+    give the same candidate sets and scores within ``SCORE_TOL``."""
     device = torch.device(device)
     rng = np.random.default_rng(seed)
-    ids, fed = probe_graph(hosts, probes, rng)
+    ids, fed, _, _ = probe_graph(hosts, probes, rng)
     resource, running = build_swarm(ids, tasks, peers, rng)
     children = [
         [running[i] for i in rng.choice(len(running), wave_size, replace=False)]
         for _ in range(warmup + waves)
     ]
-    blob = serialize_params(init_mlp(torch.Generator().manual_seed(seed), MLP_DIMS))
+    if manager is None:
+        manager = _Manager()
+        blob = serialize_params(init_mlp(torch.Generator().manual_seed(seed), MLP_DIMS))
+        manager.CreateModel(PlainRequests().create_model("mlp-smoke", "mlp", "", "smoke", blob, {}))
 
     def run(dev):
         """The leg's waves on ``dev`` → per checked wave (candidate ids per
@@ -667,11 +722,13 @@ def scheduler_leg(
         try:
             evaluator = _RecordingEvaluator(topology=eng, serving=service)
             refresher = ModelRefresher(
-                _Manager(blob), evaluator, serving=service, device=dev, requests=PlainRequests()
+                manager, evaluator, serving=service, device=dev, requests=PlainRequests()
             )
             t0 = time.perf_counter()
             check(refresher.refresh_once(), "the refresher installed no model")
             install_ms = (time.perf_counter() - t0) * 1e3
+            mlps = [m for m in manager.ListModels(None).models if m.type == "mlp"]
+            check(refresher.loaded_version == (mlps[-1].model_id, 1), "another model installed")
             check(service.model_kind() == "mlp" and evaluator._model is not None, "model not installed")
             sched = Scheduling(evaluator)
             fallbacks = scheduler_metrics.SERVING_FALLBACK_TOTAL
@@ -784,6 +841,260 @@ def scheduler_leg(
     return out
 
 
+
+def topology_records(ids, peers, rtts, rng: np.random.Generator) -> list:
+    """The probe graph as the scheduler's topology snapshotter writes it:
+    one ``NetworkTopologyRecord`` per host and per ≤ 5 of its probed peers
+    (``records.MAX_DEST_HOSTS``), host stats seeded from ``rng``, about 1
+    host in 50 a seed peer."""
+    n = len(ids)
+    seeds = rng.random(n) < 1 / 50
+    tcp = rng.integers(10, 2000, n)
+    utcp = rng.integers(0, 500, n)
+
+    def host(cls, i, **kw):
+        return cls(
+            id=ids[i], type="super" if seeds[i] else "normal", hostname=ids[i],
+            ip=f"10.{i >> 16}.{(i >> 8) & 255}.{i & 255}", port=65000,
+            network=R.Network(
+                tcp_connection_count=int(tcp[i]), upload_tcp_connection_count=int(utcp[i]),
+                idc=f"idc-{i % 16}",
+            ),
+            **kw,
+        )
+
+    out = []
+    for i in range(n):
+        for c in range(0, peers.shape[1], R.MAX_DEST_HOSTS):
+            dests = [
+                host(R.DestHost, int(j), probes=R.ProbesRecord(average_rtt=int(rtt)))
+                for j, rtt in zip(peers[i, c : c + R.MAX_DEST_HOSTS], rtts[i, c : c + R.MAX_DEST_HOSTS])
+            ]
+            out.append(R.NetworkTopologyRecord(
+                id=f"nt-{i}-{c // R.MAX_DEST_HOSTS}", host=host(R.SrcHost, i), dest_hosts=dests,
+            ))
+    return out
+
+
+def encode_blocks(encode, recs) -> bytes:
+    """``recs`` as consecutive blocks of ``wire.BLOCK_RECORDS``, the size the
+    scheduler's sink flushes."""
+    step = wire.BLOCK_RECORDS
+    return b"".join(encode(recs[i : i + step]) for i in range(0, len(recs), step))
+
+
+def holdout_labels(blocks, eval_every: int, cap: int, total_blocks: int) -> np.ndarray:
+    """The labels ``stream_train_mlp`` holds out and collects from a stream
+    of ``total_blocks`` blocks that repeats ``blocks`` (decoded shards in
+    stream order): every shard's ``ingest.holdout_mask`` pairs, appended
+    until ``cap`` pairs are collected, as the fit collects them."""
+    out, got = [], 0
+    for b in range(total_blocks):
+        if got >= cap:
+            break
+        feats, labels = blocks[b % len(blocks)]
+        mask = holdout_mask(feats, labels, eval_every)
+        if mask.any():
+            out.append(labels[mask])
+            got += int(mask.sum())
+    return np.concatenate(out).astype(np.float32)
+
+
+def mean_mse(y: np.ndarray) -> float:
+    """MSE of the mean predictor (every prediction the labels' mean)."""
+    return float(np.mean((y - y.mean()) ** 2))
+
+
+def trainer_leg(
+    device, files=UPLOAD_FILES, file_mib=FILE_MIB, hosts=10_000, probes=16, mlp_epochs=3,
+    gnn_epochs=60, check_blocks=64, window_superbatches=20, seed=0,
+    serve=dict(tasks=8, peers=64, wave_size=64, waves=2, warmup=1),
+    streaming_threshold_bytes=TrainingConfig.streaming_threshold_bytes,
+    group_records=2000, mlp_batch=8192, gnn_batch=2048,
+) -> dict:
+    """The trainer's fit path on ``device``: one upload round — ``files`` ×
+    ``file_mib`` MiB of binary train blocks (2,000 seeded download records
+    replicated, as ``synth.synthesize_dataset_binary`` does) and the serve
+    leg's probe graph as topology blocks — fed through
+    ``TrainerService.Train`` in the announcer's chunks; ``Training`` built
+    as the trainer server builds it from its defaults (MLP streamed,
+    2 passes, 1 worker, k = 1; GNN 60 epochs; no GRU; a rehearsal at a
+    reduced size lowers the 64 MiB streaming threshold, the group and the
+    batches). Both uploads must
+    reach the manager stand-in and beat the mean predictor on their
+    holdout; then the refresher installs the trained MLP and scheduler
+    waves rank on it (``scheduler_leg``). On the card, a reduced streamed
+    fit is held against the same fit on the CPU, and ~20 superbatches
+    are traced for the device's idle share."""
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    shutil.rmtree(TRAINER_WORK, ignore_errors=True)
+    TRAINER_WORK.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        group = encode_blocks(
+            wire.encode_train_block, synth.make_download_records(group_records, seed=seed)
+        )
+        group_path = TRAINER_WORK / "group.dfb"
+        group_path.write_bytes(group)
+        group_pairs = wire.read_train_pairs(group_path)
+        reps = max(1, (file_mib << 20) // len(group))
+        ids, _, peers, rtts = probe_graph(hosts, probes, rng)
+        topo_path = TRAINER_WORK / "topology.dfb"
+        topo_path.write_bytes(encode_blocks(wire.encode_topology_block, topology_records(ids, peers, rtts, rng)))
+        records = files * reps * group_pairs.num_downloads
+        print(
+            f"trainer[{device}]: upload round: {files} files x {reps} x {len(group)} B ="
+            f" {files * reps * len(group) / 2**20:.1f} MiB of train blocks ({records} download"
+            f" records, {files * reps * len(group_pairs.labels)} pairs); topology"
+            f" {topo_path.stat().st_size / 2**20:.1f} MiB ({hosts} hosts x {probes} probes);"
+            f" made in {time.perf_counter() - t0:.1f}s"
+        )
+
+        messages = PlainMessages()
+
+        def chunks(kind, data):
+            for off in range(0, len(data), UPLOAD_CHUNK):
+                yield messages.train_request(TRAINER_IP, TRAINER_HOST, kind, data[off : off + UPLOAD_CHUNK])
+
+        def requests():
+            for _ in range(files):
+                yield from chunks("train_mlp_binary", group * reps)
+            yield from chunks("train_gnn_binary", topo_path.read_bytes())
+
+        manager = _Manager()
+        config = TrainingConfig(
+            mlp=FitConfig(epochs=mlp_epochs, batch_size=mlp_batch),
+            gnn=GNNFitConfig(epochs=gnn_epochs, batch_size=gnn_batch),
+            gru=False,
+            streaming_workers=1,
+            streaming_threshold_bytes=streaming_threshold_bytes,
+        )
+        storage = TrainerStorage(TRAINER_WORK / "storage")
+        training = Training(storage, ManagerUploader(manager, PlainRequests()), config, device=device)
+        service = TrainerService(storage, training, synchronous=True, messages=messages)
+        fit_walls = {m: (M_T.FIT_DURATION.labels(m).total, M_T.FIT_TOTAL.labels(m, "success").value)
+                     for m in ("mlp", "gnn")}
+        since = time.time_ns()
+        t0 = time.perf_counter()
+        service.Train(requests(), None)
+        sync(device)
+        round_s = time.perf_counter() - t0
+        events = [e for e in flight.snapshot(["trainer"])["trainer"] if e["ts_ns"] >= since]
+        rounds = [e for e in events if e["type"] == "trainer.round"]
+        check(len(rounds) == 1 and rounds[0]["ok"], f"the training round failed: {rounds}")
+        done = [e for e in events if e["type"] == "trainer.stream_done"]
+        check(len(done) == 1, "the MLP leg did not take the streamed fit")
+        split = done[0]
+        check(device.type == "cpu" or split["h2d_s"] > 0, "the streamed fit copied nothing to the card")
+        for m, (total0, ok0) in fit_walls.items():
+            check(M_T.FIT_TOTAL.labels(m, "success").value == ok0 + 1, f"no successful {m} fit")
+            fit_walls[m] = M_T.FIT_DURATION.labels(m).total - total0
+        mlp_up = manager.created[mlp_model_id_v1(TRAINER_IP, TRAINER_HOST)]
+        gnn_up = manager.created[gnn_model_id_v1(TRAINER_IP, TRAINER_HOST)]
+        check(mlp_up.type == "mlp" and gnn_up.type == "gnn", "uploads of the wrong type")
+
+        # mean predictors on the same holdouts
+        cap = 16 * config.mlp.batch_size  # stream_train_mlp's eval_max_batches
+        eval_every = max(2, round(1.0 / config.mlp.eval_fraction))
+        blocks = [(f, l) for f, l, _ in wire.stream_train_pairs(group_path, half=True)]
+        y_mlp = holdout_labels(blocks, eval_every, cap, files * reps * len(blocks) * config.streaming_passes)
+        graph = build_probe_graph(wire.read_columns(topo_path), max_degree=config.gnn_max_degree)
+        train_idx, eval_idx = _split_eval(len(graph.edge_src), config.gnn.eval_fraction, config.gnn.seed)
+        gnn_steps = _batch_steps(len(train_idx), config.gnn.batch_size)[0] * config.gnn.epochs
+        mlp_ev, gnn_ev = mlp_up.evaluation, gnn_up.evaluation
+        out = {
+            "round_s": round_s,
+            "download_mib": files * reps * len(group) / 2**20,
+            "mlp": {
+                "fit_wall_s": fit_walls["mlp"], "records": split["records"],
+                "records_per_s": split["records"] / split["wall_s"], "steps": split["steps"],
+                "pairs": split["pairs"], "mse": mlp_ev.mse, "mae": mlp_ev.mae,
+                "mean_predictor_mse": mean_mse(y_mlp), "holdout_pairs": len(y_mlp),
+                **{k: split[k] for k in ("wall_s", "decode_wait_s", "buffer_wait_s", "h2d_s",
+                                         "h2d_overlap_s", "step_s", "read_s", "cast_s", "enqueue_s")},
+            },
+            "gnn": {
+                "fit_wall_s": fit_walls["gnn"], "records": graph.num_records,
+                "records_per_s": graph.num_records / fit_walls["gnn"], "steps": gnn_steps,
+                "edges": len(graph.edge_src), "nodes": graph.num_nodes, "mse": gnn_ev.mse,
+                "mae": gnn_ev.mae, "precision": gnn_ev.precision, "recall": gnn_ev.recall,
+                "f1": gnn_ev.f1,
+                "mean_predictor_mse": mean_mse(graph.edge_rtt_log_ms[eval_idx]),
+            },
+        }
+        m, g = out["mlp"], out["gnn"]
+        print(
+            f"trainer[{device}]: Train stream → fits → CreateModel in {round_s:.1f}s;"
+            f" mlp: fit_wall_s={m['fit_wall_s']:.2f} (stream wall {m['wall_s']:.2f}s)"
+            f" records/s={m['records_per_s']:.0f} steps={m['steps']} pairs={m['pairs']}"
+            f" holdout mse={m['mse']:.5f} mae={m['mae']:.5f} (mean predictor mse"
+            f" {m['mean_predictor_mse']:.5f} on {m['holdout_pairs']} pairs)"
+        )
+        print(
+            f"trainer[{device}]: mlp split: " + " ".join(
+                f"{k}={m[k]:.3f}" for k in ("decode_wait_s", "buffer_wait_s", "h2d_s",
+                                             "h2d_overlap_s", "step_s", "read_s", "cast_s", "enqueue_s"))
+        )
+        print(
+            f"trainer[{device}]: gnn: fit_wall_s={g['fit_wall_s']:.2f} records/s={g['records_per_s']:.0f}"
+            f" ({g['records']} topology records) steps={g['steps']} edges={g['edges']} nodes={g['nodes']}"
+            f" holdout mse={g['mse']:.5f} mae={g['mae']:.5f} precision={g['precision']:.4f}"
+            f" recall={g['recall']:.4f} f1={g['f1']:.4f} (mean predictor mse {g['mean_predictor_mse']:.5f})"
+        )
+        for name, leg in out.items():
+            if name in ("mlp", "gnn"):
+                check(np.isfinite(leg["mse"]) and leg["mse"] < leg["mean_predictor_mse"],
+                      f"the {name} fit does not beat the mean predictor on its holdout")
+
+        out["serve"] = scheduler_leg(device, hosts=hosts, probes=probes, seed=seed, manager=manager, **serve)
+
+        if device.type == "cuda":
+            out["card_vs_cpu"] = card_vs_cpu(group, len(blocks), check_blocks, seed)
+            window = TRAINER_WORK / "window.dfb"
+            per_group = len(group_pairs.labels) * (1 - 1 / eval_every)
+            window.write_bytes(group * int(np.ceil(window_superbatches * mlp_batch / per_group)))
+            fits = []
+            wall_ms, busy_ms = device_busy(lambda: fits.append(stream_train_mlp(
+                window, batch_size=mlp_batch, hidden_dims=config.mlp.hidden_dims, device=device)[1]))
+            if busy_ms is not None:
+                out["window"] = {"superbatches": fits[0].steps, "wall_ms": wall_ms,
+                                 "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms}
+                print(
+                    f"trainer[{device}]: traced window of {fits[0].steps} superbatches: {wall_ms:.1f} ms"
+                    f" wall, device busy {busy_ms:.2f} ms (idle share {1 - busy_ms / wall_ms:.4f})"
+                )
+        return out
+    finally:
+        shutil.rmtree(TRAINER_WORK, ignore_errors=True)
+
+
+def card_vs_cpu(group: bytes, per_group: int, blocks: int, seed: int) -> dict:
+    """A reduced streamed fit (``blocks`` train blocks of ``group``, which
+    holds ``per_group``; one init, float32 staging, 1 worker, 2 passes) on
+    the card against the same fit on the CPU: every step's loss and the
+    holdout mse within ``FIT_TOL``."""
+    path = TRAINER_WORK / "check.dfb"
+    path.write_bytes(group * max(1, blocks // per_group))
+    init = module_tree(init_mlp(torch.Generator().manual_seed(seed), MLP_DIMS))
+    kw = dict(passes=2, batch_size=1024, hidden_dims=tuple(MLP_DIMS[1:-1]), workers=1,
+              transfer_dtype=np.float32, init=init)
+    _, card = stream_train_mlp(path, device="cuda", **kw)
+    _, cpu = stream_train_mlp(path, device="cpu", **kw)
+    check((card.steps, card.pairs, card.eval_pairs) == (cpu.steps, cpu.pairs, cpu.eval_pairs),
+          "the card's fit saw other pairs than the CPU's")
+    a, b = np.asarray(card.losses), np.asarray(cpu.losses)
+    loss_err = float(np.max(np.abs(a - b) / np.abs(b)))
+    mse_err = abs(card.metrics["mse"] - cpu.metrics["mse"]) / cpu.metrics["mse"]
+    print(
+        f"trainer: card vs CPU, {card.steps} steps of 1024 from one init: max rel |loss - cpu|"
+        f"={loss_err:.3g} holdout mse {card.metrics['mse']:.5f} vs {cpu.metrics['mse']:.5f}"
+        f" (rel {mse_err:.3g}; tol {FIT_TOL:g} each)"
+    )
+    check(loss_err <= FIT_TOL and mse_err <= FIT_TOL, "the card's fit differs from the CPU's")
+    return {"steps": card.steps, "loss_rel_err": loss_err, "mse_rel_err": mse_err}
+
+
 def encoder_leg(
     device, batch=ENCODER_BT[0], seq=ENCODER_BT[1], cfg=ENCODER, seed=0, dtype=torch.bfloat16
 ) -> dict:
@@ -861,6 +1172,9 @@ def main() -> int:
     flash.reset_launches()
     scheduler = scheduler_leg("cuda")
     check(flash.LAUNCHES == 0, "the scheduler leg runs no attention")
+    flash.reset_launches()
+    trainer = trainer_leg("cuda")
+    check(flash.LAUNCHES == 0, "the trainer leg runs no attention")
     encoders = {
         kern: encoder_leg("cuda", dtype=dtype)
         for kern, dtype in (("sm90", torch.bfloat16), ("tf32x3", torch.float32))
@@ -871,6 +1185,7 @@ def main() -> int:
     print(json.dumps({
         "serve": serve,
         "scheduler": scheduler,
+        "trainer": trainer,
         "encoder": encoders,
         "tf32x3_d8_bf16": rows["tf32x3_d8_bf16"],
         "tf32x3_prepass_ms": prepass_ms,

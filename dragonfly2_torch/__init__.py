@@ -10,7 +10,11 @@ Ported so far: the scheduler's ``ml`` decision path — candidate filter
 (``scheduler.scheduling``), wave evaluator (``scheduler.evaluator``),
 batched scoring service (``scheduler.serving``) and model refresher over
 the resource model, with the scoring plane under them (topology rtt
-join, MLP ranked scoring, wave helpers) — and the piece-sequence
+join, MLP ranked scoring, wave helpers); the trainer's fit path — the
+Train stream (``trainer.service``) into per-host storage, the streamed
+and batch MLP fits and the GraphSAGE fit (``trainer.training``,
+``trainer.ingest``, ``trainer.train``) over the binary record format
+(``schema.wire``), uploaded to the manager; and the piece-sequence
 transformer encoder, whose attention runs on hand-written CUDA flash
 kernels (``ops.flash``: ``csrc/flash_fwd_sm90.cu`` for bfloat16,
 ``csrc/flash_fwd_tf32x3.cu`` for float32).

@@ -17,43 +17,36 @@ The manager's request messages come from a request factory. The default,
 :class:`ProtoRequests`, builds the manager's protobuf messages from an
 identical copy of the reference's generated ``manager_pb2`` module,
 loaded on first use; :class:`PlainRequests` builds plain records for a
-manager stand-in that needs no protobuf.
+manager stand-in that needs no protobuf. The same factories build the
+trainer's ``CreateModel`` upload (:class:`ManagerUploader`).
 """
 
 from __future__ import annotations
 
-import importlib.util
-import sys
 import threading
 from dataclasses import dataclass
-from pathlib import Path
 
 import numpy as np
 
 from dragonfly2_torch.device import resolve_device
+from dragonfly2_torch.rpc import protos
 from dragonfly2_torch.scheduler.evaluator import MLEvaluator
 from dragonfly2_torch.scheduler.serving import MLPServed
 from dragonfly2_torch.schema.features import MLP_FEATURE_DIM
-from dragonfly2_torch.trainer.serving import MLPScorer, deserialize_params_auto
+from dragonfly2_torch.trainer.serving import (
+    MLPScorer,
+    deserialize_params_auto,
+    serialize_params,
+)
 from dragonfly2_torch.utils import dflog
 
 logger = dflog.get("scheduler.model_refresher")
 
-_MANAGER_PB2 = Path(__file__).resolve().parents[1] / "rpc" / "gen" / "manager_pb2.py"
-
 
 def load_manager_pb2():
     """The manager's generated protobuf module (``rpc/gen/manager_pb2.py``,
-    byte-identical to the reference's: its proto package is the RPCs' wire
-    name, and the descriptor pool accepts the identical file twice)."""
-    name = "dragonfly2_torch.rpc.gen.manager_pb2"
-    module = sys.modules.get(name)
-    if module is None:
-        spec = importlib.util.spec_from_file_location(name, _MANAGER_PB2)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        sys.modules[name] = module
-    return module
+    byte-identical to the reference's)."""
+    return protos.load("manager_pb2")
 
 
 class ProtoRequests:
@@ -73,6 +66,17 @@ class ProtoRequests:
     def get_model(self, model_id: str, version: int):
         return self._messages().GetModelRequest(model_id=model_id, version=version)
 
+    def create_model(self, model_id, model_type, ip, hostname, weights, evaluation):
+        pb2 = self._messages()
+        return pb2.CreateModelRequest(
+            model_id=model_id,
+            type=model_type,
+            ip=ip,
+            hostname=hostname,
+            weights=weights,
+            evaluation=pb2.ModelEvaluation(**evaluation_fields(evaluation)),
+        )
+
 
 @dataclass
 class ListModelsRequest:
@@ -85,6 +89,31 @@ class GetModelRequest:
     version: int
 
 
+@dataclass
+class ModelEvaluation:
+    precision: float = 0.0
+    recall: float = 0.0
+    f1: float = 0.0
+    mse: float = 0.0
+    mae: float = 0.0
+
+
+@dataclass
+class CreateModelRequest:
+    model_id: str
+    type: str
+    ip: str
+    hostname: str
+    weights: bytes
+    evaluation: ModelEvaluation
+
+
+def evaluation_fields(evaluation: "dict[str, float]") -> "dict[str, float]":
+    """The five evaluation numbers the manager stores with a model, 0.0
+    where the fit reported none (an MLP upload has no precision)."""
+    return {k: float(evaluation.get(k, 0.0)) for k in ("precision", "recall", "f1", "mse", "mae")}
+
+
 class PlainRequests:
     """Builds the same requests as plain records."""
 
@@ -93,6 +122,34 @@ class PlainRequests:
 
     def get_model(self, model_id: str, version: int) -> GetModelRequest:
         return GetModelRequest(model_id, version)
+
+    def create_model(
+        self, model_id, model_type, ip, hostname, weights, evaluation
+    ) -> CreateModelRequest:
+        return CreateModelRequest(
+            model_id, model_type, ip, hostname, weights,
+            ModelEvaluation(**evaluation_fields(evaluation)),
+        )
+
+
+class ManagerUploader:
+    """The trainer's side of the manager client (``trainer.training.
+    ManagerClient``): serializes a fitted model with
+    ``weights.serialize_params`` (the reference's npz bytes) and sends
+    ``CreateModel`` through ``stub`` — the manager's gRPC client, or a
+    stand-in with a ``CreateModel`` method — with requests from a
+    factory (``ProtoRequests`` by default)."""
+
+    def __init__(self, stub, requests=None):
+        self.stub = stub
+        self.requests = requests if requests is not None else ProtoRequests()
+
+    def create_model(self, model_id, model_type, ip, hostname, params, evaluation):
+        self.stub.CreateModel(
+            self.requests.create_model(
+                model_id, model_type, ip, hostname, serialize_params(params), evaluation
+            )
+        )
 
 
 class ModelRefresher:

@@ -1,0 +1,216 @@
+"""Synthetic record generation for tests and benchmarks (own copy of the
+reference's ``schema/synth.py``; the same seed gives the same records).
+
+Generates plausible download / topology records with correlated structure
+(a parent's piece cost depends on its load, locality and RTT) so the
+trainer has signal to learn.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from dragonfly2_torch.schema import records as R
+from dragonfly2_torch.schema.features import MLP_FEATURE_DIM, NS_PER_MS
+
+_IDCS = ["idc-a", "idc-b", "idc-c", "idc-d"]
+_LOCS = [
+    "as|cn|sh|dc1",
+    "as|cn|sh|dc2",
+    "as|cn|bj|dc1",
+    "eu|de|fra|dc1",
+    "na|us|iad|dc1",
+]
+
+
+def _host(rng: np.random.Generator, hid: str, seed_peer: bool = False) -> R.HostRecord:
+    uploads = int(rng.integers(0, 10_000))
+    mem_total = 1 << 34
+    mem_used_pct = float(rng.uniform(10, 95))
+    return R.HostRecord(
+        id=hid,
+        type="super" if seed_peer else "normal",
+        hostname=f"host-{hid[:8]}",
+        ip=f"10.{rng.integers(0,255)}.{rng.integers(0,255)}.{rng.integers(1,254)}",
+        port=8002,
+        download_port=8001,
+        os="linux",
+        concurrent_upload_limit=int(rng.integers(50, 200)),
+        concurrent_upload_count=int(rng.integers(0, 50)),
+        upload_count=uploads,
+        # bounded by uploads — a host can't fail more uploads than it served
+        upload_failed_count=int(rng.integers(0, max(uploads // 20, 1))),
+        cpu=R.CPU(
+            logical_count=8,
+            percent=float(rng.uniform(0, 100)),
+            process_percent=float(rng.uniform(0, 40)),
+        ),
+        memory=R.Memory(
+            total=mem_total,
+            used_percent=mem_used_pct,
+            used=int(mem_total * mem_used_pct / 100.0),
+            available=int(mem_total * (100.0 - mem_used_pct) / 100.0),
+        ),
+        network=R.Network(
+            tcp_connection_count=int(rng.integers(10, 2000)),
+            upload_tcp_connection_count=int(rng.integers(0, 500)),
+            location=str(rng.choice(_LOCS)),
+            idc=str(rng.choice(_IDCS)),
+        ),
+        disk=R.Disk(
+            total=1 << 40,
+            used_percent=float(rng.uniform(5, 90)),
+            inodes_total=1 << 24,
+            inodes_used_percent=float(rng.uniform(1, 60)),
+        ),
+    )
+
+
+def make_download_records(n: int, seed: int = 0, parents_per_record: int = 4) -> list[R.DownloadRecord]:
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        child = _host(rng, f"child-{i}")
+        total_pieces = int(rng.integers(8, 64))
+        parents = []
+        for p in range(parents_per_record):
+            ph = _host(rng, f"parent-{i}-{p}", seed_peer=bool(rng.random() < 0.2))
+            # ground-truth cost model: base + load + locality effects
+            base_ms = rng.uniform(5, 20)
+            load = ph.cpu.percent / 100 + ph.concurrent_upload_count / max(ph.concurrent_upload_limit, 1)
+            idc_penalty = 0.0 if ph.network.idc == child.network.idc else 30.0
+            loc_shared = sum(
+                1 for a, b in zip(ph.network.location.split("|"), child.network.location.split("|")) if a == b
+            )
+            mean_ms = base_ms * (1 + 2 * load) + idc_penalty + (4 - loc_shared) * 10
+            pieces = [
+                R.PieceRecord(
+                    length=1 << 20,
+                    cost=int(max(0.5, rng.normal(mean_ms, mean_ms * 0.1)) * NS_PER_MS),
+                    created_at=i,
+                )
+                for _ in range(int(rng.integers(1, R.MAX_PIECES_PER_PARENT + 1)))
+            ]
+            parents.append(
+                R.ParentRecord(
+                    id=f"peer-parent-{i}-{p}",
+                    state="Succeeded",
+                    finished_piece_count=int(rng.integers(1, total_pieces + 1)),
+                    upload_piece_count=len(pieces),
+                    host=ph,
+                    pieces=pieces,
+                )
+            )
+        out.append(
+            R.DownloadRecord(
+                id=f"peer-child-{i}",
+                state="Succeeded",
+                cost=int(rng.integers(1, 60_000) * NS_PER_MS),
+                finished_piece_count=total_pieces,
+                task=R.TaskRecord(
+                    id=f"task-{i % max(n // 4, 1)}",
+                    url=f"https://origin.example.com/blob/{i}",
+                    type="normal",
+                    content_length=total_pieces << 20,
+                    total_piece_count=total_pieces,
+                    state="Succeeded",
+                ),
+                host=child,
+                parents=parents,
+            )
+        )
+    return out
+
+
+def make_topology_records(
+    n: int, num_hosts: int = 64, seed: int = 0
+) -> list[R.NetworkTopologyRecord]:
+    rng = np.random.default_rng(seed)
+    hosts = [_host(rng, f"h{j:04d}", seed_peer=bool(j < num_hosts // 8)) for j in range(num_hosts)]
+    # latent coordinates so RTT is a learnable function of host identity
+    coords = rng.uniform(0, 1, size=(num_hosts, 2))
+    out = []
+    for i in range(n):
+        s = int(rng.integers(0, num_hosts))
+        sh = hosts[s]
+        dests = []
+        for d in rng.choice(num_hosts, size=min(R.MAX_DEST_HOSTS, num_hosts - 1), replace=False):
+            if d == s:
+                continue
+            dh = hosts[int(d)]
+            dist = float(np.linalg.norm(coords[s] - coords[int(d)]))
+            rtt_ms = 1.0 + 80.0 * dist + rng.exponential(2.0)
+            dests.append(
+                R.DestHost(
+                    id=dh.id,
+                    type=dh.type,
+                    hostname=dh.hostname,
+                    ip=dh.ip,
+                    port=dh.port,
+                    network=dh.network,
+                    probes=R.ProbesRecord(average_rtt=int(rtt_ms * NS_PER_MS), created_at=i),
+                )
+            )
+        out.append(
+            R.NetworkTopologyRecord(
+                id=f"nt-{i}",
+                host=R.SrcHost(
+                    id=sh.id, type=sh.type, hostname=sh.hostname, ip=sh.ip, port=sh.port, network=sh.network
+                ),
+                dest_hosts=dests,
+                created_at=i,
+            )
+        )
+    return out
+
+
+def make_pair_tensors(
+    n: int, seed: int = 0, noise: float = 0.05
+) -> tuple[np.ndarray, np.ndarray]:
+    """Directly generate MLP (features, labels) tensors for N pairs — the
+    fast path for throughput benchmarks (no per-record Python objects).
+
+    The label is a fixed nonlinear function of the features plus noise, so
+    training loss decreasing is a real signal of learning.
+    """
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, size=(n, MLP_FEATURE_DIM)).astype(np.float32)
+    w = np.array(
+        [-1.2, -0.8, -0.9, -0.6, -1.5, -1.0, 0.9, 0.5, 0.4, 0.6, 0.3, -0.4,
+         0.7, -0.5, 0.2, 0.8, 0.6, -0.3, 0.9],  # last: rtt_affinity (higher RTT → higher cost)
+        dtype=np.float32,
+    )
+    assert w.shape[0] == MLP_FEATURE_DIM
+    y = 3.0 + x @ w + 0.5 * np.sin(3.0 * x[:, 0]) * x[:, 4] + noise * rng.standard_normal(n).astype(np.float32)
+    return x, y.astype(np.float32)
+
+
+def synthesize_dataset_binary(
+    d: str, shards: int, shard_bytes: int, records_per_block: int | None = None
+) -> list:
+    """Write ``shards`` binary columnar shard files of ~shard_bytes each
+    by replicating a group of encoded `train` blocks (schema/wire.py) —
+    the exact byte format a columnar-v1 announcer upload lands in
+    trainer storage, at the same block size the scheduler's sink flushes
+    (``wire.BLOCK_RECORDS``), so decode rates carry its per-block
+    overhead. The body is 2,000 records of ``make_download_records``
+    (seed 0)."""
+    import os
+
+    from dragonfly2_torch.schema import wire
+
+    rpb = records_per_block or wire.BLOCK_RECORDS
+    recs = make_download_records(2000, seed=0)
+    group = b"".join(
+        wire.encode_train_block(recs[i : i + rpb])
+        for i in range(0, len(recs), rpb)
+    )
+    reps = max(1, shard_bytes // len(group))
+    paths = []
+    for s in range(shards):
+        p = os.path.join(d, f"shard{s}.dfb")
+        with open(p, "wb") as f:
+            for _ in range(reps):
+                f.write(group)
+        paths.append(p)
+    return paths

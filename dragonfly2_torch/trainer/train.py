@@ -1,0 +1,381 @@
+"""Model fit loops (counterpart of the reference's ``trainer/train.py``):
+the MLP parent scorer and the GraphSAGE edge-RTT model, fit with
+``optax.adamw``'s update rule under the reference's schedules.
+
+An epoch is a Python loop of optimizer steps over minibatches already on
+the device (the reference scans the epoch in one XLA call); parameters
+and optimizer state update in place. Matmul inputs follow the device's
+policy (``device.compute_dtype``): bfloat16 on the card, float32 on the
+CPU; the GNN's SAGE layers are bfloat16 everywhere, as in the reference.
+
+JAX's random init cannot be reproduced here, so ``FitConfig.init``
+takes an initial parameter tree in the reference's layout (numpy); the
+output-bias warm start is applied on top of it, as on a fresh init.
+Fit snapshots (``checkpoint_dir``) are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from dragonfly2_torch.device import resolve_device
+from dragonfly2_torch.models import gnn as gnn_mod
+from dragonfly2_torch.models import mlp as mlp_mod
+from dragonfly2_torch.utils import faults
+from dragonfly2_torch.weights import graphsage_from_numpy, mlp_from_numpy
+
+# fault point: fires once per fit epoch — a ``delay`` rule models a
+# stalling device link, an ``abort`` rule a crash mid-fit
+FP_FIT_STEP = faults.point("trainer.fit_step")
+
+
+@dataclass
+class FitConfig:
+    hidden_dims: tuple[int, ...] = (128, 128)
+    batch_size: int = 8192
+    epochs: int = 3
+    learning_rate: float = 3e-3
+    weight_decay: float = 1e-4
+    warmup_fraction: float = 0.1
+    eval_fraction: float = 0.1
+    seed: int = 0
+    # elastic restart (the reference's orbax snapshots): not ported yet,
+    # a non-empty dir raises NotImplementedError
+    checkpoint_dir: str | None = None
+    # initial parameter tree in the reference's layout (numpy), before
+    # the output-bias warm start; None draws one from ``seed``
+    init: Any = None
+
+
+@dataclass
+class FitResult:
+    params: Any  # the fitted module, on the fit's device
+    metrics: dict[str, float]
+    history: list[float] = field(default_factory=list)  # per-epoch mean loss
+
+
+# ---------------------------------------------------------------------------
+# optimizer: optax.adamw under optax's schedules
+# ---------------------------------------------------------------------------
+
+
+def linear_schedule(init_value: float, end_value: float, transition_steps: int):
+    """``optax.linear_schedule``, in float32 as optax computes it."""
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        c = f32(min(max(count, 0), transition_steps))
+        frac = f32(1) - c / f32(transition_steps)
+        return float(f32(init_value - end_value) * frac + f32(end_value))
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(
+    init_value: float, peak_value: float, warmup_steps: int, decay_steps: int
+):
+    """``optax.warmup_cosine_decay_schedule`` with end value 0: linear
+    warm-up over ``warmup_steps``, then a cosine from ``peak_value`` to 0
+    over the remaining ``decay_steps - warmup_steps`` (``decay_steps``
+    includes the warm-up), in float32 as optax computes it."""
+    f32 = np.float32
+    warmup = linear_schedule(init_value, peak_value, warmup_steps)
+    cosine_steps = f32(decay_steps - warmup_steps)
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return warmup(count)
+        c = min(f32(count - warmup_steps), cosine_steps)
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / cosine_steps))
+        return float(f32(peak_value) * cosine)
+
+    return schedule
+
+
+class AdamW:
+    """``optax.adamw(schedule, weight_decay)`` over ``params``, step for
+    step in optax's float32 arithmetic: b1 0.9, b2 0.999, eps 1e-8 added
+    to √v̂, bias corrections ``1 - b**t`` rounded to float32 (at t = 1,
+    ``1 - 0.999`` in float32 is 1.3e-5 off the exact value, which
+    ``torch.optim.AdamW``'s float64 corrections would not reproduce),
+    decay on every parameter (biases included) added before the lr
+    scaling. optax evaluates the schedule at the update count *before*
+    the update, so the first update of a warm-up from 0 leaves the
+    parameters as they are (the moments still move). The state updates
+    in place, with multi-tensor ops."""
+
+    def __init__(
+        self,
+        params,
+        schedule: Callable[[int], float],
+        weight_decay: float,
+        b1: float = 0.9,
+        b2: float = 0.999,
+        eps: float = 1e-8,
+    ):
+        self.params = list(params)
+        self.schedule = schedule
+        self.weight_decay = weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        f32 = np.float32
+        lr = self.schedule(self.count)
+        self.count += 1
+        grads = [p.grad for p in self.params]
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - self.b1))
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_add_(
+            self.nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - self.b2)
+        )
+        bc1 = float(f32(1) - f32(self.b1) ** f32(self.count))
+        bc2 = float(f32(1) - f32(self.b2) ** f32(self.count))
+        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
+        torch._foreach_add_(denom, self.eps)
+        updates = torch._foreach_div(torch._foreach_div(self.mu, bc1), denom)
+        torch._foreach_add_(updates, torch._foreach_mul(self.params, self.weight_decay))
+        torch._foreach_mul_(updates, float(f32(-lr)))
+        torch._foreach_add_(self.params, updates)
+
+
+def _optimizer(cfg: FitConfig, total_steps: int, params) -> AdamW:
+    schedule = warmup_cosine_decay_schedule(
+        0.0,
+        cfg.learning_rate,
+        warmup_steps=max(1, int(total_steps * cfg.warmup_fraction)),
+        decay_steps=max(2, total_steps),
+    )
+    return AdamW(params, schedule, cfg.weight_decay)
+
+
+def _split_eval(n: int, eval_fraction: float, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    n_eval = int(n * eval_fraction)
+    return perm[n_eval:], perm[:n_eval]
+
+
+def _batch_steps(n: int, batch: int) -> tuple[int, int, int]:
+    """→ (steps, rows_used, batch) with batch clamped to the training-set
+    size. Shared by every fit loop so small per-host datasets and the
+    empty case behave identically everywhere."""
+    if n <= 0:
+        raise ValueError("no training examples (empty dataset after eval split)")
+    batch = min(batch, n)
+    steps = max(1, n // batch)
+    return steps, steps * batch, batch
+
+
+def make_epoch_fn(loss_fn: Callable[[Any, tuple], torch.Tensor], optimizer: AdamW):
+    """Whole-epoch function over [steps, batch, ...] stacked minibatches:
+    one optimizer step per minibatch, parameters and state updated in
+    place → the epoch's mean loss (a device scalar)."""
+
+    def epoch(params, batches: tuple) -> torch.Tensor:
+        losses = []
+        for i in range(batches[0].shape[0]):
+            loss = loss_fn(params, tuple(b[i] for b in batches))
+            optimizer.zero_grad()
+            loss.backward()
+            optimizer.step()
+            losses.append(loss.detach())
+        return torch.stack(losses).mean()
+
+    return epoch
+
+
+def _refuse_checkpoint(cfg: FitConfig) -> None:
+    if cfg.checkpoint_dir:
+        raise NotImplementedError(
+            "fit snapshots (the reference's orbax FitCheckpointer) are not ported"
+            " yet: ROADMAP queue A item 8"
+        )
+
+
+def _device_of(module: torch.nn.Module) -> torch.device:
+    return next(module.parameters()).device
+
+
+# ---------------------------------------------------------------------------
+# MLP parent scorer (upstream trainMLP stub, training.go:92-98)
+# ---------------------------------------------------------------------------
+
+
+def train_mlp(
+    features: np.ndarray,
+    labels: np.ndarray,
+    config: FitConfig | None = None,
+    device="cuda",
+) -> FitResult:
+    """Fit the pair scorer: features [N, F] → label log piece cost [N].
+    Evaluation metrics are MSE/MAE on the held-out split, what the
+    manager stores with an MLP upload."""
+    cfg = config or FitConfig()
+    _refuse_checkpoint(cfg)
+    dev = resolve_device(device)
+    n, f = features.shape
+    train_idx, eval_idx = _split_eval(n, cfg.eval_fraction, cfg.seed)
+    steps, used, batch = _batch_steps(len(train_idx), cfg.batch_size)
+
+    if cfg.init is not None:
+        mlp = mlp_from_numpy(cfg.init, device=dev)
+    else:
+        gen = torch.Generator().manual_seed(cfg.seed)
+        mlp = mlp_mod.init_mlp(gen, [f, *cfg.hidden_dims, 1]).to(dev)
+    # warm-start the output bias at the label mean — the regression head
+    # starts unbiased instead of spending its first epochs drifting there
+    with torch.no_grad():
+        mlp.layers[-1].b.fill_(float(labels.mean()))
+
+    optimizer = _optimizer(cfg, steps * cfg.epochs, mlp.parameters())
+
+    def loss_fn(p, batch):
+        x, y = batch
+        pred = mlp_mod.score_parents(p, x)
+        return torch.mean((pred - y) ** 2)
+
+    epoch_fn = make_epoch_fn(loss_fn, optimizer)
+    history: list[float] = []
+    for epoch in range(cfg.epochs):
+        FP_FIT_STEP()
+        rng = np.random.default_rng(cfg.seed + 1 + epoch)
+        order = train_idx[rng.permutation(len(train_idx))][:used]
+        xb = torch.from_numpy(features[order].reshape(steps, batch, f)).to(dev)
+        yb = torch.from_numpy(labels[order].reshape(steps, batch)).to(dev)
+        history.append(float(epoch_fn(mlp, (xb, yb))))
+
+    metrics = evaluate_mlp(mlp, features[eval_idx], labels[eval_idx]) if len(eval_idx) else {}
+    return FitResult(params=mlp, metrics=metrics, history=history)
+
+
+@torch.no_grad()
+def evaluate_mlp(params, features: np.ndarray, labels: np.ndarray) -> dict[str, float]:
+    x = torch.from_numpy(np.ascontiguousarray(features)).to(_device_of(params))
+    pred = mlp_mod.score_parents(params, x).cpu().numpy()
+    err = pred - labels
+    return {"mse": float(np.mean(err**2)), "mae": float(np.mean(np.abs(err)))}
+
+
+# ---------------------------------------------------------------------------
+# GraphSAGE edge-RTT (upstream trainGNN stub, training.go:82-88)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class GNNFitConfig(FitConfig):
+    hidden_dims: tuple[int, ...] = (64, 64)
+    batch_size: int = 2048  # edges per step
+    epochs: int = 60  # probe graphs are small; the embedding table needs steps
+    learning_rate: float = 2e-2
+
+
+def _init_gnn(graph, cfg: GNNFitConfig, device) -> gnn_mod.GraphSAGE:
+    """GraphSAGE init with the head bias warm-started at the mean edge
+    log-RTT."""
+    if len(graph.edge_src) == 0:
+        raise ValueError("probe graph has no edges to train on")
+    if cfg.init is not None:
+        model = graphsage_from_numpy(cfg.init, device=device)
+    else:
+        gen = torch.Generator().manual_seed(cfg.seed)
+        model = gnn_mod.init_graphsage(
+            gen, graph.node_features.shape[1], cfg.hidden_dims, num_nodes=graph.num_nodes
+        ).to(device)
+    with torch.no_grad():
+        model.head.layers[-1].b.fill_(float(graph.edge_rtt_log_ms.mean()))
+    return model
+
+
+def _graph_tensors(graph, device) -> tuple:
+    return (
+        torch.from_numpy(graph.node_features).to(device),
+        torch.from_numpy(graph.neighbors).to(device),
+        torch.from_numpy(graph.neighbor_mask).to(device),
+    )
+
+
+def train_gnn(graph, config: GNNFitConfig | None = None, device="cuda") -> FitResult:
+    """Fit GraphSAGE on a ``schema.features.ProbeGraph``: predict per-edge
+    log-RTT from host embeddings.
+
+    Evaluation reports MSE/MAE plus precision/recall/f1 on the derived
+    binary task "edge is faster than the median RTT" — the tuple the
+    manager stores with a GNN upload."""
+    cfg = config or GNNFitConfig()
+    _refuse_checkpoint(cfg)
+    dev = resolve_device(device)
+    e = len(graph.edge_src)
+    train_idx, eval_idx = _split_eval(e, cfg.eval_fraction, cfg.seed)
+    model = _init_gnn(graph, cfg, dev)
+    node_features, neighbors, neighbor_mask = _graph_tensors(graph, dev)
+
+    steps, used, batch = _batch_steps(len(train_idx), cfg.batch_size)
+    optimizer = _optimizer(cfg, steps * cfg.epochs, model.parameters())
+
+    def loss_fn(p, b):
+        src, dst, y = b
+        pred = gnn_mod.forward_edge_rtt(p, node_features, neighbors, neighbor_mask, src, dst)
+        return torch.mean((pred - y) ** 2)
+
+    epoch_fn = make_epoch_fn(loss_fn, optimizer)
+    history: list[float] = []
+    for epoch in range(cfg.epochs):
+        rng = np.random.default_rng(cfg.seed + 1 + epoch)
+        order = train_idx[rng.permutation(len(train_idx))][:used]
+        sb = torch.from_numpy(graph.edge_src[order].reshape(steps, batch)).to(dev)
+        db = torch.from_numpy(graph.edge_dst[order].reshape(steps, batch)).to(dev)
+        yb = torch.from_numpy(graph.edge_rtt_log_ms[order].reshape(steps, batch)).to(dev)
+        history.append(float(epoch_fn(model, (sb, db, yb))))
+
+    metrics: dict[str, float] = {}
+    if len(eval_idx):
+        metrics = evaluate_gnn(model, graph, eval_idx)
+    return FitResult(params=model, metrics=metrics, history=history)
+
+
+def _edge_metrics(pred: np.ndarray, y: np.ndarray, thresh: float) -> dict[str, float]:
+    """MSE/MAE + precision/recall/f1 on "edge faster than median RTT" —
+    the evaluation tuple the manager stores with a GNN upload."""
+    err = pred - y
+    actual_fast = y < thresh
+    pred_fast = pred < thresh
+    tp = float(np.sum(pred_fast & actual_fast))
+    fp = float(np.sum(pred_fast & ~actual_fast))
+    fn = float(np.sum(~pred_fast & actual_fast))
+    precision = tp / max(tp + fp, 1.0)
+    recall = tp / max(tp + fn, 1.0)
+    f1 = 2 * precision * recall / max(precision + recall, 1e-9)
+    return {
+        "mse": float(np.mean(err**2)),
+        "mae": float(np.mean(np.abs(err))),
+        "precision": precision,
+        "recall": recall,
+        "f1": f1,
+    }
+
+
+@torch.no_grad()
+def evaluate_gnn(params, graph, edge_idx: np.ndarray) -> dict[str, float]:
+    dev = _device_of(params)
+    pred = gnn_mod.forward_edge_rtt(
+        params,
+        *_graph_tensors(graph, dev),
+        torch.from_numpy(graph.edge_src[edge_idx]).to(dev),
+        torch.from_numpy(graph.edge_dst[edge_idx]).to(dev),
+    ).cpu().numpy()
+    return _edge_metrics(
+        pred, graph.edge_rtt_log_ms[edge_idx], float(np.median(graph.edge_rtt_log_ms))
+    )

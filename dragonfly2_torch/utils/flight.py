@@ -1,7 +1,7 @@
 """Black-box flight recorder: always-on bounded event rings per category,
 dumped as jsonl to ``DF_DIAG_DIR`` on demand — counterpart of the
-reference's ``utils/flight.py``. The crash hooks and the stall watchdog
-come with the server and trainer slices.
+reference's ``utils/flight.py``, with its stall watchdog. The crash
+hooks come with the server slice.
 
 Typed emitters are declared once per module with ``event_type``; the
 name is ``<service>.<what>`` and its service segment names the ring, so
@@ -18,6 +18,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import statistics
 import threading
 import time
 
@@ -193,6 +194,65 @@ class FlightRecorder:
         except Exception:
             # a failing dump must never turn into a crash
             return None
+
+
+class StallWatchdog:
+    """Regression detector over a stream of duration observations
+    (step time per superbatch, decode wait per shard): an observation
+    past ``factor ×`` the trailing median — and past an absolute floor,
+    so microsecond jitter can't trip it — emits ``event`` and dumps the
+    flight rings while the stall is still live (cooldown-limited).
+    ``observe`` is called per superbatch/shard, never on a microsecond
+    hot path. ``DF_STALL_FACTOR`` sets the factor (4.0; 0 disables)."""
+
+    def __init__(
+        self,
+        name: str,
+        factor: "float | None" = None,
+        window: int = 64,
+        min_samples: int = 8,
+        floor_s: float = 0.1,
+        cooldown_s: float = 60.0,
+        event: "EventType | None" = None,
+    ):
+        if factor is None:
+            try:
+                factor = float(os.environ.get("DF_STALL_FACTOR", "4.0"))
+            except ValueError:
+                factor = 4.0
+        self.name = name
+        self.factor = factor
+        self.min_samples = min_samples
+        self.floor_s = floor_s
+        self.cooldown_s = cooldown_s
+        self.event = event
+        self.stalls = 0
+        self._samples: collections.deque = collections.deque(maxlen=window)
+        self._last_trigger = 0.0
+
+    def observe(self, seconds: float) -> bool:
+        """Feed one observation; True when it was judged a stall."""
+        if self.factor <= 0:
+            return False
+        stalled = False
+        if len(self._samples) >= self.min_samples:
+            med = statistics.median(self._samples)
+            if seconds > max(self.factor * med, self.floor_s):
+                now = time.monotonic()
+                if now - self._last_trigger >= self.cooldown_s:
+                    self._last_trigger = now
+                    self.stalls += 1
+                    stalled = True
+                    if self.event is not None:
+                        self.event(
+                            watchdog=self.name,
+                            observed_s=round(seconds, 6),
+                            median_s=round(med, 6),
+                            factor=self.factor,
+                        )
+                    _recorder.dump(f"stall-{self.name}")
+        self._samples.append(seconds)
+        return stalled
 
 
 _recorder = FlightRecorder()

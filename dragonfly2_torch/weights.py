@@ -1,5 +1,5 @@
 """Model weights across the two packages: the reference's flat-key npz
-format (``layers/0/w``, ``embed``, ``num_heads`` …; the reference's
+format (``layers/0/w``, ``sage/0/w_self``, ``embed``, ``num_heads`` …; the reference's
 ``trainer/serving.py``) and its parameter trees as numpy, turned into this
 port's modules.
 
@@ -19,6 +19,7 @@ from torch import nn
 
 from dragonfly2_torch.device import resolve_device
 from dragonfly2_torch.models.attention import TransformerEncoder
+from dragonfly2_torch.models.gnn import GraphSAGE
 from dragonfly2_torch.models.mlp import MLP
 
 
@@ -120,3 +121,22 @@ def transformer_from_numpy(tree: dict, device="cuda") -> TransformerEncoder:
     head_dims = [model_dim] + [np.shape(l["w"])[1] for l in tree["head"]["layers"]]
     enc.head = MLP(head_dims)
     return _load(enc, tree, device)
+
+
+def graphsage_from_numpy(tree: dict, device="cuda") -> GraphSAGE:
+    """The reference's ``init_graphsage`` tree (``sage``, ``head``, and
+    ``node_embed`` when it has one) → ``GraphSAGE`` on ``device``."""
+    sage = tree["sage"]
+    in_dim = np.shape(sage[0]["w_self"])[0]
+    num_nodes, embed_dim = None, 16
+    if "node_embed" in tree:
+        num_nodes, embed_dim = np.shape(tree["node_embed"])
+        in_dim -= embed_dim
+    model = GraphSAGE(
+        in_dim,
+        [np.shape(layer["w_self"])[1] for layer in sage],
+        head_hidden=np.shape(tree["head"]["layers"][0]["w"])[1],
+        num_nodes=num_nodes,
+        embed_dim=embed_dim,
+    )
+    return _load(model, tree, device)

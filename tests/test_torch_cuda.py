@@ -1,8 +1,10 @@
 """The port on an NVIDIA card: both CUDA flash kernels against their plain
 PyTorch version (strided inputs, alignment checks, the tf32x3 pre-pass bit
 for bit and per-kernel launch counting included), and the serving and
-topology planes on the card against the same port on the CPU, and one wave
-of the scheduler's ``ml`` decision path on the card.
+topology planes on the card against the same port on the CPU, one wave
+of the scheduler's ``ml`` decision path on the card, and the trainer's
+fits (streamed, batch, GNN) on the card against the CPU with the pinned
+buffers' reuse rule.
 
 Every test here needs a card and skips without one. It imports neither jax
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -300,3 +302,145 @@ def test_one_wave_of_the_decision_path_on_the_card(cuda):
         )
     finally:
         service.stop()
+
+
+# -- the trainer's fit path ----------------------------------------------------
+#
+# Fits on the card (bfloat16 matmul inputs) against the same fits on the CPU
+# (float32), from one init, held at 5e-2 relative (chip_smoke.FIT_TOL):
+# bf16 inputs emulated on the CPU stay within half of it
+# (tests/test_torch_ingest.py); the GNN's SAGE layers are bf16 on both.
+
+FIT_TOL = 5e-2
+
+
+@pytest.fixture(scope="module")
+def train_file(tmp_path_factory):
+    from dragonfly2_torch.schema import synth, wire
+
+    recs = synth.make_download_records(512, seed=4)
+    path = tmp_path_factory.mktemp("fit") / "download.dfb"
+    path.write_bytes(b"".join(wire.encode_train_block(recs[i : i + 64]) for i in range(0, 512, 64)))
+    return path
+
+
+def _init_tree(dims):
+    from dragonfly2_torch.weights import module_tree
+
+    return module_tree(init_mlp(torch.Generator().manual_seed(0), dims))
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_streamed_fit_steps_on_the_card_match_the_cpu(cuda, train_file, k):
+    from dragonfly2_torch.trainer.ingest import stream_train_mlp
+
+    kw = dict(passes=2, batch_size=128, hidden_dims=(32, 32), workers=1, steps_per_call=k,
+              transfer_dtype=np.float32, init=_init_tree([19, 32, 32, 1]))
+    mlp, card = stream_train_mlp(train_file, device=cuda, **kw)
+    _, cpu = stream_train_mlp(train_file, device="cpu", **kw)
+    assert next(mlp.parameters()).device.type == "cuda"
+    assert (card.steps, card.pairs, card.eval_pairs) == (cpu.steps, cpu.pairs, cpu.eval_pairs)
+    assert card.steps >= 8 and card.h2d_s > 0
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=FIT_TOL)
+    assert card.metrics["mse"] == pytest.approx(cpu.metrics["mse"], rel=FIT_TOL)
+
+
+def test_batch_fit_on_the_card_matches_the_cpu(cuda):
+    from dragonfly2_torch.schema import synth
+    from dragonfly2_torch.schema.columnar import records_to_columns
+    from dragonfly2_torch.schema.features import extract_pair_features
+    from dragonfly2_torch.trainer.train import FitConfig, train_mlp
+
+    pairs = extract_pair_features(records_to_columns(synth.make_download_records(200, seed=2)))
+    cfg = FitConfig(hidden_dims=(32,), batch_size=64, epochs=2, init=_init_tree([19, 32, 1]))
+    card = train_mlp(pairs.features, pairs.labels, cfg, device=cuda)
+    cpu = train_mlp(pairs.features, pairs.labels, cfg, device="cpu")
+    assert next(card.params.parameters()).device.type == "cuda"
+    np.testing.assert_allclose(card.history, cpu.history, rtol=FIT_TOL)
+    assert card.metrics["mse"] == pytest.approx(cpu.metrics["mse"], rel=FIT_TOL)
+
+
+def test_one_gnn_epoch_on_the_card_matches_the_cpu(cuda):
+    from dragonfly2_torch.models.gnn import init_graphsage
+    from dragonfly2_torch.schema import synth
+    from dragonfly2_torch.schema.columnar import records_to_columns
+    from dragonfly2_torch.schema.features import build_probe_graph
+    from dragonfly2_torch.trainer.train import GNNFitConfig, train_gnn
+    from dragonfly2_torch.weights import module_tree
+
+    graph = build_probe_graph(
+        records_to_columns(synth.make_topology_records(300, num_hosts=40, seed=3)), max_degree=8
+    )
+    init = init_graphsage(torch.Generator().manual_seed(0), 7, (16, 16), num_nodes=graph.num_nodes)
+    cfg = GNNFitConfig(hidden_dims=(16, 16), batch_size=64, epochs=1, init=module_tree(init))
+    card = train_gnn(graph, cfg, device=cuda)
+    cpu = train_gnn(graph, cfg, device="cpu")
+    assert next(card.params.parameters()).device.type == "cuda"
+    np.testing.assert_allclose(card.history, cpu.history, rtol=FIT_TOL)
+    for key in ("mse", "mae"):
+        assert card.metrics[key] == pytest.approx(cpu.metrics[key], rel=FIT_TOL)
+
+
+def test_pinned_buffers_are_never_rewritten_while_their_copy_is_in_flight(cuda, train_file, monkeypatch):
+    """Every superbatch buffer is pinned, and each one the packing thread
+    takes back after a copy has its copy's event complete (the pool
+    raises otherwise); with 6 buffers and ~30 superbatches each is reused
+    several times."""
+    from dragonfly2_torch.trainer import ingest
+
+    pools = []
+    init = ingest._BufferPool.__init__
+
+    def recording_init(pool, *args):
+        init(pool, *args)
+        pools.append(pool)
+        assert all(buf.is_pinned() for buf in pool.free.queue)
+
+    monkeypatch.setattr(ingest._BufferPool, "__init__", recording_init)
+    _, stats = ingest.stream_train_mlp(
+        train_file, passes=2, batch_size=64, hidden_dims=(32, 32), workers=1, device=cuda
+    )
+    assert stats.steps >= 24
+    assert len(pools) == 1 and pools[0].checked >= stats.steps - ingest._POOL_BUFFERS
+
+
+def test_a_training_round_on_the_card_uploads_both_models_and_traces_them(cuda, tmp_path):
+    import json
+
+    from dragonfly2_torch.scheduler.model_refresher import ManagerUploader, PlainRequests
+    from dragonfly2_torch.schema import synth, wire
+    from dragonfly2_torch.trainer.service import PlainMessages, TrainerService
+    from dragonfly2_torch.trainer.storage import TrainerStorage
+    from dragonfly2_torch.trainer.train import FitConfig, GNNFitConfig
+    from dragonfly2_torch.trainer.training import Training, TrainingConfig
+
+    class Stub:
+        def __init__(self):
+            self.requests = []
+
+        def CreateModel(self, request):
+            self.requests.append(request)
+
+    recs = synth.make_download_records(256, seed=1)
+    blocks = b"".join(wire.encode_train_block(recs[i : i + 64]) for i in range(0, 256, 64))
+    topo = wire.encode_topology_block(synth.make_topology_records(200, num_hosts=40, seed=2))
+    messages = PlainMessages()
+    stub = Stub()
+    cfg = TrainingConfig(
+        mlp=FitConfig(hidden_dims=(32,), batch_size=128, epochs=2),
+        gnn=GNNFitConfig(hidden_dims=(16, 16), batch_size=64, epochs=2),
+        gru=False, streaming_workers=1, streaming_threshold_bytes=0,
+        profile_dir=str(tmp_path / "prof"),
+    )
+    storage = TrainerStorage(tmp_path / "storage")
+    training = Training(storage, ManagerUploader(stub, PlainRequests()), cfg, device=cuda)
+    TrainerService(storage, training, synchronous=True, messages=messages).Train(
+        iter([messages.train_request("10.0.0.9", "s", "train_mlp_binary", blocks),
+              messages.train_request("10.0.0.9", "s", "train_gnn_binary", topo)]),
+        None,
+    )
+    assert sorted(r.type for r in stub.requests) == ["gnn", "mlp"]
+    assert all(np.isfinite(r.evaluation.mse) for r in stub.requests)
+    (trace,) = (tmp_path / "prof").iterdir()
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)  # CUDA kernels in the round's trace

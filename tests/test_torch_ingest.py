@@ -1,0 +1,196 @@
+"""The port's streamed fit (dragonfly2_torch.trainer.ingest) against the JAX
+package's on the CPU: one ``.dfb`` file, one init tree in both, one decode
+worker. Both must hold out the same pairs, count the same records, pairs
+and steps, and end at the same parameters and holdout mse — with k = 1
+and k = 4 steps per superbatch, float32 and float16 staging — and agree
+on the ragged tail of a dataset smaller than one batch and on a time
+budget's truncation."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from dragonfly2_torch.trainer import ingest as t_ingest
+from dragonfly2_torch.weights import module_tree
+from dragonfly2_tpu.models import mlp as j_mlp
+from dragonfly2_tpu.schema import columnar as j_columnar
+from dragonfly2_tpu.schema import synth as j_synth
+from dragonfly2_tpu.schema import wire as j_wire
+from dragonfly2_tpu.schema.features import MLP_FEATURE_DIM
+from dragonfly2_tpu.trainer import ingest as j_ingest
+
+torch.set_num_threads(1)
+
+HIDDEN = (16, 16)
+
+
+def _numpy(tree):
+    return jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), tree)
+
+
+def _flat(tree) -> dict:
+    return {
+        f"{i}/{k}": np.asarray(layer[k], np.float64)
+        for i, layer in enumerate(tree["layers"])
+        for k in ("w", "b")
+    }
+
+
+def _max_rel(got, want) -> float:
+    a, b = _flat(got), _flat(want)
+    return max(float(np.abs(a[k] - b[k]).max() / max(np.abs(b[k]).max(), 1e-30)) for k in a)
+
+
+def _init():
+    """The reference's init of a fresh streamed fit (PRNGKey(0))."""
+    return _numpy(j_mlp.init_mlp(jax.random.PRNGKey(0), [MLP_FEATURE_DIM, *HIDDEN, 1]))
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    recs = j_synth.make_download_records(480, seed=6)
+    path = tmp_path_factory.mktemp("ingest") / "download.dfb"
+    path.write_bytes(b"".join(j_wire.encode_train_block(recs[i : i + 40]) for i in range(0, 480, 40)))
+    return path
+
+
+def _both(path, **kw):
+    """The same streamed fit in both packages → ((port tree, stats),
+    (reference tree, stats)); a fresh port fit starts from the
+    reference's init."""
+    j_params, j_stats = j_ingest.stream_train_mlp(path, hidden_dims=HIDDEN, workers=1, **kw)
+    init = _init() if kw.get("params") is None else None
+    t_params, t_stats = t_ingest.stream_train_mlp(
+        path, hidden_dims=HIDDEN, workers=1, init=init, device="cpu", **kw
+    )
+    return (module_tree(t_params), t_stats), (_numpy(j_params), j_stats)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("dtype", [np.float32, np.float16], ids=["f32", "f16"])
+def test_streamed_fit_matches_reference(dataset, k, dtype):
+    """Float32 steps on both sides, fed the same staged bits: the sums run
+    in another order (XLA's against torch's), a few ulps a step; the
+    limits allow ~100 ulps of float32 on the losses and ~1e-5 of each
+    leaf's largest entry on the parameters."""
+    (got, gs), (want, ws) = _both(
+        dataset, passes=2, batch_size=96, steps_per_call=k, transfer_dtype=dtype, eval_every=5
+    )
+    assert (gs.download_records, gs.pairs, gs.steps, gs.eval_pairs) == (
+        ws.download_records, ws.pairs, ws.steps, ws.eval_pairs,
+    )
+    assert gs.download_records == 960 and gs.eval_pairs > 0 and not gs.truncated
+    np.testing.assert_allclose(gs.losses, ws.losses, rtol=2e-5)
+    assert _max_rel(got, want) <= 2e-5
+    # the same held-out pairs: the same count, and the same scores on them
+    assert gs.metrics["mse"] == pytest.approx(ws.metrics["mse"], rel=1e-4)
+    assert gs.metrics["mae"] == pytest.approx(ws.metrics["mae"], rel=1e-4)
+
+
+def test_a_dataset_below_one_batch_takes_one_ragged_step(dataset):
+    (got, gs), (want, ws) = _both(dataset, passes=1, batch_size=100_000, transfer_dtype=np.float32)
+    assert gs.steps == ws.steps == 1 and gs.pairs == ws.pairs
+    assert _max_rel(got, want) <= 2e-5
+    np.testing.assert_allclose(gs.losses, ws.losses, rtol=2e-5)
+
+
+def test_a_time_budget_truncates_at_a_shard_boundary(dataset):
+    (got, gs), (want, ws) = _both(dataset, passes=2, batch_size=96, time_budget_s=0.0)
+    assert gs.truncated and ws.truncated
+    assert (gs.download_records, gs.pairs, gs.steps) == (ws.download_records, ws.pairs, ws.steps) == (0, 0, 0)
+    assert _max_rel(got, want) == 0.0  # nothing trained, no warm start either
+
+
+def test_given_params_continue_without_a_warm_start(dataset):
+    start = _init()
+    start["layers"][-1]["b"] = np.full((1,), 0.25, np.float32)
+    (got, gs), (want, ws) = _both(dataset, passes=1, batch_size=96, params=start)
+    assert gs.steps == ws.steps > 0
+    assert _max_rel(got, want) <= 2e-5
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+def test_stream_shards_match_reference(dataset, workers):
+    extents = j_wire.scan_block_extents(dataset)
+    kw = dict(passes=2, workers=workers, offset=extents[1][0], end=extents[-2][1])
+    got = list(t_ingest.stream_shards(dataset, **kw))
+    want = list(j_ingest.stream_shards(dataset, **kw))
+    assert got[-1][2] == want[-1][2] == 2 * 40 * (len(extents) - 2)  # first and last block cut
+    key = lambda s: (s[1].tobytes(), s[0].tobytes())  # noqa: E731
+    if workers == 1:
+        assert [key(s) + (s[2],) for s in got] == [key(s) + (s[2],) for s in want]
+    else:  # interleaved across producers: the same shards, in some order
+        assert sorted(map(key, got)) == sorted(map(key, want))
+
+
+def test_csv_is_refused_by_the_stream(tmp_path):
+    path = tmp_path / "d.csv"
+    j_columnar.write_csv(path, j_synth.make_download_records(3))
+    with pytest.raises(ValueError, match="not a binary block file"):
+        list(t_ingest.stream_shards(path))
+    with pytest.raises(ValueError, match="no input files"):
+        list(t_ingest.stream_shards([]))
+
+
+def test_default_workers_match():
+    for n in (1, 2, 8, 64):
+        assert t_ingest.default_workers(n) == j_ingest.default_workers(n)
+
+
+def test_holdout_mask_is_stable_across_dtypes_and_calls():
+    rng = np.random.default_rng(0)
+    for dtype in (np.float32, np.float16):
+        feats = rng.random((500, MLP_FEATURE_DIM)).astype(dtype)
+        labels = rng.random(500).astype(dtype)
+        m = t_ingest.holdout_mask(feats, labels, 10)
+        assert 20 < m.sum() < 90 and np.array_equal(m, t_ingest.holdout_mask(feats.copy(), labels.copy(), 10))
+
+
+class _PendingCopy:
+    def query(self):
+        return False
+
+
+def test_buffer_pool_refuses_a_buffer_whose_copy_is_in_flight():
+    pool = t_ingest._BufferPool(8, torch.float16, torch.device("cpu"))
+    buf = pool.take()
+    pool.copies[id(buf)] = _PendingCopy()
+    pool.give(buf)
+    for _ in range(t_ingest._POOL_BUFFERS - 2):
+        pool.give(pool.take())  # the other buffers cycle freely
+    with pytest.raises(RuntimeError, match="in flight"):
+        for _ in range(t_ingest._POOL_BUFFERS):
+            pool.give(pool.take())
+
+
+def test_stall_watchdog_judges_as_the_reference():
+    from dragonfly2_torch.utils import flight as t_flight
+    from dragonfly2_tpu.utils import flight as j_flight
+
+    seq = [0.01] * 9 + [0.5, 0.01, 0.3, 0.02] * 3 + [0.05, 2.0]
+    for cooldown in (0.0, 60.0):
+        got = t_flight.StallWatchdog("trainer.step", factor=4.0, floor_s=0.1, cooldown_s=cooldown)
+        want = j_flight.StallWatchdog("trainer.step", factor=4.0, floor_s=0.1, cooldown_s=cooldown)
+        assert [got.observe(s) for s in seq] == [want.observe(s) for s in seq]
+        assert got.stalls == want.stalls >= 1
+
+
+def test_bfloat16_matmul_inputs_stay_within_the_card_tolerance(dataset, monkeypatch):
+    """The card rounds the MLP's matmul inputs to bfloat16
+    (``device.compute_dtype``). Emulated on the CPU, a streamed fit stays
+    within ``chip_smoke.FIT_TOL`` of the float32 fit in every step's loss
+    and in the holdout mse: the tolerance the smoke run and the card tests
+    hold the card's fit to against the CPU's."""
+    from chip_smoke import FIT_TOL
+    from dragonfly2_torch.models import mlp as t_mlp
+
+    kw = dict(passes=2, batch_size=96, hidden_dims=HIDDEN, workers=1,
+              transfer_dtype=np.float32, init=_init(), device="cpu")
+    _, f32 = t_ingest.stream_train_mlp(dataset, **kw)
+    monkeypatch.setattr(t_mlp, "device_compute_dtype", lambda device: torch.bfloat16)
+    _, bf16 = t_ingest.stream_train_mlp(dataset, **kw)
+    gaps = np.abs(np.asarray(bf16.losses) - f32.losses) / np.abs(f32.losses)
+    assert bf16.steps == f32.steps >= 16
+    assert 0 < gaps.max() <= FIT_TOL / 2  # the limit keeps 2x room over the emulation
+    assert bf16.metrics["mse"] == pytest.approx(f32.metrics["mse"], rel=FIT_TOL / 2)

@@ -6,9 +6,10 @@ nothing on ``chip_smoke.py``'s import path imports ``grpc`` or
 Checked statically, by parsing every source for its imports, and at run
 time in subprocesses (this process already imported jax) whose import
 system refuses the blocked packages: one imports every port module and
-runs the three legs of ``chip_smoke.py`` on the CPU at a tiny size; the
-other also refuses gRPC and protobuf, imports only ``chip_smoke`` and runs
-the three legs again."""
+runs the four legs of ``chip_smoke.py`` on the CPU at a tiny size (the
+trainer leg feeds its Train stream through plain messages and uploads
+through plain requests); the other also refuses gRPC and protobuf,
+imports only ``chip_smoke`` and runs the four legs again."""
 
 import ast
 import os
@@ -21,8 +22,9 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "dragonfly2_torch"
 BLOCKED = ("jax", "jaxlib", "dragonfly2_tpu")
-# what the card's path does without: the refresher loads the manager's
-# protobuf module only when its default request factory is used
+# what the card's path does without: the refresher, the manager upload and
+# the trainer service load their protobuf modules only when their default
+# message factories are used
 WIRE = ("grpc", "google.protobuf")
 
 
@@ -79,6 +81,13 @@ sched = chip_smoke.scheduler_leg(
 )
 assert sched["decisions"] == 24 and sched["service_batches"] == 3, sched
 assert sched["mean_candidates"] >= 8, sched
+train = chip_smoke.trainer_leg(
+    "cpu", files=2, file_mib=1, hosts=64, probes=8, gnn_epochs=30, group_records=256,
+    mlp_batch=256, gnn_batch=64, streaming_threshold_bytes=0,
+    serve=dict(tasks=4, peers=16, wave_size=8, waves=2, warmup=1),
+)
+assert train["mlp"]["steps"] == 87 and train["gnn"]["edges"] == 512, train
+assert train["serve"]["decisions"] == 16, train
 enc = chip_smoke.encoder_leg(
     "cpu", batch=2, seq=40,
     cfg=dict(in_dim=2, model_dim=32, num_heads=4, num_layers=2),
@@ -110,8 +119,8 @@ def _run_child(blocked, every_module: bool) -> int:
 
 
 def test_port_runs_with_jax_and_reference_blocked():
-    # every module of the port was imported (47 with the scheduler slice)
-    assert _run_child(BLOCKED, every_module=True) >= 47
+    # every module of the port was imported (61 with the trainer slice)
+    assert _run_child(BLOCKED, every_module=True) >= 61
 
 
 def test_chip_smoke_runs_without_grpc_or_protobuf():

@@ -40,15 +40,28 @@ Phases (any failed check raises and the script exits non-zero):
    the serve leg's probe graph as ~40,000 topology records) fed through
    ``TrainerService.Train`` in 128 MiB chunks; ``Training`` as the trainer
    server builds it from its defaults fits the MLP on the streamed path
-   (pinned buffers, a side-stream copy stage, 2 passes) and the GNN (60
-   epochs) at once on the card and uploads both through ``CreateModel``
-   to a manager stand-in; each holdout mse must beat the mean predictor's;
-   the refresher then installs the trained MLP and scheduler waves rank
-   on it (rung ``serving``, no demotion, scores as on the CPU); a reduced
-   streamed fit is held against the CPU's (each step's loss and the
-   holdout mse within ``FIT_TOL``), and ~20 superbatches are traced for
-   the device's idle share;
-6. encoder leg at full width: the piece-sequence transformer (model_dim
+   (pinned buffers, a side-stream copy stage, 2 passes), the GNN (60
+   epochs) and the GRU (its newest ``GRU_MAX_SEQUENCES`` sequences, the
+   leg's one cut) at once on the card and uploads all three through
+   ``CreateModel`` to a manager stand-in; each holdout mse must beat the
+   mean predictor's; the refresher then installs the three models — the
+   GNN in the serving slot (embedded at swap time over the engine's
+   export), the GRU behind bad-node detection — and scheduler waves run
+   on them (rung ``serving``, ``model_kind() == "gnn"``, no demotion
+   after the warm-up wave, scores as on the CPU); a reduced streamed fit
+   and a reduced GRU fit are held against the CPU's (``FIT_TOL``,
+   ``GRU_FIT_TOL``), and ~20 superbatches are traced for the device's
+   idle share;
+6. preheat leg: a ``DemandWindow`` at its defaults (1,024 tasks × 32
+   buckets of 10 s) with 8 rising series among flat ones; one
+   ``PreheatPlanner`` sweep fits the GRU demand forecaster inline on the
+   card, forecasts every series, plans the rising ones and sends one
+   ``CreateJob`` to the manager stand-in carrying their task ids and
+   ``recommend_seeds_by_rtt`` over the 10,000-host engine; the forecast
+   on the card is held against its numpy version (``FORECAST_TOL``), and
+   ``recommend_seeds`` ranks 64 candidate hosts with the trained GNN, as
+   on the CPU;
+7. encoder leg at full width: the piece-sequence transformer (model_dim
    256, 4 heads, 4 layers) on B = 2, T = 8192 with flash attention, against
    the plain ``local_attention``: once in bfloat16, which must launch
    ``flash_fwd_sm90`` once per layer and ``flash_fwd_tf32x3`` never, and
@@ -82,36 +95,45 @@ from torch.profiler import ProfilerActivity, profile
 
 from dragonfly2_torch import _build
 from dragonfly2_torch.models.attention import apply_transformer, init_transformer
+from dragonfly2_torch.models.gru import init_gru
 from dragonfly2_torch.models.mlp import init_mlp
 from dragonfly2_torch.ops import flash
+from dragonfly2_torch.preheat import planner as preheat_planner
+from dragonfly2_torch.preheat.demand import DemandWindow
+from dragonfly2_torch.preheat.forecast import DemandForecaster
 from dragonfly2_torch.schema import records as R
 from dragonfly2_torch.schema import synth, wire
+from dragonfly2_torch.schema.columnar import records_to_columns
 from dragonfly2_torch.schema.features import GRU_FEATURE_DIM, MLP_FEATURE_DIM, build_probe_graph
 from dragonfly2_torch.scheduler import metrics as scheduler_metrics
 from dragonfly2_torch.scheduler import resource as res
 from dragonfly2_torch.scheduler import wave
 from dragonfly2_torch.scheduler.evaluator import MLEvaluator
+from dragonfly2_torch.scheduler.networktopology import NetworkTopology
 from dragonfly2_torch.scheduler.model_refresher import (
     ManagerUploader,
     ModelRefresher,
     PlainRequests,
 )
 from dragonfly2_torch.scheduler.scheduling import Scheduling
+from dragonfly2_torch.scheduler.seed_placement import recommend_seeds, recommend_seeds_by_rtt
 from dragonfly2_torch.scheduler.serving import ScoringService
 from dragonfly2_torch.topology import TopologyConfig, TopologyEngine
 from dragonfly2_torch.trainer import metrics as M_T
 from dragonfly2_torch.trainer.ingest import holdout_mask, stream_train_mlp
 from dragonfly2_torch.trainer.serving import (
+    GNNScorer,
+    GRUScorer,
     MLPScorer,
     deserialize_params_auto,
     serialize_params,
 )
 from dragonfly2_torch.trainer.service import PlainMessages, TrainerService
 from dragonfly2_torch.trainer.storage import TrainerStorage
-from dragonfly2_torch.trainer.train import FitConfig, GNNFitConfig, _batch_steps, _split_eval
+from dragonfly2_torch.trainer.train import FitConfig, GNNFitConfig, _batch_steps, _split_eval, train_gru
 from dragonfly2_torch.trainer.training import Training, TrainingConfig
 from dragonfly2_torch.utils import flight
-from dragonfly2_torch.utils.idgen import gnn_model_id_v1, mlp_model_id_v1
+from dragonfly2_torch.utils.idgen import gnn_model_id_v1, gru_model_id_v1, mlp_model_id_v1, task_id_v1
 from dragonfly2_torch.weights import module_tree
 
 # NVIDIA H100 SXM data sheet, dense rates. A float32-accurate product is
@@ -173,6 +195,11 @@ KERNEL_NAMES = {"sm90": "flash_fwd_sm90", "tf32x3": "flash_fwd_tf32x3"}
 MLP_DIMS = [MLP_FEATURE_DIM, 128, 128, 1]  # the trainer's default MLP
 # bfloat16 products on the card against float32 on the CPU
 SCORE_TOL = 2e-2
+# the served GNN's scores, card against CPU: the SAGE layers are bf16 on
+# both, the pair head takes bf16 inputs on the card only (192 of them,
+# [h_src, h_dst, h_src * h_dst]); on an H100 the gap read 0.0255–0.0294
+# over 3–6 waves of ~3,800 pairs, log-ms scores near 3
+GNN_SCORE_TOL = 5e-2
 # one upload round of the scheduler's record sink — 10 rotated backups and
 # the active file, 100 MiB each (dragonfly2_tpu/scheduler/storage.py:76-77)
 # — shipped in the announcer's 128 MiB chunks (scheduler/announcer.py:38)
@@ -182,6 +209,20 @@ TRAINER_WORK = Path(__file__).resolve().parent / "build" / "trainer_leg"
 # a streamed fit on the card (bfloat16 matmul inputs) against the same fit
 # on the CPU (float32): each step's loss and the holdout mse, relative
 FIT_TOL = 5e-2  # twice what bf16 inputs emulated on the CPU may move them (tests/test_torch_ingest.py)
+# the GRU computes in float32 on both (TF32 off): only summation order
+# differs, a few ulps a step
+GRU_FIT_TOL = 1e-3
+# the trainer leg's one cut: the GRU keeps the newest this many of the
+# round's sequences (the default 1,000,000 would take its fit past the
+# GNN's, see PERF.md); its card-vs-CPU check fits this many
+GRU_MAX_SEQUENCES = 40_000
+GRU_CHECK_SEQUENCES = 8192
+# the preheat leg: rising series among the demand window's flat ones, the
+# hosts recommend_seeds ranks with the trained GNN, and the forecast on the
+# card against its numpy version (tests/test_preheat.py's limit)
+PREHEAT_HOT = 8
+PREHEAT_CANDIDATES = 64
+FORECAST_TOL = 1e-3
 
 
 def check(ok: bool, what: str) -> None:
@@ -467,7 +508,7 @@ def probe_graph(hosts: int, probes: int, rng: np.random.Generator):
     cfg = TopologyConfig(flush_threshold=10**9, max_pending=hosts * probes + 1)
 
     def fed(dev):
-        eng = TopologyEngine(cfg, device=dev)
+        eng = TopologyEngine(cfg, device=dev, clock=lambda: PROBED_AT)
         for i in range(hosts):
             for j, rtt in zip(peers[i], rtts[i]):
                 eng.enqueue(ids[i], ids[int(j)], int(rtt), created_at=PROBED_AT - 60.0)
@@ -569,13 +610,15 @@ class _Model:
 
 
 class _Manager:
-    """In-process stand-in for the manager's model registry: ``CreateModel``
-    stores a model as version 1, active at once (the manager's activation
-    step is an operator's), ``ListModels`` lists them and
-    ``GetModelWeights`` returns a stored model's npz bytes."""
+    """In-process stand-in for the manager's model registry and job queue:
+    ``CreateModel`` stores a model as version 1, active at once (the
+    manager's activation step is an operator's), ``ListModels`` lists them,
+    ``GetModelWeights`` returns a stored model's npz bytes and
+    ``CreateJob`` keeps the job's request."""
 
     def __init__(self):
         self.created = {}  # model_id → the CreateModel request
+        self.jobs = []  # the CreateJob requests, in order
 
     def CreateModel(self, request):
         self.created[request.model_id] = request
@@ -589,6 +632,10 @@ class _Manager:
     def GetModelWeights(self, request):
         check(request.model_id in self.created and request.version == 1, "unknown model asked for")
         return SimpleNamespace(weights=self.created[request.model_id].weights)
+
+    def CreateJob(self, request):
+        self.jobs.append(request)
+        return SimpleNamespace(id=len(self.jobs))
 
 
 class _RecordingEvaluator(MLEvaluator):
@@ -686,6 +733,42 @@ def build_swarm(ids, tasks: int, peers: int, rng: np.random.Generator):
     return resource, running
 
 
+def gnn_swap(manager, model_id, topology, service, dev) -> dict:
+    """The GNN's swap-time work, timed apart from the refresher's install:
+    the probe-graph export, the graph build and the embed over it on
+    ``dev``; then the served GNN scored on every exported edge against the
+    edge's RTT (it must beat the mean predictor: the node embedding table
+    it was trained with lines up with the live graph's hosts)."""
+    params = deserialize_params_auto(manager.created[model_id].weights)
+    t0 = time.perf_counter()
+    records = topology.export_records()
+    t1 = time.perf_counter()
+    graph = build_probe_graph(records_to_columns(records))
+    t2 = time.perf_counter()
+    GNNScorer(params, graph, device=dev)
+    sync(dev)
+    t3 = time.perf_counter()
+    served = service._served[0]._scorer
+    ids = graph.node_ids
+    pred = served.predict_rtt_log_ms([ids[i] for i in graph.edge_src], [ids[i] for i in graph.edge_dst])
+    y = graph.edge_rtt_log_ms
+    out = {
+        "gnn_export_ms": (t1 - t0) * 1e3, "gnn_graph_ms": (t2 - t1) * 1e3,
+        "gnn_embed_ms": (t3 - t2) * 1e3, "gnn_nodes": graph.num_nodes,
+        "gnn_edges": len(y), "gnn_served_mse": float(np.mean((pred - y) ** 2)),
+        "gnn_served_mean_predictor_mse": mean_mse(y),
+    }
+    print(
+        f"scheduler[{dev}]: gnn swap over {out['gnn_nodes']} hosts / {out['gnn_edges']} edges:"
+        f" export_ms={out['gnn_export_ms']:.1f} graph_ms={out['gnn_graph_ms']:.1f}"
+        f" embed_ms={out['gnn_embed_ms']:.1f}; served mse on the exported edges"
+        f" {out['gnn_served_mse']:.5f} (mean predictor {out['gnn_served_mean_predictor_mse']:.5f})"
+    )
+    check(np.isfinite(pred).all() and out["gnn_served_mse"] < out["gnn_served_mean_predictor_mse"],
+          "the served GNN does not beat the mean predictor on the live graph's edges")
+    return out
+
+
 def scheduler_leg(
     device, hosts=10_000, probes=16, tasks=40, peers=256, wave_size=256, waves=20, warmup=2,
     seed=0, manager=None,
@@ -721,15 +804,33 @@ def scheduler_leg(
         service.start()
         try:
             evaluator = _RecordingEvaluator(topology=eng, serving=service)
+            topology = NetworkTopology(resource.host_manager, engine=eng)
             refresher = ModelRefresher(
-                manager, evaluator, serving=service, device=dev, requests=PlainRequests()
+                manager, evaluator, serving=service, networktopology=topology, device=dev,
+                requests=PlainRequests(),
             )
             t0 = time.perf_counter()
             check(refresher.refresh_once(), "the refresher installed no model")
+            sync(dev)
             install_ms = (time.perf_counter() - t0) * 1e3
-            mlps = [m for m in manager.ListModels(None).models if m.type == "mlp"]
-            check(refresher.loaded_version == (mlps[-1].model_id, 1), "another model installed")
-            check(service.model_kind() == "mlp" and evaluator._model is not None, "model not installed")
+            # the newest model of each type is the active one
+            latest = {m.type: m.model_id for m in manager.ListModels(None).models}
+            served_kind = "gnn" if "gnn" in latest else "mlp"
+            check(refresher.loaded_version == (latest["mlp"], 1), "another MLP installed")
+            check(evaluator._model is not None and evaluator._model.device.type == dev.type,
+                  "the MLP is not installed on the leg's device")
+            # the refresher's installs are best-effort: a model that failed
+            # to install must fail here, never pass on a lower rung
+            check(service.model_kind() == served_kind,
+                  f"serving {service.model_kind()!r}, not the {served_kind!r} the manager activated")
+            extra = {}
+            if "gnn" in latest:
+                check(refresher.loaded_gnn_version == (latest["gnn"], 1), "the GNN is not installed")
+                extra.update(gnn_swap(manager, latest["gnn"], topology, service, dev))
+            if "gru" in latest:
+                check(refresher.loaded_gru_version == (latest["gru"], 1), "the GRU is not installed")
+                check(isinstance(evaluator._gru, GRUScorer) and evaluator._gru.device.type == dev.type,
+                      "the GRU is not installed on the leg's device")
             sched = Scheduling(evaluator)
             fallbacks = scheduler_metrics.SERVING_FALLBACK_TOTAL
             phases = (wave.PH_WAVE_PACK, wave.PH_WAVE_SCORE)
@@ -777,7 +878,16 @@ def scheduler_leg(
                     )
                 rows.append(feats.shape[0])
                 out.append(([[p.id for p in c] for c in sets], feats, scored))
+            if "gru" in latest:
+                # the GRU branch of is_bad_node ran: it caches one verdict
+                # per candidate it scored, and only on success
+                verdicts = evaluator._gru_verdicts
+                check(len(verdicts) > 0, "is_bad_node never took the GRU branch")
+                extra.update(gru_verdicts=len(verdicts),
+                             gru_bad=sum(1 for _, bad in verdicts.values() if bad))
             times = {
+                **extra,
+                "kind": served_kind,
                 "install_ms": install_ms,
                 "rows_per_wave": statistics.mean(rows),
                 "service_batches": service.batches - batches0,
@@ -830,13 +940,14 @@ def scheduler_leg(
             rtt_err = max(rtt_err, float(np.abs(feats[:, -1] - cpu_feats[:, -1]).max()))
             for (s, _), (cs, _) in zip(scored, cpu_scored):
                 score_err = max(score_err, float(np.abs(s - cs).max()))
+        tol = GNN_SCORE_TOL if times["kind"] == "gnn" else SCORE_TOL
         print(
             f"scheduler: candidate sets equal the CPU run's in {waves} waves;"
             f" max|rtt_affinity - cpu|={rtt_err:.3g} (tol 1e-5)"
-            f" max|score(bf16) - cpu(f32)|={score_err:.3g} (tol {SCORE_TOL:g})"
+            f" max|{times['kind']} score(bf16) - cpu(f32)|={score_err:.3g} (tol {tol:g})"
         )
         check(rtt_err <= 1e-5, "rtt_affinity differs from the CPU engine")
-        check(score_err <= SCORE_TOL, "scores differ from the CPU run")
+        check(score_err <= tol, "scores differ from the CPU run")
         out.update(rtt_err=rtt_err, score_err=score_err)
     return out
 
@@ -844,9 +955,12 @@ def scheduler_leg(
 
 def topology_records(ids, peers, rtts, rng: np.random.Generator) -> list:
     """The probe graph as the scheduler's topology snapshotter writes it:
-    one ``NetworkTopologyRecord`` per host and per ≤ 5 of its probed peers
-    (``records.MAX_DEST_HOSTS``), host stats seeded from ``rng``, about 1
-    host in 50 a seed peer."""
+    each snapshot one ``NetworkTopologyRecord`` per host with ≤ 5 of its
+    probed peers (``records.MAX_DEST_HOSTS``), snapshot after snapshot, so
+    the first snapshot lists hosts and peers in the order the engine's own
+    export does (the graph's node order, which the GNN's per-node
+    embedding table follows); host stats seeded from ``rng``, about 1 host
+    in 50 a seed peer."""
     n = len(ids)
     seeds = rng.random(n) < 1 / 50
     tcp = rng.integers(10, 2000, n)
@@ -864,8 +978,8 @@ def topology_records(ids, peers, rtts, rng: np.random.Generator) -> list:
         )
 
     out = []
-    for i in range(n):
-        for c in range(0, peers.shape[1], R.MAX_DEST_HOSTS):
+    for c in range(0, peers.shape[1], R.MAX_DEST_HOSTS):
+        for i in range(n):
             dests = [
                 host(R.DestHost, int(j), probes=R.ProbesRecord(average_rtt=int(rtt)))
                 for j, rtt in zip(peers[i, c : c + R.MAX_DEST_HOSTS], rtts[i, c : c + R.MAX_DEST_HOSTS])
@@ -908,9 +1022,10 @@ def mean_mse(y: np.ndarray) -> float:
 def trainer_leg(
     device, files=UPLOAD_FILES, file_mib=FILE_MIB, hosts=10_000, probes=16, mlp_epochs=3,
     gnn_epochs=60, check_blocks=64, window_superbatches=20, seed=0,
-    serve=dict(tasks=8, peers=64, wave_size=64, waves=2, warmup=1),
+    serve=dict(tasks=40, peers=256, wave_size=256, waves=3, warmup=1),
     streaming_threshold_bytes=TrainingConfig.streaming_threshold_bytes,
-    group_records=2000, mlp_batch=8192, gnn_batch=2048,
+    group_records=2000, mlp_batch=8192, gnn_batch=2048, gru_max_sequences=GRU_MAX_SEQUENCES,
+    manager=None,
 ) -> dict:
     """The trainer's fit path on ``device``: one upload round — ``files`` ×
     ``file_mib`` MiB of binary train blocks (2,000 seeded download records
@@ -918,14 +1033,17 @@ def trainer_leg(
     leg's probe graph as topology blocks — fed through
     ``TrainerService.Train`` in the announcer's chunks; ``Training`` built
     as the trainer server builds it from its defaults (MLP streamed,
-    2 passes, 1 worker, k = 1; GNN 60 epochs; no GRU; a rehearsal at a
-    reduced size lowers the 64 MiB streaming threshold, the group and the
-    batches). Both uploads must
-    reach the manager stand-in and beat the mean predictor on their
-    holdout; then the refresher installs the trained MLP and scheduler
-    waves rank on it (``scheduler_leg``). On the card, a reduced streamed
-    fit is held against the same fit on the CPU, and ~20 superbatches
-    are traced for the device's idle share."""
+    2 passes, 1 worker, k = 1; GNN 60 epochs; GRU on, batch 128, 10
+    epochs), with one cut: the GRU keeps the newest ``gru_max_sequences``
+    (a rehearsal at a reduced size also lowers the 64 MiB streaming
+    threshold, the group and the batches). All three uploads must reach
+    the manager stand-in and beat the mean predictor on their holdout;
+    then the refresher installs the three trained models and scheduler
+    waves run on them (``scheduler_leg``): the GNN in the serving slot,
+    the GRU behind bad-node detection. On the card, a reduced streamed MLP
+    fit and a reduced GRU fit are held against the same fits on the CPU,
+    and ~20 superbatches are traced for the device's idle share. The
+    uploads land in ``manager`` (a new stand-in when None)."""
     device = torch.device(device)
     rng = np.random.default_rng(seed)
     shutil.rmtree(TRAINER_WORK, ignore_errors=True)
@@ -962,19 +1080,31 @@ def trainer_leg(
                 yield from chunks("train_mlp_binary", group * reps)
             yield from chunks("train_gnn_binary", topo_path.read_bytes())
 
-        manager = _Manager()
+        manager = manager if manager is not None else _Manager()
+        # as dragonfly2_tpu/trainer/server.py:86-113 builds it from the
+        # server's defaults, plus the GRU's one cut
         config = TrainingConfig(
             mlp=FitConfig(epochs=mlp_epochs, batch_size=mlp_batch),
             gnn=GNNFitConfig(epochs=gnn_epochs, batch_size=gnn_batch),
-            gru=False,
+            min_download_records=1,
+            min_topology_records=1,
+            gru=True,
+            gru_min_sequences=8,
+            incremental=False,
+            clear_after_train=True,
+            streaming=True,
             streaming_workers=1,
+            auto_mesh=True,
+            profile_dir="",
+            checkpoint_dir="",
             streaming_threshold_bytes=streaming_threshold_bytes,
+            gru_max_sequences=gru_max_sequences,
         )
         storage = TrainerStorage(TRAINER_WORK / "storage")
         training = Training(storage, ManagerUploader(manager, PlainRequests()), config, device=device)
         service = TrainerService(storage, training, synchronous=True, messages=messages)
         fit_walls = {m: (M_T.FIT_DURATION.labels(m).total, M_T.FIT_TOTAL.labels(m, "success").value)
-                     for m in ("mlp", "gnn")}
+                     for m in ("mlp", "gnn", "gru")}
         since = time.time_ns()
         t0 = time.perf_counter()
         service.Train(requests(), None)
@@ -992,7 +1122,8 @@ def trainer_leg(
             fit_walls[m] = M_T.FIT_DURATION.labels(m).total - total0
         mlp_up = manager.created[mlp_model_id_v1(TRAINER_IP, TRAINER_HOST)]
         gnn_up = manager.created[gnn_model_id_v1(TRAINER_IP, TRAINER_HOST)]
-        check(mlp_up.type == "mlp" and gnn_up.type == "gnn", "uploads of the wrong type")
+        gru_up = manager.created[gru_model_id_v1(TRAINER_IP, TRAINER_HOST)]
+        check((mlp_up.type, gnn_up.type, gru_up.type) == ("mlp", "gnn", "gru"), "uploads of the wrong type")
 
         # mean predictors on the same holdouts
         cap = 16 * config.mlp.batch_size  # stream_train_mlp's eval_max_batches
@@ -1002,7 +1133,16 @@ def trainer_leg(
         graph = build_probe_graph(wire.read_columns(topo_path), max_degree=config.gnn_max_degree)
         train_idx, eval_idx = _split_eval(len(graph.edge_src), config.gnn.eval_fraction, config.gnn.seed)
         gnn_steps = _batch_steps(len(train_idx), config.gnn.batch_size)[0] * config.gnn.epochs
-        mlp_ev, gnn_ev = mlp_up.evaluation, gnn_up.evaluation
+        # the GRU's holdout: the round's newest gru_max_sequences (the
+        # upload repeats the group's sequences), split as train_gru splits
+        group_seqs = list(wire.stream_gru_sequences(group_path))
+        gru_labels = np.concatenate([q.labels for q in group_seqs])
+        gru_total = files * reps * len(gru_labels)
+        gru_n = min(gru_total, config.gru_max_sequences)
+        gru_kept = np.tile(gru_labels, -(-gru_n // len(gru_labels)))[-gru_n:]
+        gru_train, gru_eval = _split_eval(gru_n, config.gru_config.eval_fraction, config.gru_config.seed)
+        gru_steps = _batch_steps(len(gru_train), config.gru_config.batch_size)[0] * config.gru_config.epochs
+        mlp_ev, gnn_ev, gru_ev = mlp_up.evaluation, gnn_up.evaluation, gru_up.evaluation
         out = {
             "round_s": round_s,
             "download_mib": files * reps * len(group) / 2**20,
@@ -1022,8 +1162,14 @@ def trainer_leg(
                 "f1": gnn_ev.f1,
                 "mean_predictor_mse": mean_mse(graph.edge_rtt_log_ms[eval_idx]),
             },
+            "gru": {
+                "fit_wall_s": fit_walls["gru"], "sequences": gru_n, "round_sequences": gru_total,
+                "steps": gru_steps, "ms_per_step": fit_walls["gru"] / gru_steps * 1e3,
+                "mse": gru_ev.mse, "mae": gru_ev.mae,
+                "mean_predictor_mse": mean_mse(gru_kept[gru_eval]), "holdout": len(gru_eval),
+            },
         }
-        m, g = out["mlp"], out["gnn"]
+        m, g, q = out["mlp"], out["gnn"], out["gru"]
         print(
             f"trainer[{device}]: Train stream → fits → CreateModel in {round_s:.1f}s;"
             f" mlp: fit_wall_s={m['fit_wall_s']:.2f} (stream wall {m['wall_s']:.2f}s)"
@@ -1042,8 +1188,15 @@ def trainer_leg(
             f" holdout mse={g['mse']:.5f} mae={g['mae']:.5f} precision={g['precision']:.4f}"
             f" recall={g['recall']:.4f} f1={g['f1']:.4f} (mean predictor mse {g['mean_predictor_mse']:.5f})"
         )
+        print(
+            f"trainer[{device}]: gru: fit_wall_s={q['fit_wall_s']:.2f} ({q['sequences']} of the round's"
+            f" {q['round_sequences']} sequences, the newest kept) steps={q['steps']}"
+            f" ({q['ms_per_step']:.2f} ms a step, the fit's wall over its steps, beside the other legs)"
+            f" holdout mse={q['mse']:.5f} mae={q['mae']:.5f} (mean predictor mse"
+            f" {q['mean_predictor_mse']:.5f} on {q['holdout']} sequences)"
+        )
         for name, leg in out.items():
-            if name in ("mlp", "gnn"):
+            if name in ("mlp", "gnn", "gru"):
                 check(np.isfinite(leg["mse"]) and leg["mse"] < leg["mean_predictor_mse"],
                       f"the {name} fit does not beat the mean predictor on its holdout")
 
@@ -1051,6 +1204,7 @@ def trainer_leg(
 
         if device.type == "cuda":
             out["card_vs_cpu"] = card_vs_cpu(group, len(blocks), check_blocks, seed)
+            out["gru_card_vs_cpu"] = gru_card_vs_cpu(group_seqs, GRU_CHECK_SEQUENCES, config.gru_config, seed)
             window = TRAINER_WORK / "window.dfb"
             per_group = len(group_pairs.labels) * (1 - 1 / eval_every)
             window.write_bytes(group * int(np.ceil(window_superbatches * mlp_batch / per_group)))
@@ -1093,6 +1247,152 @@ def card_vs_cpu(group: bytes, per_group: int, blocks: int, seed: int) -> dict:
     )
     check(loss_err <= FIT_TOL and mse_err <= FIT_TOL, "the card's fit differs from the CPU's")
     return {"steps": card.steps, "loss_rel_err": loss_err, "mse_rel_err": mse_err}
+
+
+def gru_card_vs_cpu(group_seqs, n: int, fit: FitConfig, seed: int) -> dict:
+    """A reduced GRU fit (the first ``n`` sequences of the upload group,
+    the round's GRU config but 2 epochs, one init) on the card against the
+    same fit on the CPU: each epoch's loss and the holdout mse within
+    ``GRU_FIT_TOL``; the card's fit alone is timed for its ms per step."""
+    seqs = np.concatenate([q.sequences for q in group_seqs])
+    reps = -(-n // len(seqs))
+    x = np.tile(seqs, (reps, 1, 1))[:n]
+    y = np.tile(np.concatenate([q.labels for q in group_seqs]), reps)[:n]
+    ln = np.tile(np.concatenate([q.lengths for q in group_seqs]), reps)[:n]
+    init = module_tree(init_gru(torch.Generator().manual_seed(seed), GRU_FEATURE_DIM, fit.hidden_dims[0]))
+    cfg = FitConfig(hidden_dims=fit.hidden_dims, batch_size=fit.batch_size, epochs=2, seed=fit.seed, init=init)
+    steps = _batch_steps(len(_split_eval(n, cfg.eval_fraction, cfg.seed)[0]), cfg.batch_size)[0] * cfg.epochs
+    train_gru(x, y, lengths=ln, config=FitConfig(hidden_dims=fit.hidden_dims, batch_size=fit.batch_size,
+                                                 epochs=1, init=init), device="cuda")  # warm-up
+    sync(torch.device("cuda"))
+    t0 = time.perf_counter()
+    card = train_gru(x, y, lengths=ln, config=cfg, device="cuda")
+    sync(torch.device("cuda"))
+    wall = time.perf_counter() - t0
+    cpu = train_gru(x, y, lengths=ln, config=cfg, device="cpu")
+    a, b = np.asarray(card.history), np.asarray(cpu.history)
+    loss_err = float(np.max(np.abs(a - b) / np.abs(b)))
+    mse_err = abs(card.metrics["mse"] - cpu.metrics["mse"]) / cpu.metrics["mse"]
+    print(
+        f"trainer: gru card vs CPU, {steps} steps of {cfg.batch_size} from one init: max rel"
+        f" |loss - cpu|={loss_err:.3g} holdout mse {card.metrics['mse']:.5f} vs {cpu.metrics['mse']:.5f}"
+        f" (rel {mse_err:.3g}; tol {GRU_FIT_TOL:g} each); the card's fit alone {wall:.2f}s,"
+        f" {wall / steps * 1e3:.2f} ms a step"
+    )
+    check(loss_err <= GRU_FIT_TOL and mse_err <= GRU_FIT_TOL, "the card's GRU fit differs from the CPU's")
+    return {"steps": steps, "loss_rel_err": loss_err, "mse_rel_err": mse_err, "wall_s": wall,
+            "ms_per_step": wall / steps * 1e3}
+
+
+def demand_window(tasks: int, hot: int, now: float, rng: np.random.Generator, **window_kw):
+    """A ``DemandWindow`` (its defaults unless ``window_kw`` says otherwise)
+    holding ``tasks`` task series over its whole window up to ``now``:
+    ``hot`` of them rise bucket by bucket (1 to 2 × the bucket's index),
+    the rest stay flat (1 + Poisson(0.5) a bucket) → (window, the hot
+    series' task ids)."""
+    window = DemandWindow(**window_kw)
+    width, t = window.bucket_s, window.window_buckets
+    check(tasks <= window.max_tasks, "more tasks than the window holds")
+    counts = 1.0 + rng.poisson(0.5, (tasks, t))
+    hot_rows = rng.choice(tasks, hot, replace=False)
+    counts[hot_rows] = np.round(np.arange(1, t + 1) * rng.uniform(1.0, 2.0, (hot, 1)))
+    urls = [f"https://registry.example/v2/app/blobs/sha256:{i:064x}" for i in range(tasks)]
+    keys = [task_id_v1(u) for u in urls]
+    for i in range(tasks):
+        for b in np.flatnonzero(counts[i]):
+            window.observe(keys[i], url=urls[i], ts=now - (t - 1 - b) * width, count=float(counts[i, b]))
+    return window, {keys[i] for i in hot_rows}
+
+
+def preheat_leg(
+    device, manager, tasks=1024, hot=PREHEAT_HOT, hosts=10_000, probes=16,
+    candidates=PREHEAT_CANDIDATES, seed=0, **window_kw,
+) -> dict:
+    """The preheat plane on ``device``: a ``DemandWindow`` (1,024 tasks ×
+    32 buckets of 10 s at its defaults) holding ``hot`` rising series among
+    flat ones, and one ``PreheatPlanner`` sweep — the forecaster's first
+    fit inline, the GRU forecast of every series, the plan, and one
+    ``CreateJob`` into ``manager`` whose seed ranking is
+    ``recommend_seeds_by_rtt`` over the serve leg's engine. The hot series
+    must be the ones planned and the job must carry their task ids. The
+    forecast of every series on ``device`` is then timed and held against
+    the plain numpy version (``FORECAST_TOL``). Last, ``recommend_seeds``
+    ranks ``candidates`` hosts with the GNN ``manager`` holds (the trainer
+    leg's, over the same probe graph), against the same on the CPU."""
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    ids, fed, _, _ = probe_graph(hosts, probes, rng)
+    resource, _ = build_swarm(ids, 0, 0, rng)
+    eng = fed(device)
+    eng.flush(now=PROBED_AT)
+    topology = NetworkTopology(resource.host_manager, engine=eng)
+    now = PROBED_AT
+    window, hot_ids = demand_window(tasks, hot, now, rng, **window_kw)
+    forecaster = DemandForecaster(window.window_buckets, device=device, seed=seed)
+    planner = preheat_planner.PreheatPlanner(
+        window, forecaster, manager_client=manager, topology=topology, cluster_id=1,
+        budget_per_sweep=hot, requests=PlainRequests(),
+    )
+    # the sweep's phases (fit inside forecast, the seed ranking inside plan)
+    phases = {name: getattr(preheat_planner, f"PH_{name.upper()}") for name in
+              ("forecast", "fit", "plan", "rank", "place")}
+    jobs0, phase0 = len(manager.jobs), {name: ph.total_s for name, ph in phases.items()}
+    swept = planner.sweep_once(now=now)
+    sync(device)
+    phase_s = {name: ph.total_s - phase0[name] for name, ph in phases.items()}
+    fit_s = phase_s["fit"]
+    check(swept["outcome"] == "planned" and forecaster.fits == 1, f"the sweep planned nothing: {swept}")
+    check(next(forecaster._model.parameters()).device.type == device.type, "the forecaster is not on the device")
+    check(swept["forecast"] == tasks and len(manager.jobs) == jobs0 + 1, f"the sweep sent no job: {swept}")
+    job = manager.jobs[-1]
+    args = json.loads(job.args_json)
+    planned = {spec["task_id"] for spec in args["tasks"]}
+    check(job.type == "preheat" and planned == hot_ids, "the job does not carry the hot series")
+    seeds = recommend_seeds_by_rtt(eng, k=planner.seed_k)
+    check(len(seeds) == planner.seed_k and args["seed_ranking"] == seeds,
+          "the job's seed ranking is not the engine's RTT centrality")
+
+    keys, _, series = window.series_batch(now=now)
+    scores = forecaster.forecast_demand(series)
+    is_hot = np.array([k in hot_ids for k in keys])
+    check(scores.shape == (tasks,) and np.isfinite(scores).all(), "forecast shape")
+    check(scores[is_hot].min() > scores[~is_hot].max(), "a flat series forecast above a rising one")
+    err = float(np.abs(scores - forecaster.forecast_demand_np(series)).max())
+    forecast_ms = wall_ms(lambda: forecaster.forecast_demand(series), 10, device)
+    plain_ms = wall_ms(lambda: forecaster.forecast_demand_np(series), 3, torch.device("cpu"))
+    print(
+        f"preheat[{device}]: window {tasks} tasks x {window.window_buckets} buckets of"
+        f" {window.bucket_s:g}s ({hot} rising); sweep {swept['seconds'] * 1e3:.1f} ms with the first fit"
+        f" inline ({fit_s:.2f}s), planned {swept['planned']} (the rising ones), one CreateJob with"
+        f" seeds {[s['host_id'] for s in seeds]}; forecast of {tasks} series forecast_ms={forecast_ms:.2f}"
+        f" (numpy {plain_ms:.2f}) max|card - numpy|={err:.3g} (tol {FORECAST_TOL:g}); the sweep's"
+        f" phases in s: " + " ".join(f"{name}={t:.3f}" for name, t in phase_s.items())
+    )
+    check(err <= FORECAST_TOL, "the forecast differs from its numpy version")
+
+    gnn = deserialize_params_auto(manager.created[gnn_model_id_v1(TRAINER_IP, TRAINER_HOST)].weights)
+    pool = [ids[i] for i in rng.choice(hosts, candidates, replace=False)]
+    t0 = time.perf_counter()
+    best = recommend_seeds(topology, gnn, k=3, candidates=pool, device=device)
+    sync(device)
+    recommend_ms = (time.perf_counter() - t0) * 1e3
+    want = recommend_seeds(topology, gnn, k=3, candidates=pool, device="cpu")
+    means = [r["mean_predicted_rtt_log_ms"] for r in best]
+    check(len(best) == 3 and {r["host_id"] for r in best} <= set(pool) and means == sorted(means),
+          f"recommend_seeds: {best}")
+    seed_err = max(abs(a - b["mean_predicted_rtt_log_ms"]) for a, b in zip(means, want))
+    print(
+        f"preheat[{device}]: recommend_seeds over {candidates} candidates with the trained GNN:"
+        f" {[r['host_id'] for r in best]} in {recommend_ms:.1f} ms (the embed of {hosts} hosts"
+        f" included); max|mean - cpu| at each rank {seed_err:.3g} (tol {GNN_SCORE_TOL:g})"
+    )
+    check(seed_err <= GNN_SCORE_TOL, "recommend_seeds on the device differs from the CPU's")
+    return {
+        "tasks": tasks, "buckets": window.window_buckets, "hot": hot, "sweep_ms": swept["seconds"] * 1e3,
+        "fit_s": fit_s, "phase_s": phase_s, "planned": swept["planned"], "seeds": [s["host_id"] for s in seeds],
+        "forecast_ms": forecast_ms, "forecast_numpy_ms": plain_ms, "forecast_err": err,
+        "recommend_ms": recommend_ms, "recommend_err": seed_err,
+    }
 
 
 def encoder_leg(
@@ -1172,9 +1472,13 @@ def main() -> int:
     flash.reset_launches()
     scheduler = scheduler_leg("cuda")
     check(flash.LAUNCHES == 0, "the scheduler leg runs no attention")
+    manager = _Manager()
     flash.reset_launches()
-    trainer = trainer_leg("cuda")
+    trainer = trainer_leg("cuda", manager=manager)
     check(flash.LAUNCHES == 0, "the trainer leg runs no attention")
+    flash.reset_launches()
+    preheat = preheat_leg("cuda", manager)
+    check(flash.LAUNCHES == 0, "the preheat leg runs no attention")
     encoders = {
         kern: encoder_leg("cuda", dtype=dtype)
         for kern, dtype in (("sm90", torch.bfloat16), ("tf32x3", torch.float32))
@@ -1186,6 +1490,7 @@ def main() -> int:
         "serve": serve,
         "scheduler": scheduler,
         "trainer": trainer,
+        "preheat": preheat,
         "encoder": encoders,
         "tf32x3_d8_bf16": rows["tf32x3_d8_bf16"],
         "tf32x3_prepass_ms": prepass_ms,

@@ -1,7 +1,7 @@
-"""Scheduler Prometheus series the decision path feeds — the schedule,
-scoring-service and wave series of the reference's ``scheduler/metrics.py``
-(the announce, register, piece, record and preheat series come with the
-server slice)."""
+"""Scheduler Prometheus series the decision path and the preheat plane
+feed — the schedule, scoring-service, wave and preheat series of the
+reference's ``scheduler/metrics.py`` (the announce, register, piece and
+record series come with the server slice)."""
 
 from dragonfly2_torch.utils.metrics import default_registry as _r
 
@@ -61,4 +61,47 @@ WAVE_UNPACK_SECONDS = _r.histogram(
     "scheduler_wave_unpack_seconds",
     "Segment-rank unpack wall per wave request",
     buckets=(1e-5, 5e-5, 1e-4, 5e-4, 1e-3, 5e-3, 2e-2),
+)
+
+# -- predictive preheat plane (dragonfly2_torch/preheat/): demand folding,
+# forecast sweeps, planned tasks and the jobs they ride ---------------------
+PREHEAT_SWEEPS_TOTAL = _r.counter(
+    "scheduler_preheat_sweeps_total",
+    "Planner sweeps by outcome",
+    ("outcome",),  # planned | empty | error
+)
+PREHEAT_JOBS_TOTAL = _r.counter(
+    "scheduler_preheat_jobs_total",
+    "Preheat jobs submitted by the planner, by outcome",
+    ("outcome",),  # succeeded | failed
+)
+PREHEAT_TASKS_PLANNED_TOTAL = _r.counter(
+    "scheduler_preheat_tasks_planned_total",
+    "Forecast-hot tasks picked for seed placement",
+)
+PREHEAT_FORECASTS_TOTAL = _r.counter(
+    "scheduler_preheat_forecasts_total",
+    "Per-task demand forecasts served by the GRU forecaster",
+)
+PREHEAT_SKIPPED_TOTAL = _r.counter(
+    "scheduler_preheat_skipped_total",
+    "Forecast-hot tasks the planner declined",
+    ("reason",),  # held | inflight | cooldown | budget | no_url
+)
+PREHEAT_DEMAND_TASKS = _r.gauge(
+    "scheduler_preheat_demand_tasks", "Task series resident in the demand window"
+)
+PREHEAT_DEMAND_OBSERVED_TOTAL = _r.counter(
+    "scheduler_preheat_demand_observed_total",
+    "Demand observations folded into the window, by source",
+    ("source",),  # record | layer
+)
+PREHEAT_DEMAND_DROPPED_TOTAL = _r.counter(
+    "scheduler_preheat_demand_dropped_total",
+    "Demand arrivals refused at the window's task cap",
+)
+PREHEAT_SWEEP_SECONDS = _r.histogram(
+    "scheduler_preheat_sweep_seconds",
+    "Whole planner sweep wall (forecast + plan + job submit)",
+    buckets=(1e-3, 5e-3, 0.02, 0.1, 0.5, 2.0, 10.0),
 )

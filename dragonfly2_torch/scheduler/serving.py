@@ -16,8 +16,9 @@ Degradation: any serving failure raises :class:`ServingError` to the
 caller, and ``MLEvaluator`` drops one rung (serving → per-call MLP →
 base) with edge-triggered visible state (resilience registry, flight
 events, ``scheduler_serving_fallback_total``). The served-model protocol
-is duck-typed on ``kind``: the GNN rung (``GNNServed``, a per-request
-``supports`` check) comes with the GNN slice.
+is duck-typed on ``kind``: ``MLPServed`` scores feature rows, ``GNNServed``
+host pairs, with a per-request ``supports`` check (a pair whose host the
+GNN never embedded drops only its own decision one rung).
 
 The service thread runs the model's forward itself, so every tensor the
 scorer builds names its device explicitly (``torch.cuda.set_device`` is
@@ -115,6 +116,36 @@ class MLPServed:
         pr = getattr(self._scorer, "predict_ranked", None)
         if pr is not None:
             return pr(features, seg_ids)
+        scores = self.score(features, pairs)
+        return scores, wavelib.rank_order(scores, seg_ids)
+
+
+class GNNServed:
+    """Host-pair rung: ranks (child → parent) pairs by GNN-predicted RTT
+    over the swap-time-resident embeddings (``trainer.serving.GNNScorer``).
+    A pair whose host the probe graph never embedded is unsupported — the
+    service fails that REQUEST (not the batch), and the evaluator drops one
+    rung for that decision only."""
+
+    kind = "gnn"
+
+    def __init__(self, scorer):
+        self._scorer = scorer
+
+    def supports(self, pairs) -> bool:
+        if not pairs:
+            return False
+        has = self._scorer.has_host
+        return all(has(a) and has(b) for a, b in pairs)
+
+    def score(self, features: np.ndarray, pairs) -> np.ndarray:
+        src = [a for a, _ in pairs]
+        dst = [b for _, b in pairs]
+        return np.asarray(self._scorer.predict_rtt_log_ms(src, dst))
+
+    def score_ranked(self, features: np.ndarray, pairs, seg_ids):
+        # the GNN head returns host scores (index-vector dispatch); the
+        # wave unpack is the host lexsort
         scores = self.score(features, pairs)
         return scores, wavelib.rank_order(scores, seg_ids)
 

@@ -539,3 +539,24 @@ def read_train_pairs(
         download_index=np.concatenate(idx),
         num_downloads=records,
     )
+
+
+def stream_gru_sequences(
+    path: str | os.PathLike,
+    offset: int = 0,
+    end: int | None = None,
+    verify_crc: bool = True,
+):
+    """Yield one ``PieceSequences`` per ``train`` block — the GRU leg's
+    bounded-memory binary read (the sequences were extracted scheduler-side
+    into each block's ``gru.*`` columns)."""
+    from dragonfly2_torch.schema.features import PieceSequences
+
+    for header, cols in iter_blocks(path, offset, end, verify_crc=verify_crc):
+        if header["kind"] != KIND_TRAIN:
+            continue
+        yield PieceSequences(
+            sequences=np.array(cols["gru.sequences"]),
+            labels=np.array(cols["gru.labels"]),
+            lengths=np.array(cols["gru.lengths"]),
+        )

@@ -5,7 +5,8 @@ Lifecycle: ``enqueue`` (delta queue) → ``flush`` (drain, EWMA fold into the
 host store, staleness purge, padded CSR build, upload, decay → k-hop →
 landmark distances on the device) → queries (``est_rtt_ns``, ``neighbors``,
 ``rtt_affinity``, ``rtt_affinity_pairs``, ``centrality``, ``stats``) served
-from the resident arrays.
+from the resident arrays, and ``export_records``, the probe graph as
+``NetworkTopologyRecord`` rows (the GNN's swap-time embed reads it).
 
 RTT inference (unprobed pairs): L landmark hosts (highest fresh degree)
 keep min-plus distances ``D`` [node_cap, L] to every host, which stays on
@@ -19,12 +20,14 @@ from __future__ import annotations
 import bisect
 import threading
 import time
+import uuid
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from dragonfly2_torch.device import resolve_device
+from dragonfly2_torch.schema import records as R
 from dragonfly2_torch.topology.csr import NS_PER_MS, AdjacencyStore
 from dragonfly2_torch.topology.delta import DeltaQueue, EdgeDelta
 from dragonfly2_torch.topology.kernels import INF_MS, TorchKernels
@@ -46,8 +49,12 @@ class TopologyConfig:
 
 
 class TopologyEngine:
-    def __init__(self, config: TopologyConfig | None = None, device="cuda"):
+    """``clock`` is the engine's wall clock in seconds (``time.time``): a
+    flush, purge or export that is given no ``now`` reads it."""
+
+    def __init__(self, config: TopologyConfig | None = None, device="cuda", clock=time.time):
         self.cfg = config or TopologyConfig()
+        self.clock = clock
         self.device = resolve_device(device)
         self.kernels = TorchKernels()
         self.store = AdjacencyStore()
@@ -82,7 +89,7 @@ class TopologyEngine:
         self, src: str, dest: str, rtt_ns: int, created_at: float | None = None
     ) -> None:
         self.deltas.put(
-            EdgeDelta(src, dest, rtt_ns, created_at if created_at is not None else time.time())
+            EdgeDelta(src, dest, rtt_ns, created_at if created_at is not None else self.clock())
         )
         if len(self.deltas) >= self.cfg.flush_threshold:
             self.flush()
@@ -103,7 +110,7 @@ class TopologyEngine:
             self.deltas.discard_host(host_id)
             if self.store.purge_host(host_id):
                 self._store_version += 1
-                self._refresh(time.time())
+                self._refresh(self.clock())
             self._cache.clear()
 
     # ------------------------------------------------------------------
@@ -113,7 +120,7 @@ class TopologyEngine:
         """Apply queued deltas and refresh the device arrays → number of
         deltas applied. The rebuild always runs (edge age advances between
         flushes). Kernel work runs outside the query lock."""
-        now = time.time() if now is None else now
+        now = self.clock() if now is None else now
         with self._flush_lock:
             batch = self.deltas.drain()
             with self._lock:
@@ -293,7 +300,7 @@ class TopologyEngine:
                     {
                         "host_id": self.store.ids[int(d)],
                         "avg_rtt_ns": int(e[0]),
-                        "age_s": max(time.time() - e[1], 0.0),
+                        "age_s": max(self.clock() - e[1], 0.0),
                     }
                 )
             out.sort(key=lambda r: r["avg_rtt_ns"])
@@ -451,6 +458,67 @@ class TopologyEngine:
                 "query_p50_ms": self.query_p50_ms(),
                 "last_flush_at": self._last_flush_at,
             }
+
+    # ------------------------------------------------------------------
+    # export: the snapshot path reads the adjacency, not the KV store
+    # ------------------------------------------------------------------
+    def export_records(self, host_manager, dest_limit: int) -> list:
+        """``NetworkTopologyRecord`` rows straight from the host store, one
+        per source host known to ``host_manager``, keeping its freshest
+        ``dest_limit`` destinations (most recently updated first)."""
+        # flush BEFORE taking _lock: flush's order is _flush_lock → _lock,
+        # and the reverse would deadlock with a concurrent flusher
+        self.flush()
+        with self._lock:
+            by_src: dict[int, list[tuple[int, list[float]]]] = {}
+            for (s, d), v in self.store.edges.items():
+                by_src.setdefault(s, []).append((d, [v[0], v[1]]))
+
+            out = []
+            now_ns = int(self.clock() * 1e9)
+            for s, dests in by_src.items():
+                sh = host_manager.load(self.store.ids[s])
+                if sh is None:
+                    continue
+                dests.sort(key=lambda t: -t[1][1])  # most recently updated first
+                dest_hosts = []
+                for d, v in dests[:dest_limit]:
+                    dh = host_manager.load(self.store.ids[d])
+                    if dh is None:
+                        continue
+                    dest_hosts.append(
+                        R.DestHost(
+                            id=dh.id,
+                            type=dh.type.value,
+                            hostname=dh.hostname,
+                            ip=dh.ip,
+                            port=dh.port,
+                            network=dh.network,
+                            probes=R.ProbesRecord(
+                                average_rtt=int(v[0]),
+                                created_at=int(v[1] * 1e9),
+                                updated_at=int(v[1] * 1e9),
+                            ),
+                        )
+                    )
+                if not dest_hosts:
+                    continue
+                out.append(
+                    R.NetworkTopologyRecord(
+                        id=str(uuid.uuid4()),
+                        host=R.SrcHost(
+                            id=sh.id,
+                            type=sh.type.value,
+                            hostname=sh.hostname,
+                            ip=sh.ip,
+                            port=sh.port,
+                            network=sh.network,
+                        ),
+                        dest_hosts=dest_hosts,
+                        created_at=now_ns,
+                    )
+                )
+            return out
 
     # ------------------------------------------------------------------
     def _note_latency(self, t0: float) -> None:

@@ -1,8 +1,12 @@
-"""Model serving: the scheduler's ``ml`` evaluator scores candidate parents
-with the trained MLP (counterpart of the reference's ``trainer/serving.py``;
-the GNN and GRU scorers come with later slices).
+"""Model serving (counterpart of the reference's ``trainer/serving.py``):
+the scheduler's ``ml`` evaluator scores candidate parents with the trained
+MLP (``MLPScorer``), the batched scoring service ranks host pairs by the
+GNN's predicted RTT (``GNNScorer``), and bad-node detection and the
+preheat forecaster run the GRU (``GRUScorer``, ``np_predict_next_cost``
+as its plain numpy version).
 
-Parameters move to the device once, at construction. Every forward pads
+Parameters move to the device once, at construction; the GNN's node
+embeddings are computed there too and stay resident. Every forward pads
 its batch up to a rung of ``BUCKET_LADDER`` and brings the whole rung back
 before slicing on the host, as the reference does.
 """
@@ -15,9 +19,15 @@ import numpy as np
 import torch
 
 from dragonfly2_torch.device import resolve_device
+from dragonfly2_torch.models.gnn import GraphSAGE, apply_graphsage, predict_edge
+from dragonfly2_torch.models.gru import GRU, predict_next_cost
 from dragonfly2_torch.models.mlp import MLP, score_parents
+from dragonfly2_torch.schema.features import GRU_FEATURE_DIM, GRU_MAX_SEQ
+from dragonfly2_torch.schema.records import MAX_PIECES_PER_PARENT
 from dragonfly2_torch.weights import (  # noqa: F401  (the reference's serving API)
     deserialize_params_auto,
+    graphsage_from_numpy,
+    gru_from_numpy,
     mlp_from_numpy,
     serialize_params,
 )
@@ -101,3 +111,140 @@ class MLPScorer:
         packed[:n, -1] = np.asarray(seg_ids, np.float32)
         s, order = score_ranked(self._mlp, torch.from_numpy(packed).to(self.device))
         return s.cpu().numpy()[:n], order.cpu().numpy()[:n]
+
+
+def _np_gelu(x: np.ndarray) -> np.ndarray:
+    """The tanh-approximate gelu, in numpy."""
+    return 0.5 * x * (1.0 + np.tanh(0.7978845608028654 * (x + 0.044715 * x**3)))
+
+
+def _np_sigmoid(x: np.ndarray) -> np.ndarray:
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+def np_predict_next_cost(params: Any, x: np.ndarray, lengths=None) -> np.ndarray:
+    """The plain numpy version of ``models.gru.predict_next_cost``: the same
+    masked recurrence and gelu head on ``[B, T, F]`` histories, in float32.
+    ``params`` is the reference's tree (numpy)."""
+    wz, uz, bz = (np.asarray(params[k], np.float32) for k in ("wz", "uz", "bz"))
+    wr, ur, br = (np.asarray(params[k], np.float32) for k in ("wr", "ur", "br"))
+    wh, uh, bh = (np.asarray(params[k], np.float32) for k in ("wh", "uh", "bh"))
+    x = np.asarray(x, np.float32)
+    b, t, _ = x.shape
+    if lengths is None:
+        lengths = np.full((b,), t, np.int32)
+    else:
+        lengths = np.asarray(lengths, np.int32)
+    h = np.zeros((b, uz.shape[0]), np.float32)
+    for step in range(t):
+        xt = x[:, step, :]
+        z = _np_sigmoid(xt @ wz + h @ uz + bz)
+        r = _np_sigmoid(xt @ wr + h @ ur + br)
+        n = np.tanh(xt @ wh + (r * h) @ uh + bh)
+        h_new = (1.0 - z) * n + z * h
+        # the state stops updating past a sequence's length
+        h = np.where((step < lengths)[:, None], h_new, h)
+    layers = params["head"]["layers"]
+    out = h
+    last = len(layers) - 1
+    for i, layer in enumerate(layers):
+        out = out @ np.asarray(layer["w"], np.float32) + np.asarray(layer["b"], np.float32)
+        if i != last:
+            out = _np_gelu(out)
+    return out[:, 0]
+
+
+class GNNScorer:
+    """Edge-RTT predictor over a fixed probe graph: scores (src, dst) host
+    pairs by predicted log RTT (seed placement, and the batched scoring
+    service's GNN rung). ``params`` is the reference's tree (numpy) or a
+    ``GraphSAGE``.
+
+    The node embeddings are computed once, at construction — swap time in
+    the model refresher's lifecycle — with ``apply_graphsage`` (bfloat16
+    SAGE inputs on every device, as the reference) and stay on the device
+    next to the parameters; a predict moves only the (src, dst) index
+    vectors. The reference's graph-parallel embed over a multi-device
+    ``mesh`` is not ported yet and raises."""
+
+    def __init__(self, params: Any, graph, mesh=None, axis: str = "gp", device="cuda"):
+        if mesh is not None and dict(getattr(mesh, "shape", {})).get(axis, 1) > 1:
+            raise NotImplementedError(
+                "the graph-parallel GNN embed over a device mesh is not ported yet"
+                " (ROADMAP queue A item 11): pass mesh=None"
+            )
+        self.device = resolve_device(device)
+        if not isinstance(params, GraphSAGE):
+            params = graphsage_from_numpy(params, device=self.device)
+        self._model = params.to(self.device).requires_grad_(False)
+        self._node_index = {hid: i for i, hid in enumerate(graph.node_ids)}
+        with torch.no_grad():
+            self._emb = apply_graphsage(
+                self._model,
+                torch.from_numpy(np.asarray(graph.node_features, np.float32)).to(self.device),
+                torch.from_numpy(np.asarray(graph.neighbors)).to(self.device),
+                torch.from_numpy(np.asarray(graph.neighbor_mask)).to(self.device),
+            )
+
+    def has_host(self, host_id: str) -> bool:
+        return host_id in self._node_index
+
+    @torch.no_grad()
+    def predict_rtt_log_ms(self, src_ids: "list[str]", dst_ids: "list[str]") -> np.ndarray:
+        # bucketed like every serving forward; pads point at node 0 and
+        # are scored and sliced off
+        n = len(src_ids)
+        rows = bucket_rows(n)
+        src = np.zeros((rows,), np.int64)
+        dst = np.zeros((rows,), np.int64)
+        src[:n] = [self._node_index[s] for s in src_ids]
+        dst[:n] = [self._node_index[d] for d in dst_ids]
+        pred = predict_edge(
+            self._model,
+            self._emb,
+            torch.from_numpy(src).to(self.device),
+            torch.from_numpy(dst).to(self.device),
+        )
+        return pred.cpu().numpy()[:n]
+
+
+class GRUScorer:
+    """Next-piece-cost predictor around trained GRU params — the ``ml``
+    evaluator's model-based bad-node detection (a parent whose latest
+    piece cost blows far past the prediction from its own history is
+    flagged). ``params`` is the reference's tree (numpy) or a ``GRU``."""
+
+    def __init__(self, params: Any, device="cuda"):
+        self.device = resolve_device(device)
+        if not isinstance(params, GRU):
+            params = gru_from_numpy(params, device=self.device)
+        self._model = params.to(self.device).requires_grad_(False)
+
+    @torch.no_grad()
+    def predict_next_log_cost(self, cost_prefixes_ms: list) -> np.ndarray:
+        """[B] predicted next log1p piece cost (ms) from per-parent piece
+        cost history prefixes, featurized as the offline extractor does
+        (log1p cost, normalized piece position). Long histories keep their
+        newest ``GRU_MAX_SEQ`` costs at their true positions, capped at the
+        trained range ``GRU_MAX_SEQ / MAX_PIECES_PER_PARENT``. Pad rows are
+        zero-length sequences (the scan keeps h0), sliced off."""
+        b = len(cost_prefixes_ms)
+        rows = bucket_rows(b)
+        seqs = np.zeros((rows, GRU_MAX_SEQ, GRU_FEATURE_DIM), np.float32)
+        lengths = np.zeros((rows,), np.int64)
+        pos_cap = GRU_MAX_SEQ / MAX_PIECES_PER_PARENT
+        for i, prefix in enumerate(cost_prefixes_ms):
+            full = np.asarray(prefix, np.float64)
+            start = max(0, len(full) - GRU_MAX_SEQ)
+            p = full[start:]
+            L = len(p)
+            seqs[i, :L, 0] = np.log1p(p)
+            pos = (start + np.arange(L) + 1) / MAX_PIECES_PER_PARENT
+            seqs[i, :L, 1] = np.minimum(pos, pos_cap)
+            lengths[i] = L
+        pred = predict_next_cost(
+            self._model,
+            torch.from_numpy(seqs).to(self.device),
+            torch.from_numpy(lengths).to(self.device),
+        )
+        return pred.cpu().numpy()[:b]

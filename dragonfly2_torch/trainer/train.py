@@ -1,12 +1,14 @@
 """Model fit loops (counterpart of the reference's ``trainer/train.py``):
-the MLP parent scorer and the GraphSAGE edge-RTT model, fit with
-``optax.adamw``'s update rule under the reference's schedules.
+the MLP parent scorer, the GraphSAGE edge-RTT model and the GRU
+next-piece-cost model, fit with ``optax.adamw``'s update rule under the
+reference's schedules.
 
 An epoch is a Python loop of optimizer steps over minibatches already on
 the device (the reference scans the epoch in one XLA call); parameters
 and optimizer state update in place. Matmul inputs follow the device's
 policy (``device.compute_dtype``): bfloat16 on the card, float32 on the
-CPU; the GNN's SAGE layers are bfloat16 everywhere, as in the reference.
+CPU; the GNN's SAGE layers are bfloat16 everywhere, as in the reference;
+the GRU computes in float32 everywhere.
 
 JAX's random init cannot be reproduced here, so ``FitConfig.init``
 takes an initial parameter tree in the reference's layout (numpy); the
@@ -24,9 +26,10 @@ import torch
 
 from dragonfly2_torch.device import resolve_device
 from dragonfly2_torch.models import gnn as gnn_mod
+from dragonfly2_torch.models import gru as gru_mod
 from dragonfly2_torch.models import mlp as mlp_mod
 from dragonfly2_torch.utils import faults
-from dragonfly2_torch.weights import graphsage_from_numpy, mlp_from_numpy
+from dragonfly2_torch.weights import graphsage_from_numpy, gru_from_numpy, mlp_from_numpy
 
 # fault point: fires once per fit epoch — a ``delay`` rule models a
 # stalling device link, an ``abort`` rule a crash mid-fit
@@ -379,3 +382,79 @@ def evaluate_gnn(params, graph, edge_idx: np.ndarray) -> dict[str, float]:
     return _edge_metrics(
         pred, graph.edge_rtt_log_ms[edge_idx], float(np.median(graph.edge_rtt_log_ms))
     )
+
+
+# ---------------------------------------------------------------------------
+# GRU piece time-series
+# ---------------------------------------------------------------------------
+
+
+def train_gru(
+    sequences: np.ndarray,  # [N, T, F]
+    labels: np.ndarray,  # [N]
+    lengths: "np.ndarray | None" = None,
+    mesh=None,
+    config: FitConfig | None = None,
+    device="cuda",
+) -> FitResult:
+    """Fit the next-piece-cost predictor over piece history sequences.
+    Evaluation metrics are MSE/MAE on the held-out split. A data-parallel
+    ``mesh`` is not ported yet and raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the data-parallel fit mesh is not ported yet (ROADMAP queue A item 11):"
+            " pass mesh=None"
+        )
+    cfg = config or FitConfig(hidden_dims=(64,), batch_size=256, epochs=5)
+    _refuse_checkpoint(cfg)
+    dev = resolve_device(device)
+    n, t, f = sequences.shape
+    train_idx, eval_idx = _split_eval(n, cfg.eval_fraction, cfg.seed)
+    if lengths is None:
+        lengths = np.full((n,), t, np.int32)
+
+    if cfg.init is not None:
+        model = gru_from_numpy(cfg.init, device=dev)
+    else:
+        gen = torch.Generator().manual_seed(cfg.seed)
+        model = gru_mod.init_gru(gen, f, cfg.hidden_dims[0]).to(dev)
+    # warm-start the head's output bias at the label mean
+    with torch.no_grad():
+        model.head.layers[-1].b.fill_(float(labels.mean()))
+
+    steps, used, batch = _batch_steps(len(train_idx), cfg.batch_size)
+    optimizer = _optimizer(cfg, steps * cfg.epochs, model.parameters())
+
+    def loss_fn(p, b):
+        x, y, ln = b
+        pred = gru_mod.predict_next_cost(p, x, ln)
+        return torch.mean((pred - y) ** 2)
+
+    epoch_fn = make_epoch_fn(loss_fn, optimizer)
+    history: list[float] = []
+    rng = np.random.default_rng(cfg.seed + 1)
+    for _ in range(cfg.epochs):
+        order = train_idx[rng.permutation(len(train_idx))][:used]
+        xb = torch.from_numpy(sequences[order].reshape(steps, batch, t, f)).to(dev)
+        yb = torch.from_numpy(labels[order].reshape(steps, batch)).to(dev)
+        lb = torch.from_numpy(lengths[order].reshape(steps, batch).astype(np.int64)).to(dev)
+        history.append(float(epoch_fn(model, (xb, yb, lb))))
+
+    metrics: dict[str, float] = {}
+    if len(eval_idx):
+        metrics = evaluate_gru(model, sequences[eval_idx], labels[eval_idx], lengths[eval_idx])
+    return FitResult(params=model, metrics=metrics, history=history)
+
+
+@torch.no_grad()
+def evaluate_gru(
+    params, sequences: np.ndarray, labels: np.ndarray, lengths: np.ndarray
+) -> dict[str, float]:
+    dev = _device_of(params)
+    pred = gru_mod.predict_next_cost(
+        params,
+        torch.from_numpy(np.ascontiguousarray(sequences)).to(dev),
+        torch.from_numpy(np.asarray(lengths, np.int64)).to(dev),
+    ).cpu().numpy()
+    err = pred - labels
+    return {"mse": float(np.mean(err**2)), "mae": float(np.mean(np.abs(err)))}

@@ -3,39 +3,58 @@
 TODO stub).
 
 ``Training.train(ip, hostname)`` loads the uploading scheduler's dataset
-from storage, fits the MLP (download records) and GraphSAGE (probe
-graph) concurrently, uploads both models with their evaluation metrics
+from storage, fits the MLP (download records), GraphSAGE (probe graph)
+and, with ``gru=True`` (the default), the GRU (per-parent piece-cost
+sequences) concurrently, uploads each model with its evaluation metrics
 to the manager (``CreateModel``) and clears the consumed dataset. A
 failed fit never poisons serving: models upload as inactive and the
-manager's activation step gates rollout.
+manager's activation step gates rollout; a failed GRU leg never gates
+the round's ``ok``.
 
-Not ported yet: the GRU leg (``gru=True`` raises, ROADMAP queue A item
-10), the data-parallel mesh (an explicit mesh, or ``auto_mesh`` on a
-host with more than one card, raises: item 11), fit snapshots (item 8)
-and the native C++ CSV decoder — CSV payloads take the reference's own
-numpy fallback.
+Not ported yet: the data-parallel mesh (an explicit mesh, or
+``auto_mesh`` on a host with more than one card, raises: ROADMAP queue A
+item 11), fit snapshots (item 8) and the native C++ CSV decoder — CSV
+payloads take the reference's own numpy fallback.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import itertools
 import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Protocol
 
+import numpy as np
 import torch
 
 from dragonfly2_torch.device import resolve_device
 from dragonfly2_torch.schema import wire
 from dragonfly2_torch.schema.columnar import concat_columns, records_to_columns
-from dragonfly2_torch.schema.features import build_probe_graph, extract_pair_features
+from dragonfly2_torch.schema.features import (
+    PieceSequences,
+    build_probe_graph,
+    extract_pair_features,
+    extract_piece_sequences,
+)
 from dragonfly2_torch.trainer import metrics as M
 from dragonfly2_torch.trainer.storage import TrainerStorage
-from dragonfly2_torch.trainer.train import FitConfig, GNNFitConfig, train_gnn, train_mlp
+from dragonfly2_torch.trainer.train import (
+    FitConfig,
+    GNNFitConfig,
+    train_gnn,
+    train_gru,
+    train_mlp,
+)
 from dragonfly2_torch.utils import dflog, flight, tracing
-from dragonfly2_torch.utils.idgen import gnn_model_id_v1, host_id_v2, mlp_model_id_v1
+from dragonfly2_torch.utils.idgen import (
+    gnn_model_id_v1,
+    gru_model_id_v1,
+    host_id_v2,
+    mlp_model_id_v1,
+)
 
 logger = dflog.get("trainer")
 
@@ -58,7 +77,7 @@ class ManagerClient(Protocol):
     def create_model(
         self,
         model_id: str,
-        model_type: str,  # "mlp" | "gnn"
+        model_type: str,  # "mlp" | "gnn" | "gru"
         ip: str,
         hostname: str,
         params: Any,  # a port module or a parameter tree (serialized by the client)
@@ -90,9 +109,13 @@ class TrainingConfig:
     streaming_steps_per_call: int = 1
     # wall bound for one streamed fit; None = unbounded
     streaming_time_budget_s: "float | None" = None
-    # the GRU leg is not ported yet: True raises NotImplementedError
+    # third model family: the GRU next-piece-cost predictor over
+    # per-parent piece-cost sequences, on by default as in the reference;
+    # gru_error never gates .ok, so a host with too few sequences just
+    # skips the leg
     gru: bool = True
     gru_min_sequences: int = 8
+    # memory bound for the GRU leg: the newest sequences kept per fit
     gru_max_sequences: int = 1_000_000
     gru_config: FitConfig = field(
         default_factory=lambda: FitConfig(hidden_dims=(32,), batch_size=128, epochs=10)
@@ -140,11 +163,6 @@ class Training:
                 " item 11): pass mesh=None, and auto_mesh=False on a host with"
                 " more than one card"
             )
-        if self.config.gru:
-            raise NotImplementedError(
-                "the GRU leg is not ported yet (ROADMAP queue A item 10):"
-                " set TrainingConfig(gru=False)"
-            )
         if self.config.checkpoint_dir:
             raise NotImplementedError(
                 "fit snapshots are not ported yet (ROADMAP queue A item 8):"
@@ -152,8 +170,8 @@ class Training:
             )
 
     def train(self, ip: str, hostname: str) -> TrainingOutcome:
-        """Fit MLP + GNN for one uploading scheduler host, concurrently
-        (upstream training.go errgroup)."""
+        """Fit MLP + GNN (+ GRU) for one uploading scheduler host,
+        concurrently (upstream training.go errgroup)."""
         host_id = host_id_v2(ip, hostname)
         outcome = TrainingOutcome()
         # the caller's span: fit spans in the pool threads parent under
@@ -163,7 +181,7 @@ class Training:
         # drops exactly that form
         mlp_info: dict = {}
         with self._maybe_profile(host_id), concurrent.futures.ThreadPoolExecutor(
-            max_workers=2
+            max_workers=3
         ) as pool:
             f_mlp = pool.submit(
                 self._timed_fit, "mlp", parent_span, self._train_mlp,
@@ -172,6 +190,14 @@ class Training:
             f_gnn = pool.submit(
                 self._timed_fit, "gnn", parent_span, self._train_gnn,
                 host_id, ip, hostname,
+            )
+            f_gru = (
+                pool.submit(
+                    self._timed_fit, "gru", parent_span, self._train_gru,
+                    host_id, ip, hostname,
+                )
+                if self.config.gru
+                else None
             )
             try:
                 outcome.mlp_metrics = f_mlp.result()
@@ -183,6 +209,12 @@ class Training:
             except Exception as e:
                 logger.exception("trainGNN failed for %s", host_id)
                 outcome.gnn_error = str(e)
+            if f_gru is not None:
+                try:
+                    outcome.gru_metrics = f_gru.result()
+                except Exception as e:
+                    logger.exception("trainGRU failed for %s", host_id)
+                    outcome.gru_error = str(e)
 
         EV_ROUND(
             host_id=host_id,
@@ -465,6 +497,72 @@ class Training:
             self.manager_client.create_model(
                 model_id=gnn_model_id_v1(ip, hostname),
                 model_type="gnn",
+                ip=ip,
+                hostname=hostname,
+                params=result.params,
+                evaluation=result.metrics,
+            )
+        return result.metrics
+
+    # -- trainGRU (piece time-series; the reference's addition) -----------
+    def _train_gru(self, host_id: str, ip: str, hostname: str) -> dict[str, float]:
+        # sequence extraction is row-local, so the dataset is read in
+        # bounded chunks, both sources up to the committed round boundary
+        # (a concurrent Train stream may be appending past it): CSV first
+        # (it is older; re-extracted chunk-wise), then the binary blocks,
+        # which carry the sequences pre-extracted. The count is capped at
+        # the NEWEST gru_max_sequences: records append in time order, so
+        # trimming from the front keeps the fit on recent link behavior.
+        parts: list[PieceSequences] = []
+        total = 0
+        cap = self.config.gru_max_sequences
+        seq_iters = []
+        cpath = self.storage.download_path(host_id)
+        if cpath.exists() and cpath.stat().st_size:
+            boundary = self.storage.download_round_boundary(host_id)
+            seq_iters.append(
+                extract_piece_sequences(records_to_columns(chunk))
+                for chunk in self.storage.iter_download_chunks(host_id, max_bytes=boundary)
+            )
+        bpath = self.storage.download_blocks_path(host_id)
+        if bpath.exists() and bpath.stat().st_size:
+            seq_iters.append(
+                wire.stream_gru_sequences(
+                    bpath, end=self.storage.download_round_boundary(host_id, binary=True)
+                )
+            )
+        for s in itertools.chain(*seq_iters):
+            if s.sequences.shape[0]:
+                parts.append(s)
+                total += s.sequences.shape[0]
+            while parts and total - parts[0].sequences.shape[0] >= cap:
+                total -= parts[0].sequences.shape[0]
+                parts.pop(0)
+        if parts:
+            seqs = PieceSequences(
+                sequences=np.concatenate([p.sequences for p in parts])[-cap:],
+                labels=np.concatenate([p.labels for p in parts])[-cap:],
+                lengths=np.concatenate([p.lengths for p in parts])[-cap:],
+            )
+        else:
+            seqs = extract_piece_sequences({})
+        n = seqs.sequences.shape[0]
+        if n < self.config.gru_min_sequences:
+            raise ValueError(
+                f"{n} piece sequences for host {host_id}"
+                f" < min {self.config.gru_min_sequences}"
+            )
+        result = train_gru(
+            seqs.sequences,
+            seqs.labels,
+            lengths=seqs.lengths,
+            config=self.config.gru_config,
+            device=self.device,
+        )
+        if self.manager_client is not None:
+            self.manager_client.create_model(
+                model_id=gru_model_id_v1(ip, hostname),
+                model_type="gru",
                 ip=ip,
                 hostname=hostname,
                 params=result.params,

@@ -20,6 +20,7 @@ from torch import nn
 from dragonfly2_torch.device import resolve_device
 from dragonfly2_torch.models.attention import TransformerEncoder
 from dragonfly2_torch.models.gnn import GraphSAGE
+from dragonfly2_torch.models.gru import GRU
 from dragonfly2_torch.models.mlp import MLP
 
 
@@ -140,3 +141,11 @@ def graphsage_from_numpy(tree: dict, device="cuda") -> GraphSAGE:
         embed_dim=embed_dim,
     )
     return _load(model, tree, device)
+
+
+def gru_from_numpy(tree: dict, device="cuda") -> GRU:
+    """The reference's ``init_gru`` tree (``wz`` … ``bh`` and ``head``) →
+    ``GRU`` on ``device``."""
+    in_dim, hidden = np.shape(tree["wz"])
+    head_hidden = np.shape(tree["head"]["layers"][0]["w"])[1]
+    return _load(GRU(in_dim, hidden, head_hidden), tree, device)

@@ -444,3 +444,127 @@ def test_a_training_round_on_the_card_uploads_both_models_and_traces_them(cuda, 
     (trace,) = (tmp_path / "prof").iterdir()
     events = json.loads(trace.read_text())["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)  # CUDA kernels in the round's trace
+
+
+# -- GNN and GRU serving, the preheat forecaster --------------------------------
+#
+# The GRU computes in float32 on both devices with TF32 off: only the
+# summation order differs. The GNN's SAGE layers are bfloat16 on both; its
+# head takes the device's policy (bfloat16 inputs on the card), so scores
+# are held at the scorer's 2e-2 as the MLP's are.
+
+GRU_TOL = 2e-5
+FORECAST_TOL = 1e-3
+
+
+def _gru_tree(in_dim, hidden, seed=0):
+    from dragonfly2_torch.models.gru import init_gru
+    from dragonfly2_torch.weights import module_tree
+
+    return module_tree(init_gru(torch.Generator().manual_seed(seed), in_dim, hidden))
+
+
+def test_gru_forward_on_the_card_matches_the_cpu(cuda):
+    """``predict_next_cost`` on length-masked histories and ``GRUScorer``
+    on histories past ``GRU_MAX_SEQ`` (with the zero-length pad rows of the
+    bucket rung), card against CPU."""
+    from dragonfly2_torch.models.gru import predict_next_cost
+    from dragonfly2_torch.schema.features import GRU_MAX_SEQ
+    from dragonfly2_torch.trainer.serving import GRUScorer
+    from dragonfly2_torch.weights import gru_from_numpy
+
+    tree = _gru_tree(2, 32)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((70, 9, 2)).astype(np.float32))
+    lengths = torch.from_numpy(rng.integers(0, 10, 70))
+    with torch.no_grad():
+        card = predict_next_cost(gru_from_numpy(tree, device=cuda), x.to(cuda), lengths.to(cuda))
+        cpu = predict_next_cost(gru_from_numpy(tree, device="cpu"), x, lengths)
+    assert card.device.type == "cuda"
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), atol=GRU_TOL, rtol=0)
+    hists = [list(rng.lognormal(np.log(40.0), 0.6, n)) for n in (1, 3, GRU_MAX_SEQ, GRU_MAX_SEQ + 7, 40)]
+    scorer = GRUScorer(tree, device=cuda)
+    assert next(scorer._model.parameters()).device.type == "cuda"
+    np.testing.assert_allclose(
+        scorer.predict_next_log_cost(hists),
+        GRUScorer(tree, device="cpu").predict_next_log_cost(hists),
+        atol=GRU_TOL, rtol=0,
+    )
+
+
+def test_forecaster_on_the_card_matches_the_cpu(cuda):
+    """One set of demand-GRU params in a forecaster on the card and one on
+    the CPU: the horizon forecast agrees with both and with the numpy
+    version (≤ 1e-3, the reference's limit between its paths)."""
+    from dragonfly2_torch.preheat.forecast import DEMAND_FEATURE_DIM, DemandForecaster
+
+    tree = _gru_tree(DEMAND_FEATURE_DIM, 16, seed=1)
+    tree["head"]["layers"][-1]["b"] = np.full((1,), 1.2, np.float32)
+    rng = np.random.default_rng(1)
+    counts = np.abs(rng.normal(3.0, 2.0, (70, 32))).astype(np.float32)
+    card, cpu = DemandForecaster(32, device=cuda), DemandForecaster(32, device="cpu")
+    card.set_params(tree)
+    cpu.set_params(tree)
+    got = card.forecast_demand(counts)
+    assert got.shape == (70,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, cpu.forecast_demand(counts), atol=FORECAST_TOL, rtol=0)
+    np.testing.assert_allclose(got, card.forecast_demand_np(counts), atol=FORECAST_TOL, rtol=0)
+
+
+def test_a_gnn_installs_on_the_card_and_serves_its_waves(cuda):
+    """The refresher installs an active GNN on the card — its embeddings
+    made at swap time over the engine's export — and the service scores
+    host pairs with it as the same GNN on the CPU does (≤ 2e-2)."""
+    from types import SimpleNamespace
+
+    from dragonfly2_torch.models.gnn import init_graphsage
+    from dragonfly2_torch.scheduler.model_refresher import ModelRefresher, PlainRequests
+    from dragonfly2_torch.scheduler.networktopology import NetworkTopology
+    from dragonfly2_torch.schema.columnar import records_to_columns
+    from dragonfly2_torch.schema.features import GNN_NODE_FEATURE_DIM, build_probe_graph
+    from dragonfly2_torch.trainer.serving import GNNScorer, serialize_params
+
+    hosts = 40
+    resource = res.Resource()
+    for i in range(hosts):
+        resource.host_manager.store(res.Host(id=f"h{i}", hostname=f"h{i}", ip=f"10.0.0.{i}"))
+    rng = np.random.default_rng(2)
+    engine = TopologyEngine(TopologyConfig(flush_threshold=10**9), device=cuda, clock=lambda: 1000.0)
+    for i in range(hosts):
+        for j in rng.choice([k for k in range(hosts) if k != i], 6, replace=False):
+            engine.enqueue(f"h{i}", f"h{j}", int(rng.integers(1, 80) * 1e6), created_at=990.0)
+    topology = NetworkTopology(resource.host_manager, engine=engine)
+    graph = build_probe_graph(records_to_columns(topology.export_records()))
+    gnn = init_graphsage(torch.Generator().manual_seed(0), GNN_NODE_FEATURE_DIM, (16, 16),
+                         num_nodes=graph.num_nodes)
+    blobs = {"mlp": serialize_params(init_mlp(torch.Generator().manual_seed(0), [19, 16, 1])),
+             "gnn": serialize_params(gnn)}
+
+    class Manager:
+        def ListModels(self, request):
+            return SimpleNamespace(models=[
+                SimpleNamespace(model_id=f"{k}-model", type=k, version=1, state="active",
+                                updated_at_ns=1, created_at_ns=1)
+                for k in blobs
+            ])
+
+        def GetModelWeights(self, request):
+            return SimpleNamespace(weights=blobs[request.model_id.split("-")[0]])
+
+    service = ScoringService()
+    service.start()
+    try:
+        refresher = ModelRefresher(Manager(), MLEvaluator(serving=service), serving=service,
+                                   networktopology=topology, device=cuda, requests=PlainRequests())
+        assert refresher.refresh_once()
+        assert refresher.loaded_gnn_version == ("gnn-model", 1) and service.model_kind() == "gnn"
+        served = service._served[0]._scorer
+        assert served._emb.device.type == "cuda"
+        pairs = [(f"h{a}", f"h{b}") for a, b in rng.integers(0, hosts, (50, 2))]
+        got = service.score(np.zeros((50, 19), np.float32), pairs)
+        want = GNNScorer(gnn, graph, device="cpu").predict_rtt_log_ms(
+            [a for a, _ in pairs], [b for _, b in pairs]
+        )
+        np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
+    finally:
+        service.stop()

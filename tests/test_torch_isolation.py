@@ -6,10 +6,11 @@ nothing on ``chip_smoke.py``'s import path imports ``grpc`` or
 Checked statically, by parsing every source for its imports, and at run
 time in subprocesses (this process already imported jax) whose import
 system refuses the blocked packages: one imports every port module and
-runs the four legs of ``chip_smoke.py`` on the CPU at a tiny size (the
+runs the five legs of ``chip_smoke.py`` on the CPU at a tiny size (the
 trainer leg feeds its Train stream through plain messages and uploads
-through plain requests); the other also refuses gRPC and protobuf,
-imports only ``chip_smoke`` and runs the four legs again."""
+through plain requests; the preheat leg's job goes out through a plain
+request); the other also refuses gRPC and protobuf, imports only
+``chip_smoke`` and runs the five legs again."""
 
 import ast
 import os
@@ -81,13 +82,19 @@ sched = chip_smoke.scheduler_leg(
 )
 assert sched["decisions"] == 24 and sched["service_batches"] == 3, sched
 assert sched["mean_candidates"] >= 8, sched
+manager = chip_smoke._Manager()
 train = chip_smoke.trainer_leg(
-    "cpu", files=2, file_mib=1, hosts=64, probes=8, gnn_epochs=30, group_records=256,
-    mlp_batch=256, gnn_batch=64, streaming_threshold_bytes=0,
-    serve=dict(tasks=4, peers=16, wave_size=8, waves=2, warmup=1),
+    "cpu", files=2, file_mib=1, hosts=128, probes=16, gnn_epochs=20, group_records=256,
+    mlp_batch=256, gnn_batch=64, streaming_threshold_bytes=0, gru_max_sequences=2000,
+    serve=dict(tasks=4, peers=16, wave_size=8, waves=2, warmup=1), manager=manager,
 )
-assert train["mlp"]["steps"] == 87 and train["gnn"]["edges"] == 512, train
-assert train["serve"]["decisions"] == 16, train
+assert train["mlp"]["steps"] == 87 and train["gnn"]["edges"] == 2048, train
+assert train["gru"]["sequences"] == 2000, train
+assert train["serve"]["decisions"] == 16 and train["serve"]["kind"] == "gnn", train
+heat = chip_smoke.preheat_leg(
+    "cpu", manager, tasks=64, hot=4, hosts=128, probes=16, candidates=16, window_buckets=8,
+)
+assert heat["planned"] == 4 and len(manager.jobs) == 1, heat
 enc = chip_smoke.encoder_leg(
     "cpu", batch=2, seq=40,
     cfg=dict(in_dim=2, model_dim=32, num_heads=4, num_layers=2),
@@ -119,8 +126,9 @@ def _run_child(blocked, every_module: bool) -> int:
 
 
 def test_port_runs_with_jax_and_reference_blocked():
-    # every module of the port was imported (61 with the trainer slice)
-    assert _run_child(BLOCKED, every_module=True) >= 61
+    # every module of the port was imported (69 with the GNN/GRU serving
+    # and preheat slice)
+    assert _run_child(BLOCKED, every_module=True) >= 69
 
 
 def test_chip_smoke_runs_without_grpc_or_protobuf():

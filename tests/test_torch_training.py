@@ -6,7 +6,7 @@ model loaded into both. Both must write byte-identical storage files,
 upload the same model ids and types, and fit the same parameters and
 evaluations; a broken stream truncates both to the round boundary; the
 port's uploaded npz scores alike in both packages' ``MLPScorer``; and the
-legs the port leaves out raise."""
+parts the port leaves out raise."""
 
 import jax
 import numpy as np
@@ -264,7 +264,9 @@ def test_uploaded_npz_scores_alike_in_both_scorers(tmp_path):
 @pytest.mark.parametrize(
     "config,mesh,item",
     [
-        (dict(), None, "item 10"),  # gru=True, the reference's default
+        # the reference's defaults, gru=True included, build since the GRU
+        # leg landed: only a mesh still raises
+        (dict(), object(), "item 11"),
         (dict(gru=False), object(), "item 11"),
         (dict(gru=False, checkpoint_dir="snapshots"), None, "item 8"),
     ],

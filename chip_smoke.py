@@ -35,14 +35,16 @@ Phases (any failed check raises and the script exits non-zero):
    demotion, rank each decision by ``rank_order`` of its card scores, and
    match the same waves run on the CPU (candidate sets equal, scores
    within 2e-2);
-5. trainer leg: one upload round of the scheduler's record sink (11
-   files × 100 MiB of binary train blocks, ~1.8 M download records, and
-   the serve leg's probe graph as ~40,000 topology records) fed through
+5. trainer leg: one upload round of the scheduler's record sink (1
+   file × 100 MiB of binary train blocks in ``main``, 11 at the leg's
+   default, ~1.8 M download records; and the serve leg's probe graph as
+   ~40,000 topology records) fed through
    ``TrainerService.Train`` in 128 MiB chunks; ``Training`` as the trainer
    server builds it from its defaults fits the MLP on the streamed path
    (pinned buffers, a side-stream copy stage, 2 passes), the GNN (60
-   epochs) and the GRU (its newest ``GRU_MAX_SEQUENCES`` sequences, the
-   leg's one cut) at once on the card and uploads all three through
+   epochs) and the GRU (its newest 10,000 sequences in ``main``,
+   ``GRU_MAX_SEQUENCES`` at the leg's default) at once on the card and
+   uploads all three through
    ``CreateModel`` to a manager stand-in; each holdout mse must beat the
    mean predictor's; the refresher then installs the three models — the
    GNN in the serving slot (embedded at swap time over the engine's
@@ -61,7 +63,23 @@ Phases (any failed check raises and the script exits non-zero):
    on the card is held against its numpy version (``FORECAST_TOL``), and
    ``recommend_seeds`` ranks 64 candidate hosts with the trained GNN, as
    on the CPU;
-7. encoder leg at full width: the piece-sequence transformer (model_dim
+7. server leg: the port's ``SchedulerServer`` (``algorithm="ml"``) and
+   ``TrainerServer`` live over gRPC in this process on the card, with a
+   manager stand-in served by the port's ``glue.serve``, and the
+   daemons' side in 4 processes of its own (started with ``spawn``):
+   10,000 hosts announce and sync 16 seeded probes each (160,000 edges)
+   through ``SyncProbes``; 40 tasks × 256 peers run their ``AnnouncePeer``
+   streams at 64 at once (a back-to-source seed per task, then children
+   scheduled on earlier peers through ``Scheduling`` → ``MLEvaluator`` →
+   ``ScoringService`` on a seeded MLP the refresher installed); the
+   announcer uploads the records and the probe snapshot to the trainer,
+   whose fits land three ``CreateModel``; the refresher installs them and
+   256 more children are scored by the trained GNN with the GRU behind
+   bad-node detection. Every decision must be a legal parent set or a
+   legitimate back-to-source, none may drop below the serving rung after
+   the warm-up, each order is ``rank_order`` of its card scores, and every
+   served call is rescored on the CPU (MLP within 2e-2, GNN within 5e-2);
+8. encoder leg at full width: the piece-sequence transformer (model_dim
    256, 4 heads, 4 layers) on B = 2, T = 8192 with flash attention, against
    the plain ``local_attention``: once in bfloat16, which must launch
    ``flash_fwd_sm90`` once per layer and ``flash_fwd_tf32x3`` never, and
@@ -82,6 +100,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -134,6 +153,7 @@ from dragonfly2_torch.trainer.train import FitConfig, GNNFitConfig, _batch_steps
 from dragonfly2_torch.trainer.training import Training, TrainingConfig
 from dragonfly2_torch.utils import flight
 from dragonfly2_torch.utils.idgen import gnn_model_id_v1, gru_model_id_v1, mlp_model_id_v1, task_id_v1
+from dragonfly2_torch.utils.kvstore import KVStore
 from dragonfly2_torch.weights import module_tree
 
 # NVIDIA H100 SXM data sheet, dense rates. A float32-accurate product is
@@ -498,7 +518,8 @@ def probe_graph(hosts: int, probes: int, rng: np.random.Generator):
     distance + exponential noise of mean 2 ms), so it is learnable from
     host identity → (host ids, a function that feeds them into a new
     engine on a device, the probed peers [hosts, probes] and their RTTs
-    in ns)."""
+    in ns). ``fed.coords`` keeps the latent coordinates, for a leg that
+    makes transfers take longer between farther hosts."""
     ids = [f"host-{i:05d}" for i in range(hosts)]
     peers = np.stack([rng.choice(hosts - 1, probes, replace=False) for _ in range(hosts)])
     peers += peers >= np.arange(hosts)[:, None]  # distinct peers, no self probe
@@ -514,6 +535,7 @@ def probe_graph(hosts: int, probes: int, rng: np.random.Generator):
                 eng.enqueue(ids[i], ids[int(j)], int(rtt), created_at=PROBED_AT - 60.0)
         return eng
 
+    fed.coords = coords
     return ids, fed, peers, rtts
 
 
@@ -611,31 +633,119 @@ class _Model:
 
 class _Manager:
     """In-process stand-in for the manager's model registry and job queue:
-    ``CreateModel`` stores a model as version 1, active at once (the
-    manager's activation step is an operator's), ``ListModels`` lists them,
-    ``GetModelWeights`` returns a stored model's npz bytes and
-    ``CreateJob`` keeps the job's request."""
+    ``CreateModel`` stores a model as the next version of its id, active
+    at once (the manager's activation step is an operator's),
+    ``ListModels`` lists each id at its newest version, ``GetModelWeights``
+    returns a stored model's npz bytes and ``CreateJob`` keeps the job's
+    request. Called in-process it answers with plain records; with
+    ``pb2`` (the manager's generated module) it answers with its messages,
+    and ``served`` puts it behind a gRPC server — with the scheduler
+    registration, keepalive and job-lease RPCs the scheduler server calls —
+    on the port's own ``glue.serve``."""
 
-    def __init__(self):
-        self.created = {}  # model_id → the CreateModel request
+    def __init__(self, pb2=None):
+        self.created = {}  # model_id → its newest CreateModel request
+        self.versions = {}  # model_id → its newest version
+        self.stamps = {}  # model_id → creation order of its newest version
         self.jobs = []  # the CreateJob requests, in order
+        self.calls = {}  # RPC name → times called
+        self.pb2 = pb2
+        self._seq = 0  # creation order: a newer upload is the newer activation
+        self._lock = threading.Lock()
 
-    def CreateModel(self, request):
-        self.created[request.model_id] = request
+    def _called(self, name):
+        with self._lock:
+            self.calls[name] = self.calls.get(name, 0) + 1
 
-    def ListModels(self, request):
-        return SimpleNamespace(models=[
-            _Model(r.model_id, r.type, 1, "active", n + 1, n + 1)
-            for n, r in enumerate(self.created.values())
-        ])
+    def CreateModel(self, request, context=None):
+        self._called("CreateModel")
+        with self._lock:
+            mid = request.model_id
+            self.created[mid] = request
+            self.versions[mid] = self.versions.get(mid, 0) + 1
+            self._seq += 1
+            self.stamps[mid] = self._seq
+            version = self.versions[mid]
+        if self.pb2 is not None:
+            return self.pb2.Model(model_id=mid, type=request.type, version=version, state="active")
+        return None
 
-    def GetModelWeights(self, request):
-        check(request.model_id in self.created and request.version == 1, "unknown model asked for")
-        return SimpleNamespace(weights=self.created[request.model_id].weights)
+    def ListModels(self, request, context=None):
+        self._called("ListModels")
+        with self._lock:
+            rows = [(r, self.versions[m], self.stamps[m]) for m, r in self.created.items()]
+        if self.pb2 is not None:
+            return self.pb2.ListModelsResponse(models=[
+                self.pb2.Model(model_id=r.model_id, type=r.type, version=v, state="active",
+                               created_at_ns=n, updated_at_ns=n)
+                for r, v, n in rows
+            ])
+        return SimpleNamespace(models=[_Model(r.model_id, r.type, v, "active", n, n) for r, v, n in rows])
 
-    def CreateJob(self, request):
-        self.jobs.append(request)
-        return SimpleNamespace(id=len(self.jobs))
+    def GetModelWeights(self, request, context=None):
+        self._called("GetModelWeights")
+        with self._lock:
+            known = self.versions.get(request.model_id) == request.version
+            req = self.created.get(request.model_id)
+        check(known, "unknown model asked for")
+        if self.pb2 is not None:
+            return self.pb2.ModelWeights(model_id=req.model_id, version=request.version,
+                                         type=req.type, weights=req.weights)
+        return SimpleNamespace(weights=req.weights)
+
+    def CreateJob(self, request, context=None):
+        self._called("CreateJob")
+        with self._lock:
+            self.jobs.append(request)
+            n = len(self.jobs)
+        if self.pb2 is not None:
+            return self.pb2.Job(id=n, type=request.type, state="pending")
+        return SimpleNamespace(id=n)
+
+    # the scheduler server's registration, keepalive and job lease
+    def UpdateScheduler(self, request, context=None):
+        self._called("UpdateScheduler")
+        return self.pb2.Scheduler(hostname=request.hostname, ip=request.ip, port=request.port,
+                                  scheduler_cluster_id=request.scheduler_cluster_id)
+
+    def KeepAlive(self, request_iterator, context=None):
+        self._called("KeepAlive")
+        for _ in request_iterator:
+            pass
+        return self.pb2.Empty()
+
+    def ListPendingJobs(self, request, context=None):
+        self._called("ListPendingJobs")
+        return self.pb2.ListPendingJobsResponse()
+
+    def UpdateJobResult(self, request, context=None):
+        self._called("UpdateJobResult")
+        return self.pb2.Job(id=request.id, state=request.state)
+
+    def served(self):
+        """This stand-in behind a gRPC server on the port's ``glue.serve``
+        → (server, "127.0.0.1:<port>"). The manager RPCs it does not answer
+        abort with UNIMPLEMENTED."""
+        import grpc
+
+        from dragonfly2_torch.rpc import glue, protos
+
+        self.pb2 = protos.load("manager_pb2")
+        stand_in = self
+
+        class _Service:
+            def __getattr__(self, name):
+                impl = getattr(stand_in, name, None)
+                if impl is not None:
+                    return impl
+
+                def unimplemented(request, context):
+                    context.abort(grpc.StatusCode.UNIMPLEMENTED, f"the stand-in has no {name}")
+
+                return unimplemented
+
+        server, port = glue.serve({glue.MANAGER_SERVICE: _Service()})
+        return server, f"127.0.0.1:{port}"
 
 
 class _RecordingEvaluator(MLEvaluator):
@@ -804,7 +914,7 @@ def scheduler_leg(
         service.start()
         try:
             evaluator = _RecordingEvaluator(topology=eng, serving=service)
-            topology = NetworkTopology(resource.host_manager, engine=eng)
+            topology = NetworkTopology(KVStore(), resource.host_manager, engine=eng)
             refresher = ModelRefresher(
                 manager, evaluator, serving=service, networktopology=topology, device=dev,
                 requests=PlainRequests(),
@@ -1325,7 +1435,7 @@ def preheat_leg(
     resource, _ = build_swarm(ids, 0, 0, rng)
     eng = fed(device)
     eng.flush(now=PROBED_AT)
-    topology = NetworkTopology(resource.host_manager, engine=eng)
+    topology = NetworkTopology(KVStore(), resource.host_manager, engine=eng)
     now = PROBED_AT
     window, hot_ids = demand_window(tasks, hot, now, rng, **window_kw)
     forecaster = DemandForecaster(window.window_buckets, device=device, seed=seed)
@@ -1395,6 +1505,595 @@ def preheat_leg(
     }
 
 
+SERVER_WORK = Path(__file__).resolve().parent / "build" / "server_leg"
+SERVER_IP, SERVER_HOST = "10.0.0.3", "scheduler-live"
+SERVER_PIECES = 16  # pieces of every task: a seed fetches them, a child reports them
+# the daemons' processes: the server's one interpreter is the bound (its
+# process at ~100% of a core in a CPU run, each daemon process at ~12%),
+# so 4 keep up with it and leave the host's other cores free
+SERVER_DAEMON_PROCS = 4
+
+
+class _ServerRecordingService(ScoringService):
+    """The scoring service of a live scheduler: per served call it keeps,
+    on the caller's thread, the features and host pairs it scored and what
+    it answered (for ``_ServerRecordingEvaluator`` to pick up), and it
+    counts the calls each batch launch took."""
+
+    def __init__(self, config=None):
+        super().__init__(config)
+        self.tls = threading.local()
+        self.launches = 0  # batch-loop launches
+        self.launch_calls = 0  # calls those launches scored
+        self.errors = []  # (monotonic s, what the service raised) per failed call
+
+    def score_wave(self, features, pairs, counts, budget_s=None):
+        try:
+            out = super().score_wave(features, pairs, counts, budget_s=budget_s)
+        except Exception as exc:
+            self.errors.append((time.monotonic(), repr(exc)[:200]))
+            raise
+        self.tls.last = (np.asarray(features, np.float32).copy(), list(pairs or ()), out, self.model_kind())
+        return out
+
+    def _score_batch(self, batch, rows):
+        self.launches += 1
+        self.launch_calls += len(batch)
+        return super()._score_batch(batch, rows)
+
+
+class _ServerRecordingEvaluator(MLEvaluator):
+    """The ``ml`` evaluator of a live scheduler, keeping per decision (by
+    child peer id) its candidates, the ranking it returned and what the
+    scoring service saw and answered for it (None when the decision
+    dropped below the serving rung; the evaluator's ``_rung`` is shared by
+    every handler thread, so it cannot say this per decision)."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.decisions = {}
+        self._lock = threading.Lock()
+
+    def evaluate_parents(self, parents, child, total_piece_count):
+        svc = self._serving
+        if svc is not None:
+            svc.tls.last = None
+        out = super().evaluate_parents(parents, child, total_piece_count)
+        rec = {
+            "candidates": [p.id for p in parents],
+            "ranked": [p.id for p in out],
+            "served": svc.tls.last if svc is not None else None,
+        }
+        with self._lock:
+            self.decisions[child.id] = rec
+        return out
+
+
+def _host_info(cp, ids, i):
+    """Host ``i``'s announced info: seeded stats, a location and an idc."""
+    return cp.HostInfo(
+        id=ids[i], type="super" if i % 50 == 0 else "normal", hostname=ids[i],
+        ip=f"10.{i >> 16}.{(i >> 8) & 255}.{i & 255}", port=65000, download_port=65002,
+        concurrent_upload_limit=50,
+        cpu=cp.CpuStat(logical_count=32, physical_count=32, percent=float((i * 37) % 100)),
+        memory=cp.MemoryStat(total=64 << 30, used_percent=float((i * 11) % 90 + 5)),
+        network=cp.NetworkStat(tcp_connection_count=(i * 13) % 2000,
+                               upload_tcp_connection_count=(i * 7) % 200,
+                               location=f"cn|r{i % 4}|z{i % 8}", idc=f"idc-{i % 16}"),
+        disk=cp.DiskStat(used_percent=float((i * 17) % 90 + 5)),
+    )
+
+
+def _daemon_process(conn, threads, hosts, probes, seed, hosts_of, pieces):
+    """One process of daemons for the server leg, spawned so that it shares
+    neither the server's interpreter lock nor its collector. It answers the
+    leg's commands over ``conn``, each a list of jobs run on ``threads``
+    client threads, with ``("ok", results in order)`` or ``("error",
+    traceback)``: ``("dial", [address])``; ``("announce", host indices)``
+    (``AnnounceHost``); ``("probes", [(host, lo, hi, created_at_ns,
+    ask)])`` (one ``SyncProbes`` stream: with ``ask`` the targets it is
+    named first, then the results of its seeded probes ``lo:hi``);
+    ``("peers", [(task, k, host, back_to_source)])`` (one ``AnnouncePeer``
+    stream → (peer id, response kind, parent ids, register-sent and
+    response ``time.monotonic()``)); ``("stop", None)``. The probe graph
+    is redrawn from ``seed`` as the leg drew it; ``hosts_of[t][k]`` is the
+    host of task ``t``'s ``k``-th peer."""
+    import queue
+    import traceback
+
+    from dragonfly2_torch.rpc import glue, protos
+
+    sp, cp = protos.load("scheduler_pb2"), protos.load("common_pb2")
+    ids, fed, probed, rtts = probe_graph(hosts, probes, np.random.default_rng(seed))
+    coords = fed.coords
+    infos = [None] * hosts
+    conns = {}
+
+    def info(i):
+        if infos[i] is None:
+            infos[i] = _host_info(cp, ids, i)
+        return infos[i]
+
+    def announce(i):
+        conns["client"].AnnounceHost(sp.AnnounceHostRequest(host=info(i)))
+
+    def sync_probes(job):
+        i, lo, hi, at_ns, ask = job
+        q = queue.Queue()
+        responses = conns["client"].SyncProbes(iter(q.get, None))
+        named = 0
+        if ask:
+            q.put(sp.SyncProbesRequest(host=info(i), probe_started=sp.ProbeStartedRequest()))
+            named = len(next(responses).hosts)
+        q.put(sp.SyncProbesRequest(host=info(i), probe_finished=sp.ProbeFinishedRequest(probes=[
+            sp.ProbeResult(host_id=ids[int(j)], rtt_ns=int(r), created_at_ns=at_ns)
+            for j, r in zip(probed[i][lo:hi], rtts[i][lo:hi])
+        ])))
+        q.put(None)
+        for _ in responses:
+            pass
+        return named
+
+    def run_peer(spec):
+        t, k, hi, demand = spec
+        task_id, peer_id = f"layer-{t:02d}", f"peer-{t:02d}-{k:03d}"
+        base = dict(host_id=ids[hi], task_id=task_id, peer_id=peer_id)
+        q = queue.Queue()
+        stream = conns["client"].AnnouncePeer(iter(q.get, None))
+        t_reg = time.monotonic()
+        q.put(sp.AnnouncePeerRequest(**base, register_peer=sp.RegisterPeerRequest(
+            task_id=task_id, peer_id=peer_id, url=f"https://registry.example/v2/app/blobs/{task_id}",
+            need_back_to_source=demand,
+        )))
+        resp = next(stream)
+        t_resp = time.monotonic()
+        kind = resp.WhichOneof("response")
+        parents = [c.peer_id for c in resp.normal_task.candidate_parents] if kind == "normal_task" else []
+        # the pieces come from the head of the ranking; a piece takes
+        # longer from a farther or busier parent (the probe graph's
+        # latent coordinates), back to source longest
+        noise = np.random.default_rng([seed, t, k]).lognormal(0.0, 0.1, pieces)
+        src = parents[0] if parents else ""
+        cost = np.full(pieces, 40e6) * noise
+        if src:
+            ph = int(hosts_of[int(src[5:7])][int(src[8:])])  # "peer-TT-KKK"
+            rtt_ms = 1.0 + 80.0 * float(np.linalg.norm(coords[hi] - coords[ph]))
+            # the parent's load is its announced cpu percent
+            cost = (2.0 + 0.25 * rtt_ms + 0.4 * float((ph * 37) % 100)) * 1e6 * noise
+        if kind == "normal_task":
+            q.put(sp.AnnouncePeerRequest(**base, download_peer_started=sp.DownloadPeerStartedRequest()))
+            traffic = "remote_peer"
+        else:
+            q.put(sp.AnnouncePeerRequest(
+                **base, download_peer_back_to_source_started=sp.DownloadPeerBackToSourceStartedRequest()))
+            traffic = "back_to_source"
+        for n in range(pieces):
+            q.put(sp.AnnouncePeerRequest(**base, download_piece_finished=sp.DownloadPieceFinishedRequest(
+                piece=cp.PieceInfo(number=n, parent_id=src, offset=n << 22, length=4 << 20,
+                                   traffic_type=traffic, cost_ns=int(cost[n]), created_at_ns=time.time_ns()))))
+        q.put(sp.AnnouncePeerRequest(**base, download_peer_finished=sp.DownloadPeerFinishedRequest(
+            content_length=pieces << 22, piece_count=pieces, cost_ns=int(cost.sum()))))
+        q.put(None)
+        for _ in stream:
+            pass
+        return peer_id, kind, parents, t_reg, t_resp
+
+    def dial(address):
+        conns["channel"] = glue.dial(address)
+        conns["client"] = glue.ServiceClient(conns["channel"], glue.SCHEDULER_SERVICE)
+
+    jobs = {"dial": dial, "announce": announce, "probes": sync_probes, "peers": run_peer}
+    try:
+        with ThreadPoolExecutor(threads) as pool:
+            while True:
+                cmd, items = conn.recv()
+                if cmd == "stop":
+                    break
+                try:
+                    conn.send(("ok", list(pool.map(jobs[cmd], items))))
+                except Exception:
+                    conn.send(("error", traceback.format_exc()))
+    finally:
+        if "channel" in conns:
+            conns["channel"].close()
+        conn.close()
+
+
+class _Daemons:
+    """``procs`` spawned daemon processes (``_daemon_process``) of
+    ``threads`` client threads each. ``map(cmd, items)`` deals the items
+    out round-robin, runs them in every process at once and returns the
+    results in the items' order."""
+
+    def __init__(self, procs, threads, **graph):
+        import multiprocessing
+
+        # spawn, never fork: this process holds a CUDA context
+        ctx = multiprocessing.get_context("spawn")
+        self.conns, self.procs = [], []
+        for _ in range(procs):
+            here, there = ctx.Pipe()
+            proc = ctx.Process(target=_daemon_process, args=(there, threads), kwargs=graph, daemon=True)
+            proc.start()
+            there.close()
+            self.conns.append(here)
+            self.procs.append(proc)
+
+    def map(self, cmd, items):
+        n = len(self.conns)
+        for w, conn in enumerate(self.conns):
+            conn.send((cmd, items[w::n]))
+        out, errors = [None] * len(items), []
+        for w, conn in enumerate(self.conns):
+            status, got = conn.recv()
+            if status == "ok":
+                out[w::n] = got
+            else:
+                errors.append(got)
+        check(not errors, "a daemon process failed:\n" + "\n".join(errors))
+        return out
+
+    def close(self):
+        for conn in self.conns:
+            try:
+                conn.send(("stop", None))
+            except OSError:
+                pass  # that process is gone already
+        for proc in self.procs:
+            proc.join(30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+
+
+def server_leg(
+    device, hosts=10_000, probes=16, tasks=40, peers=256, concurrency=64,
+    phase2=256, probe_rounds=3, gnn_epochs=60, mlp_batch=512, seed=0,
+) -> dict:
+    """The port's scheduler and trainer servers on ``device``, live over
+    gRPC in this process: a manager stand-in served by the port's
+    ``glue.serve``, a ``TrainerServer`` and a ``SchedulerServer``
+    (``algorithm="ml"``) wired to it. The daemons' side runs in
+    ``SERVER_DAEMON_PROCS`` spawned processes (``_Daemons``), gRPC clients
+    speaking raw ``scheduler_pb2`` through the port's ``ServiceClient``,
+    ``concurrency`` streams in all; the server's process keeps its
+    interpreter and its collector as a deployment has them. ``hosts``
+    hosts announce and sync ``probes`` seeded probes each, in
+    ``probe_rounds`` rounds with a topology snapshot after each (a
+    snapshot keeps each host's 5 newest edges, so the rounds carry the
+    whole probe graph to the trainer); phase 1 runs ``tasks`` × ``peers``
+    ``AnnouncePeer`` streams (one back-to-source seed per task, then
+    children scheduled on earlier peers), scored by a seeded MLP the
+    refresher installed; the announcer uploads phase 1's records and the
+    probe snapshots to the trainer, which fits MLP, GNN and GRU and sends
+    three ``CreateModel``; the refresher installs them; phase 2 runs
+    ``phase2`` more children on the trained GNN, the GRU behind bad-node
+    detection. Every decision is checked (a legal parent set — peers of
+    the child's task registered before its answer — or a legitimate
+    back-to-source) and so is the server's side (rung ``serving`` after
+    warm-up, order = ``rank_order`` of its card scores), and every served
+    call is rescored on the CPU. The server process's cyclic collections
+    during traffic are timed (``gc.callbacks``), not changed."""
+    import gc
+    import inspect
+
+    from dragonfly2_torch.rpc import glue
+    from dragonfly2_torch.scheduler import server as sched_server
+    from dragonfly2_torch.scheduler import serving as serving_mod
+    from dragonfly2_torch.scheduler.server import SchedulerServer, SchedulerServerConfig
+    from dragonfly2_torch.trainer.server import TrainerServer, TrainerServerConfig
+
+    pieces = SERVER_PIECES
+    # glue.serve's pool: one worker per open AnnouncePeer stream
+    workers = inspect.signature(glue.serve).parameters["max_workers"].default
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    ids, fed, _, _ = probe_graph(hosts, probes, rng)
+    per_task = phase2 // tasks + 1
+    hosts_of = [rng.choice(hosts, peers + per_task, replace=False) for _ in range(tasks)]
+    # the daemons start first: their imports overlap the servers' build
+    procs = min(SERVER_DAEMON_PROCS, concurrency)
+    daemons = _Daemons(procs, concurrency // procs, hosts=hosts, probes=probes, seed=seed,
+                       hosts_of=[h.tolist() for h in hosts_of], pieces=pieces)
+    manager = _Manager()
+    mgr_server = srv = trainer = None
+    # collector generation → [collections, longest wall ms, total wall ms,
+    # longest ms on the collecting thread's clock]: a collection's wall
+    # counts the time other threads ran while a finalizer had released
+    # the interpreter lock; its thread time is the pause it imposed
+    pauses = {}
+    started = {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started["t"] = (time.perf_counter(), time.thread_time())
+        elif "t" in started:
+            t0, c0 = started.pop("t")
+            ms, cpu_ms = (time.perf_counter() - t0) * 1e3, (time.thread_time() - c0) * 1e3
+            st = pauses.setdefault(info["generation"], [0, 0.0, 0.0, 0.0])
+            st[0], st[1], st[2], st[3] = st[0] + 1, max(st[1], ms), st[2] + ms, max(st[3], cpu_ms)
+
+    try:
+        shutil.rmtree(SERVER_WORK, ignore_errors=True)
+        SERVER_WORK.mkdir(parents=True)
+        mgr_server, mgr_addr = manager.served()
+        seed_blob = serialize_params(init_mlp(torch.Generator().manual_seed(seed), MLP_DIMS))
+        manager.CreateModel(manager.pb2.CreateModelRequest(model_id="mlp-seeded", type="mlp", weights=seed_blob))
+        trainer = TrainerServer(TrainerServerConfig(
+            data_dir=str(SERVER_WORK / "trainer"), manager_address=mgr_addr, device=str(device),
+            telemetry_interval=0, synchronous=False, gnn_epochs=gnn_epochs, mlp_batch_size=mlp_batch,
+        ))
+        trainer_addr = trainer.serve()
+        # the refresher and job worker poll only when asked here, and the
+        # probe deltas flush once after each round: the reference's config
+        # fields, set for a timed run
+        cfg = SchedulerServerConfig(
+            data_dir=str(SERVER_WORK / "scheduler"), hostname=SERVER_HOST, advertise_ip=SERVER_IP,
+            manager_address=mgr_addr, trainer_address=trainer_addr, algorithm="ml", device=str(device),
+            telemetry_interval=0, model_refresh_interval=3600.0, job_poll_interval=3600.0,
+            topology_flush_threshold=hosts * probes + 1,
+        )
+        # the server builds its evaluator and scoring service from these names
+        built = (sched_server.MLEvaluator, serving_mod.ScoringService)
+        sched_server.MLEvaluator, serving_mod.ScoringService = _ServerRecordingEvaluator, _ServerRecordingService
+        try:
+            srv = SchedulerServer(cfg)
+        finally:
+            sched_server.MLEvaluator, serving_mod.ScoringService = built
+        evaluator, service = srv.evaluator, srv.scoring_service
+        check(isinstance(evaluator, _ServerRecordingEvaluator) and isinstance(service, _ServerRecordingService),
+              "the server did not build the recording evaluator and service")
+        addr = srv.serve()
+        out = {"daemon_procs": procs}
+        check(srv.model_refresher.loaded_version == ("mlp-seeded", 1), "the seeded MLP is not installed")
+        check(service.model_kind() == "mlp", "the seeded MLP does not hold the serving slot")
+        check(srv.topology_engine.device.type == device.type, "the topology engine is not on the device")
+        daemons.map("dial", [addr] * procs)
+        gc.callbacks.append(on_gc)
+
+        t0 = time.perf_counter()
+        daemons.map("announce", list(range(hosts)))
+        announce_s = time.perf_counter() - t0
+        check(len(srv.resource.host_manager.all()) == hosts, "hosts lost in AnnounceHost")
+
+        topology_rows, named, probe_s, snapshot_s = 0, [], 0.0, 0.0
+        bounds = np.linspace(0, probes, probe_rounds + 1).astype(int)
+        for r, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+            # a round's probes are stamped a second apart, oldest first; a
+            # later round re-probes the next slice of a host's peers and
+            # reports only
+            at_ns = time.time_ns() - (probe_rounds - r) * 10**9
+            t0 = time.perf_counter()
+            named += daemons.map("probes", [(i, int(lo), int(hi), at_ns, r == 0) for i in range(hosts)])
+            srv.topology_engine.flush()
+            sync(device)
+            t1 = time.perf_counter()
+            topology_rows += srv.networktopology.snapshot()
+            probe_s, snapshot_s = probe_s + t1 - t0, snapshot_s + time.perf_counter() - t1
+        stats = srv.topology_engine.stats()
+        check(stats["edges"] == hosts * probes, f"edges lost in SyncProbes: {stats['edges']}")
+        check(all(0 < n <= 5 for n in named[:hosts]), "SyncProbes named no probe targets")
+        out.update(announce_host_per_s=hosts / announce_s, announce_s=announce_s, probe_ingest_s=probe_s,
+                   snapshot_s=snapshot_s, edges=stats["edges"], topology_rows=topology_rows)
+        print(
+            f"server[{device}]: {hosts} hosts announced in {announce_s:.2f}s"
+            f" ({out['announce_host_per_s']:.0f}/s) by {procs} daemon processes; {stats['edges']} probes"
+            f" through SyncProbes in {probe_rounds} rounds, each with one engine flush, in {probe_s:.2f}s;"
+            f" {topology_rows} topology rows in {probe_rounds} snapshots ({snapshot_s:.2f}s)"
+        )
+
+        seen = {}  # peer id → (response kind, parent ids, register-sent s, response s)
+
+        def run(specs):
+            got = daemons.map("peers", specs)
+            for pid, kind, parents, t_reg, t_resp in got:
+                seen[pid] = (kind, parents, t_reg, t_resp)
+            return [g[0] for g in got]
+
+        def decide_ms(pid):
+            return (seen[pid][3] - seen[pid][2]) * 1e3
+
+        seeds = [(t, 0, int(hosts_of[t][0]), True) for t in range(tasks)]
+        children = [(t, k, int(hosts_of[t][k]), False) for k in range(1, peers) for t in range(tasks)]
+        later = [(t, peers + k, int(hosts_of[t][peers + k]), False)
+                 for k in range(per_task) for t in range(tasks)][:phase2]
+
+        def check_decisions(pids, phase, warm):
+            """The client's and the server's view of each decision → the
+            decide_ms of those after the warm-up, and how many were served.
+            A decision after the warm-up that the scoring service did not
+            answer is a demotion; all of them are listed, then fail."""
+            name = f"server[{device}] {phase}"
+            walls, served, demoted = [], 0, []
+            for n, pid in enumerate(pids):
+                kind, parents, _, t_resp = seen[pid]
+                rec = evaluator.decisions.get(pid)
+                check(kind in ("normal_task", "need_back_to_source"), f"{name}: {pid} got {kind}")
+                if kind == "need_back_to_source":
+                    # legitimate: the peer demanded it, or no candidate
+                    # survived the filter in any retry
+                    check(srv.resource.peer_manager.load(pid).need_back_to_source or rec is None,
+                          f"{name}: {pid} sent back to source with parents ranked")
+                    continue
+                # legal: peers of the same task whose register was sent
+                # before this answer came back (one clock for every
+                # process), not the child, none blocklisted (the daemons
+                # block no parent here)
+                check(parents and pid not in parents
+                      and all(p[:8] == pid[:8] and p in seen and seen[p][2] < t_resp for p in parents),
+                      f"{name}: {pid} got parents that are no legal candidates: {parents}")
+                check(rec is not None and parents == rec["ranked"][: len(parents)],
+                      f"{name}: {pid}'s parents are not the head of its ranking")
+                if n < warm:
+                    continue
+                walls.append(decide_ms(pid))
+                if rec["served"] is None:
+                    demoted.append(pid)
+                    continue
+                _, _, scored, _ = rec["served"]
+                scores, ranking = scored[0]
+                check(np.isfinite(scores).all() and len(scores) == len(rec["candidates"]), f"{name}: scores")
+                check(np.array_equal(ranking, wave.rank_order(scores, np.zeros(len(scores)))),
+                      f"{name}: {pid}'s ranking is not rank_order of its scores")
+                check([rec["candidates"][int(j)] for j in ranking] == rec["ranked"],
+                      f"{name}: {pid}'s order is not its ranking")
+                served += 1
+            if demoted:
+                print(f"{name}: {len(demoted)} decisions demoted below the serving rung, e.g."
+                      f" {demoted[:5]}; the service raised: {service.errors[:5]}; the server's"
+                      f" collections so far (generation: count, longest wall ms, total wall ms,"
+                      f" longest thread ms): {pauses}")
+            check(not demoted, f"{name}: {len(demoted)} decisions demoted after the warm-up")
+            return walls, served
+
+        def phase_stats(walls, wall_s, decisions, served, launches0, phase):
+            launches = service.launches - launches0[0]
+            calls = service.launch_calls - launches0[1]
+            st = {
+                "decisions": decisions, "served": served, "wall_s": wall_s,
+                "decisions_per_s": decisions / wall_s,
+                "decide_ms_p50": float(np.percentile(walls, 50)), "decide_ms_p99": float(np.percentile(walls, 99)),
+                "launches": launches, "calls_per_launch": calls / launches if launches else 0.0,
+            }
+            print(
+                f"server[{device}] {phase}: {decisions} decisions in {wall_s:.2f}s"
+                f" ({st['decisions_per_s']:.1f}/s) at {concurrency} streams on the server's"
+                f" {workers} gRPC workers; decide_ms p50={st['decide_ms_p50']:.2f}"
+                f" p99={st['decide_ms_p99']:.2f} over {len(walls)} after the warm-up (register sent →"
+                f" response); {served} served; {launches} scoring launches, {st['calls_per_launch']:.2f}"
+                f" calls each"
+            )
+            return st
+
+        # phase 1: the seeds go back to source, then the children
+        t0 = time.perf_counter()
+        run(seeds)
+        check(all(seen[f"peer-{t:02d}-000"][0] == "need_back_to_source" for t in range(tasks)),
+              "a seed peer was not sent back to source")
+        l0 = (service.launches, service.launch_calls)
+        warm = concurrency
+        done = run(children[:warm])
+        traced = children[warm : warm + 4 * concurrency]
+        if device.type == "cuda":
+            wall_ms, busy_ms = device_busy(lambda: done.extend(run(traced)))
+            check(busy_ms is not None, f"server[{device}]: the traced decisions ran nothing on the card")
+            out.update(traced_decisions=len(traced), traced_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                       device_idle_share=1 - busy_ms / wall_ms)
+            print(
+                f"server[{device}]: traced {len(traced)} decisions of phase 1: {wall_ms:.1f} ms wall,"
+                f" device busy {busy_ms:.2f} ms (idle share {out['device_idle_share']:.4f})"
+            )
+        else:
+            done.extend(run(traced))
+        done.extend(run(children[warm + len(traced) :]))
+        phase1_s = time.perf_counter() - t0
+        walls, served = check_decisions(done, "phase 1", warm)
+        out["phase1"] = phase_stats(walls, phase1_s, len(done) + tasks, served, l0, "phase 1")
+        out["phase1"]["warmup_decide_ms_max"] = max(decide_ms(p) for p in done[:warm])
+        check(service.model_kind() == "mlp", "phase 1 was not served by the MLP")
+
+        # upload → fits → CreateModel × 3 → install
+        uploads0 = manager.calls.get("CreateModel", 0)
+        srv.storage.flush()
+        records = Path(cfg.data_dir) / "records"
+        blocks = sorted((records / "blocks").glob("download*.dfb"))
+        labels = np.concatenate([wire.read_train_pairs(p).labels for p in blocks])
+        gru_labels = np.concatenate([q.labels for p in blocks for q in wire.stream_gru_sequences(p)])
+        upload_bytes = sum(p.stat().st_size for p in (records / "blocks").glob("*.dfb"))
+        t0 = time.perf_counter()
+        check(srv.announcer.train_once(), "the announcer uploaded nothing")
+        upload_s = time.perf_counter() - t0
+        deadline = time.time() + 900
+        while manager.calls.get("CreateModel", 0) < uploads0 + 3 and time.time() < deadline:
+            time.sleep(0.05)
+        round_s = time.perf_counter() - t0
+        check(manager.calls.get("CreateModel", 0) == uploads0 + 3, "the trainer sent no three CreateModel")
+        ups = {t: manager.created[f(SERVER_IP, SERVER_HOST)] for t, f in
+               (("mlp", mlp_model_id_v1), ("gnn", gnn_model_id_v1), ("gru", gru_model_id_v1))}
+        graph = build_probe_graph(records_to_columns(srv.networktopology.export_records()))
+        _, eval_idx = _split_eval(len(graph.edge_src), GNNFitConfig.eval_fraction, GNNFitConfig.seed)
+        # the GNN's holdout is the trainer's own split of the same graph;
+        # the MLP's and the GRU's mean predictors are over all their labels
+        means = {"mlp": mean_mse(labels), "gnn": mean_mse(graph.edge_rtt_log_ms[eval_idx]),
+                 "gru": mean_mse(gru_labels)}
+        for t, up in ups.items():
+            check(up.type == t, f"the {t} upload has type {up.type}")
+            print(f"server[{device}]: trained {t}: holdout mse={up.evaluation.mse:.5f}"
+                  f" (mean predictor {means[t]:.5f})")
+            check(np.isfinite(up.evaluation.mse) and up.evaluation.mse < means[t],
+                  f"the {t} fit does not beat the mean predictor")
+        t0 = time.perf_counter()
+        check(srv.model_refresher.refresh_once(), "the refresher installed nothing")
+        sync(device)
+        install_ms = (time.perf_counter() - t0) * 1e3
+        r = srv.model_refresher
+        for t, got in (("mlp", r.loaded_version), ("gnn", r.loaded_gnn_version), ("gru", r.loaded_gru_version)):
+            want = (ups[t].model_id, manager.versions[ups[t].model_id])
+            check(got == want, f"the refresher loaded {t} {got}, not the upload {want}")
+        check(service.model_kind() == "gnn", "the trained GNN does not hold the serving slot")
+        out.update(upload_mib=upload_bytes / 2**20, upload_s=upload_s, round_s=round_s, install_ms=install_ms,
+                   download_pairs=len(labels),
+                   mse={t: ups[t].evaluation.mse for t in ups}, mean_predictor_mse=means)
+        print(
+            f"server[{device}]: announcer → TrainerServer over gRPC: {out['upload_mib']:.2f} MiB of blocks"
+            f" ({len(labels)} pairs, {topology_rows} topology rows) streamed in {upload_s:.2f}s;"
+            f" round_s={round_s:.1f} (upload → three CreateModel); install_ms={install_ms:.1f}"
+        )
+
+        # phase 2: more children, on the trained GNN with the GRU filter
+        l0 = (service.launches, service.launch_calls)
+        t0 = time.perf_counter()
+        done2 = run(later)
+        phase2_s = time.perf_counter() - t0
+        warm2 = min(concurrency, len(done2) // 4)
+        walls, served = check_decisions(done2, "phase 2", warm2)
+        out["phase2"] = phase_stats(walls, phase2_s, len(done2), served, l0, "phase 2")
+        out["phase2"]["warmup_decide_ms_max"] = max(decide_ms(p) for p in done2[:warm2])
+        check(service.model_kind() == "gnn", "phase 2 was not served by the GNN")
+        check(len(evaluator._gru_verdicts) > 0, "is_bad_node never took the GRU branch")
+
+        # every served call rescored on the CPU
+        cpu = {"seeded": MLPScorer(deserialize_params_auto(seed_blob), device="cpu"),
+               "trained": MLPScorer(deserialize_params_auto(ups["mlp"].weights), device="cpu"),
+               "gnn": GNNScorer(deserialize_params_auto(ups["gnn"].weights), graph, device="cpu")}
+        errs = {"mlp": 0.0, "gnn": 0.0}
+        phase1 = set(done)
+        for pid in done + done2:
+            rec = evaluator.decisions.get(pid)
+            if rec is None or rec["served"] is None:
+                continue
+            feats, pairs, scored, kind = rec["served"]
+            if kind == "mlp":
+                want = cpu["seeded" if pid in phase1 else "trained"].predict(feats)
+            else:
+                want = cpu["gnn"].predict_rtt_log_ms([a for a, _ in pairs], [b for _, b in pairs])
+            errs[kind] = max(errs[kind], float(np.abs(scored[0][0] - want).max()))
+        print(
+            f"server[{device}]: served scores against the CPU: max|mlp - cpu|={errs['mlp']:.3g}"
+            f" (tol {SCORE_TOL:g}) max|gnn - cpu|={errs['gnn']:.3g} (tol {GNN_SCORE_TOL:g})"
+        )
+        check(errs["mlp"] <= SCORE_TOL, "served MLP scores differ from the CPU")
+        check(errs["gnn"] <= GNN_SCORE_TOL, "served GNN scores differ from the CPU")
+        out.update(score_err=errs, gru_verdicts=len(evaluator._gru_verdicts),
+                   gc_pauses={g: {"collections": c, "longest_ms": m, "total_ms": s, "longest_thread_ms": t}
+                              for g, (c, m, s, t) in sorted(pauses.items())})
+        print(f"server[{device}]: the server process's collections from the announces on"
+              f" (generation: count, longest wall ms, total wall ms, longest thread ms): "
+              + "; ".join(f"{g}: {c}, {m:.1f}, {s:.1f}, {t:.1f}" for g, (c, m, s, t) in sorted(pauses.items())))
+        return out
+    finally:
+        if on_gc in gc.callbacks:
+            gc.callbacks.remove(on_gc)
+        daemons.close()
+        if srv is not None:
+            srv.stop()
+        if trainer is not None:
+            trainer.stop()
+        if mgr_server is not None:
+            mgr_server.stop(0)
+        shutil.rmtree(SERVER_WORK, ignore_errors=True)
+
+
 def encoder_leg(
     device, batch=ENCODER_BT[0], seq=ENCODER_BT[1], cfg=ENCODER, seed=0, dtype=torch.bfloat16
 ) -> dict:
@@ -1462,25 +2161,33 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    build_kernels()
-    prepass_ms = prepass_phase()
-    rows = flash_phase()
+    walls = {}  # phase → its host wall in s
 
-    flash.reset_launches()
-    serve = serve_leg("cuda")
-    check(flash.LAUNCHES == 0, "the serve leg runs no attention")
-    flash.reset_launches()
-    scheduler = scheduler_leg("cuda")
-    check(flash.LAUNCHES == 0, "the scheduler leg runs no attention")
+    def leg(name, fn, *args, attention=False, **kw):
+        """One phase, timed; a leg with no attention launches no flash kernel."""
+        flash.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[name] = time.perf_counter() - t0
+        print(f"chip_smoke: {name} took {walls[name]:.1f} s")
+        check(attention or flash.LAUNCHES == 0, f"the {name} leg runs no attention")
+        return out
+
+    leg("build", build_kernels, attention=True)
+    prepass_ms = leg("prepass", prepass_phase, attention=True)
+    rows = leg("flash", flash_phase, attention=True)
+
+    serve = leg("serve", serve_leg, "cuda")
+    scheduler = leg("scheduler", scheduler_leg, "cuda")
     manager = _Manager()
-    flash.reset_launches()
-    trainer = trainer_leg("cuda", manager=manager)
-    check(flash.LAUNCHES == 0, "the trainer leg runs no attention")
-    flash.reset_launches()
-    preheat = preheat_leg("cuda", manager)
-    check(flash.LAUNCHES == 0, "the preheat leg runs no attention")
+    # the server leg's cluster cannot be cut, so the trainer leg is: its
+    # upload at 1 file of 100 MiB (11 before the server leg) and its GRU
+    # at the newest 10,000 sequences (40,000)
+    trainer = leg("trainer", trainer_leg, "cuda", manager=manager, files=1, gru_max_sequences=10_000)
+    preheat = leg("preheat", preheat_leg, "cuda", manager)
+    server = leg("server", server_leg, "cuda")
     encoders = {
-        kern: encoder_leg("cuda", dtype=dtype)
+        kern: leg(f"encoder_{kern}", encoder_leg, "cuda", dtype=dtype, attention=True)
         for kern, dtype in (("sm90", torch.bfloat16), ("tf32x3", torch.float32))
     }
     for kern, leg in encoders.items():
@@ -1491,9 +2198,11 @@ def main() -> int:
         "scheduler": scheduler,
         "trainer": trainer,
         "preheat": preheat,
+        "server": server,
         "encoder": encoders,
         "tf32x3_d8_bf16": rows["tf32x3_d8_bf16"],
         "tf32x3_prepass_ms": prepass_ms,
+        "walls_s": walls,
     }))
     kernels = [
         {

@@ -1,0 +1,90 @@
+"""Shared serve/stop run loop for service binaries (counterpart of the
+reference's ``cli/runner.py``; upstream scheduler/scheduler.go:297-368
+Serve/Stop + cmd signal handling).
+
+A server object provides ``serve() -> address`` (bind, start background
+loops, return the bound gRPC address) and ``stop()`` (graceful teardown).
+``run()`` installs SIGINT/SIGTERM handlers, prints a machine-readable
+``READY <name> <addr>`` line (hack/run_cluster.sh and the subprocess e2e
+test wait for it), and blocks until signalled.
+"""
+
+from __future__ import annotations
+
+import signal
+import sys
+import threading
+
+from dragonfly2_torch.utils import dflog
+
+logger = dflog.get("cli")
+
+
+def run(name: str, server) -> int:
+    stop_event = threading.Event()
+
+    def handle(signum, frame):
+        logger.info("%s: received signal %s, shutting down", name, signum)
+        stop_event.set()
+
+    signal.signal(signal.SIGINT, handle)
+    signal.signal(signal.SIGTERM, handle)
+
+    try:
+        addr = server.serve()
+    except Exception:
+        logger.exception("%s failed to start", name)
+        return 1
+    maddr = getattr(server, "metrics_addr", None)
+    if maddr:
+        print(f"METRICS {name} {maddr}", flush=True)
+    raddr = getattr(server, "rest_addr", None)
+    if raddr:
+        print(f"REST {name} {raddr}", flush=True)
+    gaddr = getattr(server, "gateway_addr", None)
+    if gaddr:
+        print(f"GATEWAY {name} {gaddr}", flush=True)
+    kaddr = getattr(server, "kv_addr", None)
+    if kaddr:
+        print(f"KV {name} {kaddr}", flush=True)
+    print(f"READY {name} {addr}", flush=True)
+    try:
+        stop_event.wait()
+    finally:
+        server.stop()
+        logger.info("%s stopped", name)
+    return 0
+
+
+def main_with_config(name: str, build, argv=None) -> int:
+    """Standard binary main: ``--config file.yaml`` plus ``--listen`` and
+    free-form ``--set key=value`` overrides; ``build(config_path,
+    overrides) -> server``."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog=name)
+    p.add_argument("--config", default=None, help="YAML config file")
+    p.add_argument("--listen", default=None, help="gRPC listen address (host:port)")
+    p.add_argument(
+        "--set",
+        action="append",
+        default=[],
+        metavar="KEY=VALUE",
+        help="override a config field (repeatable; value YAML-parsed)",
+    )
+    args = p.parse_args(argv)
+
+    import yaml
+
+    overrides = {}
+    if args.listen:
+        overrides["listen"] = args.listen
+    for item in args.set:
+        k, _, v = item.partition("=")
+        if not _:
+            print(f"--set expects KEY=VALUE, got {item!r}", file=sys.stderr)
+            return 2
+        overrides[k] = yaml.safe_load(v)
+
+    server = build(args.config, overrides)
+    return run(name, server)

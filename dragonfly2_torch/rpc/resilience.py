@@ -1,35 +1,208 @@
-"""The resilience layer's deadline budget and degraded-mode registry — the
-part of the reference's ``rpc/resilience.py`` the scheduler's decision
-path calls. ``wrap_call``, the circuit breakers, retry budgets and
-``ResilienceError`` come with the server slice.
+"""One resilience policy layer for every RPC client in the stack
+(counterpart of the reference's ``rpc/resilience.py``).
 
-- **Deadline budget**: an absolute monotonic deadline in a contextvar,
-  installed by ``deadline_scope``; ``remaining_budget_s`` lets the scoring
-  service skip co-batching when waiting would expire the request.
-- **Degraded mode**: a component on a fallback path (the scheduler's
-  ML → base evaluator ladder) registers a reason; the
-  ``resilience_degraded_mode`` gauge and a flight event follow each flip.
+Before this module, each component hand-rolled its own failure handling:
+``rpc/glue.py`` dialed with uncapped unjittered exponential backoff, the
+conductor kept private per-parent counters, and nothing propagated
+deadlines or tripped a breaker when a dependency went dark — a single
+wedged scheduler turned into pile-on retries and unbounded waits. This
+module centralizes the discipline (Dean & Barroso, "The Tail at Scale";
+gRPC retry/hedging design; SRE retry-budget practice):
+
+- **Deadlines + budget propagation** — every call gets a per-service
+  default deadline; the remaining budget rides downstream as
+  ``df-deadline-ms`` metadata, and servers *shed* work whose budget is
+  already exhausted (the caller stopped waiting — finishing the work
+  only burns capacity the live requests need).
+- **Capped exponential backoff with full jitter** —
+  ``sleep = uniform(0, min(cap, base·2^attempt))`` (the AWS full-jitter
+  form): retry storms decorrelate instead of synchronizing.
+- **Retry budget** — a token bucket per (service, target): each success
+  earns a fraction of a token, each retry spends one. During a real
+  outage the bucket drains and retries stop amplifying the failure
+  (first tries still go through — the budget bounds *extra* load only).
+- **Circuit breakers** — per target: N consecutive failures open the
+  breaker (calls fail fast, no network), a half-open probe is allowed
+  after a cool-down, one success closes it.
+- **Hedged reads** — optional, idempotent unary reads only: after
+  ``hedge_delay_s`` with no answer, a second attempt races the first
+  (tail-at-scale's canonical p99 cure). Off by default.
+
+Every retry, trip, shed, and hedge emits metrics + flight events, and
+:func:`snapshot` feeds the ``/healthz`` liveness JSON so operators see
+breaker/budget/degraded state on the port they already scrape.
+
+``glue.ServiceClient`` wraps every method through :func:`wrap_call`;
+nothing else in the stack needs to know this module exists.
 """
+
+# dfanalyze: hot — wrap_call's `call` wraps every RPC the stack makes
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextvars
+import random
 import threading
 import time
+from dataclasses import dataclass, replace
 
-from dragonfly2_torch.utils import flight
+from dragonfly2_torch.utils import faults, flight
 from dragonfly2_torch.utils.metrics import default_registry as _r
 
+# -- metrics ----------------------------------------------------------------
+
+RETRIES_TOTAL = _r.counter(
+    "rpc_retries_total", "Client retries after a retryable failure", ("service", "method")
+)
+RETRY_BUDGET_EXHAUSTED_TOTAL = _r.counter(
+    "rpc_retry_budget_exhausted_total",
+    "Retries suppressed because the token bucket was empty",
+    ("service",),
+)
+RETRY_BUDGET_TOKENS = _r.gauge(
+    "rpc_retry_budget_tokens", "Retry-budget tokens remaining", ("service", "target")
+)
+BREAKER_STATE = _r.gauge(
+    "rpc_breaker_state",
+    "Circuit-breaker state per target (0 closed, 1 half-open, 2 open)",
+    ("target",),
+)
+BREAKER_TRANSITIONS_TOTAL = _r.counter(
+    "rpc_breaker_transitions_total",
+    "Circuit-breaker state transitions",
+    ("target", "to"),
+)
+DEADLINE_SHED_TOTAL = _r.counter(
+    "rpc_deadline_shed_total",
+    "Requests shed because their propagated deadline budget was exhausted",
+    ("service", "method"),
+)
+HEDGES_TOTAL = _r.counter(
+    "rpc_hedges_total", "Hedged second attempts launched", ("service", "method")
+)
+HEDGE_WINS_TOTAL = _r.counter(
+    "rpc_hedge_wins_total",
+    "Hedged attempts that answered before the primary",
+    ("service", "method"),
+)
 DEGRADED_MODE = _r.gauge(
     "resilience_degraded_mode",
     "1 while a component runs in degraded mode (fallback path active)",
     ("component",),
 )
+
+# flight events: the always-on record of every resilience decision
+EV_RETRY = flight.event_type("rpc.retry")
+EV_BREAKER = flight.event_type("rpc.breaker")
+EV_SHED = flight.event_type("rpc.deadline_shed")
+EV_HEDGE = flight.event_type("rpc.hedge")
 EV_DEGRADED = flight.event_type("rpc.degraded_mode")
 
-_registry_lock = threading.Lock()
+# fault point: the client-side send path (unary and stream initiation) —
+# the chaos schedules' main lever for modelling a flaky wire
+FP_UNARY_SEND = faults.point("rpc.unary_send")
 
-# absolute monotonic deadline for the current request context
+DEADLINE_HEADER = "df-deadline-ms"
+
+# -- policy -----------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Policy:
+    """Per-service resilience policy. Defaults are deliberately mild —
+    the per-service table below tightens them where the call pattern is
+    known."""
+
+    deadline_s: float = 30.0  # default per-call deadline when none inherited
+    max_attempts: int = 3  # total tries (1 = no retry)
+    backoff_base_s: float = 0.1
+    backoff_cap_s: float = 2.0
+    retryable_codes: tuple = ("UNAVAILABLE",)
+    breaker_failures: int = 5  # consecutive failures that open the breaker
+    breaker_open_s: float = 10.0  # cool-down before a half-open probe
+    hedge_delay_s: float = 0.0  # 0 = hedging off
+    retry_budget_ratio: float = 0.1  # tokens earned per success
+    retry_budget_cap: float = 10.0
+
+
+# service name → policy. Keys are the literal canonical names from
+# glue.SERVICES (string literals, not imports — glue imports this module).
+_POLICIES: dict[str, Policy] = {
+    # scheduler calls sit on the download critical path: short deadline,
+    # eager retry — and a short breaker cool-down, because scheduler
+    # restarts are routine (rolling deploys) and the half-open probe
+    # admits exactly one call, so eager re-probing costs the restarted
+    # scheduler almost nothing while a 10s fail-fast window would stall
+    # every announce loop long past the actual downtime
+    "dragonfly2_tpu.scheduler.Scheduler": Policy(deadline_s=15.0, breaker_open_s=2.0),
+    "dragonfly2_tpu.scheduler.v1.SchedulerV1": Policy(
+        deadline_s=15.0, breaker_open_s=2.0
+    ),
+    # topology queries are cheap reads
+    "dragonfly2_tpu.topology.Topology": Policy(deadline_s=5.0),
+    # train uploads stream megabytes and the fit ack can lag: long leash
+    "dragonfly2_tpu.trainer.Trainer": Policy(deadline_s=600.0, max_attempts=2),
+    "dragonfly2_tpu.manager.Manager": Policy(deadline_s=30.0),
+    "dragonfly2_tpu.dfdaemon.Dfdaemon": Policy(deadline_s=60.0),
+    "dragonfly2_tpu.diagnose.Diagnose": Policy(deadline_s=10.0, max_attempts=1),
+}
+_DEFAULT_POLICY = Policy()
+
+# idempotent unary reads — the only calls hedging may duplicate
+HEDGEABLE: dict[str, frozenset] = {
+    "dragonfly2_tpu.scheduler.Scheduler": frozenset({"StatPeer", "StatTask"}),
+    "dragonfly2_tpu.scheduler.v1.SchedulerV1": frozenset({"StatTask"}),
+    "dragonfly2_tpu.topology.Topology": frozenset({"EstRtt", "Neighbors", "Stats"}),
+    "dragonfly2_tpu.manager.Manager": frozenset(
+        {
+            "GetScheduler",
+            "ListSchedulers",
+            "GetSchedulerClusterConfig",
+            "GetJob",
+            "ListPendingJobs",
+            "GetModel",
+            "GetModelWeights",
+            "ListModels",
+        }
+    ),
+    "dragonfly2_tpu.dfdaemon.Dfdaemon": frozenset({"GetPieceTasks", "StatTask"}),
+    "dragonfly2_tpu.diagnose.Diagnose": frozenset({"Diagnose"}),
+}
+
+
+def policy_for(service: str) -> Policy:
+    return _POLICIES.get(service, _DEFAULT_POLICY)
+
+
+def set_policy(service: str, policy: Policy) -> None:
+    """Override one service's policy (tests, operator tuning)."""
+    _POLICIES[service] = policy
+
+
+def tune_policy(service: str, **changes) -> Policy:
+    """``replace()`` the service's current policy; returns the new one."""
+    p = replace(policy_for(service), **changes)
+    _POLICIES[service] = p
+    return p
+
+
+# -- backoff ----------------------------------------------------------------
+
+
+def full_jitter_backoff(
+    attempt: int, base_s: float = 0.1, cap_s: float = 2.0, rng=random
+) -> float:
+    """AWS full-jitter: uniform(0, min(cap, base·2^attempt)). Shared by
+    the retry loop AND glue.dial — one backoff shape everywhere."""
+    return rng.uniform(0.0, min(cap_s, base_s * (2.0**attempt)))
+
+
+# -- deadline propagation ---------------------------------------------------
+
+# absolute monotonic deadline for the current request context; servers
+# set it from incoming df-deadline-ms metadata, clients read it to cap
+# downstream calls (and to shed before sending when it's already gone)
 _deadline: contextvars.ContextVar = contextvars.ContextVar("df_deadline", default=None)
 
 
@@ -44,7 +217,8 @@ def remaining_budget_s() -> "float | None":
 
 class deadline_scope:
     """Installs an absolute deadline ``budget_s`` from now as the current
-    context's budget (``None`` clears it)."""
+    context's budget (plain context manager; allocated per request on the
+    server side, so it stays cheap like tracing.use_span)."""
 
     __slots__ = ("_budget_s", "_token")
 
@@ -62,17 +236,257 @@ class deadline_scope:
         return False
 
 
-_degraded: dict[str, str] = {}
+class absolute_deadline_scope:
+    """Like :class:`deadline_scope` but pins an already-computed absolute
+    monotonic deadline — the server glue re-enters this around every
+    stream resumption (pooled handler threads), and the deadline must not
+    drift forward on each re-entry. ``at=None`` clears the scope."""
+
+    __slots__ = ("_at", "_token")
+
+    def __init__(self, at: "float | None"):
+        self._at = at
+
+    def __enter__(self):
+        self._token = _deadline.set(self._at)
+        return self
+
+    def __exit__(self, *exc):
+        _deadline.reset(self._token)
+        return False
+
+
+def incoming_budget_ms(metadata) -> "float | None":
+    """Parse ``df-deadline-ms`` out of invocation metadata (None when
+    absent or malformed — a garbled header must not fail the call)."""
+    try:
+        for k, v in metadata or ():
+            if k == DEADLINE_HEADER:
+                return float(v)
+    except Exception:
+        return None
+    return None
+
+
+def shed_check(service: str, method: str, budget_ms: "float | None") -> bool:
+    """Server-side load shedding: True when the request's propagated
+    budget is exhausted and the handler should not run at all."""
+    if budget_ms is None or budget_ms > 0:
+        return False
+    DEADLINE_SHED_TOTAL.labels(service, method).inc()
+    EV_SHED(service=service, method=method, budget_ms=budget_ms)
+    return True
+
+
+# -- circuit breaker --------------------------------------------------------
+
+CLOSED, HALF_OPEN, OPEN = 0, 1, 2
+_STATE_NAMES = {CLOSED: "closed", HALF_OPEN: "half_open", OPEN: "open"}
+
+
+class CircuitBreaker:
+    """Per-target breaker: consecutive failures ≥ threshold → OPEN (calls
+    fail fast); after ``open_s`` one HALF_OPEN probe is allowed; its
+    success closes the breaker, its failure re-opens it."""
+
+    def __init__(self, target: str, failures: int = 5, open_s: float = 10.0):
+        self.target = target
+        self.failures_threshold = failures
+        self.open_s = open_s
+        self.state = CLOSED
+        self.consecutive_failures = 0
+        self.opened_at = 0.0
+        self.trips = 0
+        self._probe_inflight = False
+        self._lock = threading.Lock()
+
+    def _transition(self, to: int) -> None:
+        self.state = to
+        BREAKER_STATE.labels(self.target).set(to)
+        BREAKER_TRANSITIONS_TOTAL.labels(self.target, _STATE_NAMES[to]).inc()
+        EV_BREAKER(target=self.target, state=_STATE_NAMES[to])
+
+    def allow(self) -> bool:
+        """May a call proceed right now? (HALF_OPEN admits exactly one
+        in-flight probe.) CLOSED is checked lock-free — a plain attribute
+        read under the GIL; the worst race lets one call through in the
+        same instant the breaker opens, which the wire would have done
+        anyway."""
+        if self.state == CLOSED:
+            return True
+        with self._lock:
+            if self.state == CLOSED:
+                return True
+            if self.state == OPEN:
+                if time.monotonic() - self.opened_at < self.open_s:
+                    return False
+                self._transition(HALF_OPEN)
+                self._probe_inflight = True
+                return True
+            # HALF_OPEN: one probe at a time
+            if self._probe_inflight:
+                return False
+            self._probe_inflight = True
+            return True
+
+    def on_success(self) -> None:
+        # lock-free fast path: the steady healthy state (closed, no
+        # recent failures) is every successful RPC's exit
+        if self.state == CLOSED and self.consecutive_failures == 0:
+            return
+        with self._lock:
+            self.consecutive_failures = 0
+            self._probe_inflight = False
+            if self.state != CLOSED:
+                self._transition(CLOSED)
+
+    def release_probe(self) -> None:
+        """An admitted half-open probe exited without a wire outcome
+        (client-side deadline shed, a non-RpcError escape): free the
+        probe slot so the breaker can admit the next caller — counters
+        and state untouched, the target was never actually consulted."""
+        if self.state == CLOSED:
+            return
+        with self._lock:
+            self._probe_inflight = False
+
+    def on_failure(self) -> None:
+        with self._lock:
+            self.consecutive_failures += 1
+            self._probe_inflight = False
+            if self.state == HALF_OPEN or (
+                self.state == CLOSED
+                and self.consecutive_failures >= self.failures_threshold
+            ):
+                self.trips += 1
+                self.opened_at = time.monotonic()
+                self._transition(OPEN)
+
+    def wide_open(self) -> bool:
+        """OPEN and still inside the cool-down (no probe due yet): a
+        router holding alternatives should send traffic elsewhere. Once
+        the cool-down expires this reads False, so affinity traffic can
+        come back and serve as the half-open probe. Read-only — never
+        transitions or consumes the probe slot."""
+        if self.state != OPEN:
+            return False
+        with self._lock:
+            return (
+                self.state == OPEN
+                and time.monotonic() - self.opened_at < self.open_s
+            )
+
+    def snapshot(self) -> dict:
+        return {
+            "state": _STATE_NAMES[self.state],
+            "consecutive_failures": self.consecutive_failures,
+            "trips": self.trips,
+        }
+
+
+# -- retry budget -----------------------------------------------------------
+
+
+class RetryBudget:
+    """Token bucket bounding retry amplification toward one target: a
+    success earns ``ratio`` tokens (up to ``cap``), a retry spends one.
+    Starts full so a cold client can still ride out a transient blip."""
+
+    def __init__(self, service: str, target: str, ratio: float = 0.1, cap: float = 10.0):
+        self.service = service
+        self.target = target
+        self.ratio = ratio
+        self.cap = cap
+        self.tokens = cap
+        self._lock = threading.Lock()
+        RETRY_BUDGET_TOKENS.labels(service, target).set(cap)
+
+    def on_success(self) -> None:
+        if self.tokens >= self.cap:
+            return  # saturated steady state: lock-free no-op
+        with self._lock:
+            if self.tokens >= self.cap:
+                return
+            self.tokens = min(self.cap, self.tokens + self.ratio)
+            RETRY_BUDGET_TOKENS.labels(self.service, self.target).set(self.tokens)
+
+    def try_spend(self) -> bool:
+        with self._lock:
+            if self.tokens < 1.0:
+                RETRY_BUDGET_EXHAUSTED_TOTAL.labels(self.service).inc()
+                return False
+            self.tokens -= 1.0
+            RETRY_BUDGET_TOKENS.labels(self.service, self.target).set(self.tokens)
+            return True
+
+    def fill(self) -> float:
+        return self.tokens / self.cap if self.cap else 0.0
+
+
+# -- registries -------------------------------------------------------------
+
+_breakers: dict[str, CircuitBreaker] = {}
+_budgets: dict[tuple, RetryBudget] = {}
+_registry_lock = threading.Lock()
+
+
+def breaker_for(target: str, policy: Policy) -> CircuitBreaker:
+    br = _breakers.get(target)
+    if br is None:
+        with _registry_lock:
+            br = _breakers.setdefault(
+                target,
+                CircuitBreaker(
+                    target, failures=policy.breaker_failures, open_s=policy.breaker_open_s
+                ),
+            )
+    return br
+
+
+def target_wide_open(target: str) -> bool:
+    """Router-facing breaker peek: True while ``target``'s breaker is
+    OPEN inside its cool-down. Read-only (no transition, no probe slot);
+    an unknown target reads False. SchedulerSelector.for_task uses this
+    to deprioritize a dark member in favor of its ring successor."""
+    br = _breakers.get(target)
+    return br is not None and br.wide_open()
+
+
+def budget_for(service: str, target: str, policy: Policy) -> RetryBudget:
+    key = (service, target)
+    b = _budgets.get(key)
+    if b is None:
+        with _registry_lock:
+            b = _budgets.setdefault(
+                key,
+                RetryBudget(
+                    service,
+                    target,
+                    ratio=policy.retry_budget_ratio,
+                    cap=policy.retry_budget_cap,
+                ),
+            )
+    return b
 
 
 def reset() -> None:
-    """Drop all degraded state (tests)."""
+    """Drop all breaker/budget/degraded state (tests)."""
     with _registry_lock:
+        _breakers.clear()
+        _budgets.clear()
         _degraded.clear()
 
 
+# -- degraded-mode registry -------------------------------------------------
+
+_degraded: dict[str, str] = {}
+
+
 def set_degraded(component: str, reason: "str | None") -> None:
-    """Flag (or clear, reason=None) a component's degraded mode."""
+    """Flag (or clear, reason=None) a component's degraded mode — the
+    scheduler's ML→base evaluator fallback, an announce stream running on
+    its reconnect path. Rides /healthz (status "degraded", still 200) and
+    the ``resilience_degraded_mode`` gauge."""
     with _registry_lock:
         was = _degraded.get(component)
         if reason is None:
@@ -87,3 +501,335 @@ def set_degraded(component: str, reason: "str | None") -> None:
 def degraded() -> dict[str, str]:
     with _registry_lock:
         return dict(_degraded)
+
+
+def snapshot() -> dict:
+    """Resilience state for /healthz: breaker states, retry-budget fill,
+    degraded components."""
+    with _registry_lock:
+        breakers = {t: b.snapshot() for t, b in _breakers.items()}
+        budgets = {
+            f"{s}@{t}": round(b.fill(), 3) for (s, t), b in _budgets.items()
+        }
+        deg = dict(_degraded)
+    return {"breakers": breakers, "retry_budget_fill": budgets, "degraded": deg}
+
+
+# -- errors -----------------------------------------------------------------
+
+
+def _resilience_error():
+    """:class:`ResilienceError`, built on first use: a locally-raised
+    failure (breaker open, budget shed) shaped like a wire error — a
+    ``grpc.RpcError`` with ``code()``/``details()`` so every existing
+    handler path classifies it without new cases. Lazy, so that the
+    deadline scopes and the degraded-mode registry (the decision path's
+    part of this module) never import gRPC."""
+    global _ResilienceError
+    if _ResilienceError is None:
+        import grpc
+
+        class ResilienceError(grpc.RpcError):
+            __doc__ = _resilience_error.__doc__
+
+            def __init__(self, code: grpc.StatusCode, details: str):
+                super().__init__(details)
+                self._code = code
+                self._details = details
+
+            def code(self) -> grpc.StatusCode:
+                return self._code
+
+            def details(self) -> str:
+                return self._details
+
+        ResilienceError.__module__ = __name__
+        _ResilienceError = ResilienceError
+    return _ResilienceError
+
+
+_ResilienceError = None
+
+
+def __getattr__(name: str):
+    # ``resilience.ResilienceError`` resolves to the lazily built class
+    if name == "ResilienceError":
+        return _resilience_error()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def _code_name(e: Exception) -> str:
+    code = e.code() if hasattr(e, "code") else None
+    if code is None:
+        return "UNKNOWN"
+    return code.name if hasattr(code, "name") else str(code)
+
+
+# -- the client wrapper -----------------------------------------------------
+
+
+def wrap_call(service: str, method: str, kind: str, target: str, inner):
+    """The policy layer around one client method (glue.ServiceClient
+    wires every method through here). ``inner`` is the traced/metered
+    callable from glue — each retry/hedge attempt runs it afresh, so each
+    attempt gets its own client span and rpc_client_* sample.
+
+    Unary-request calls retry (the request message is re-sendable);
+    client-streaming calls don't (the request iterator is consumed), but
+    still get the breaker, deadline, and shed checks.
+    """
+    import grpc
+
+    unary_request = kind in ("unary_unary", "unary_stream")
+    is_unary = kind == "unary_unary"
+    maybe_hedgeable = is_unary and method in HEDGEABLE.get(service, frozenset())
+    short = service.rsplit(".", 1)[-1]
+    # hot-path pre-binds: every line of `call` below is fault-free
+    # pre-flight budget (bench.py resilience_overhead_pct < 2% of the
+    # schedule op) — module/attr lookups are hoisted, the common-case
+    # deadline header is cached per deadline value, and the healthy-path
+    # breaker/budget bookkeeping is lock-free (see their fast paths)
+    _policies_get = _POLICIES.get
+    _breakers_get = _breakers.get
+    _budgets_get = _budgets.get
+    _deadline_get = _deadline.get
+    _monotonic = time.monotonic
+    _fp = FP_UNARY_SEND
+    _faults = faults  # module ref: reading ._active beats a no-op call
+    _budget_key = (service, target)
+    _hdr_cache: dict[float, tuple] = {}
+
+    def call(request_or_iterator, timeout=None, metadata=None, **kwargs):
+        # policy looked up per call (one dict get), not captured at
+        # client construction: set_policy/tune_policy must act on live
+        # clients — an operator loosening a deadline mid-incident can't
+        # re-dial every channel first
+        policy = _policies_get(service) or _DEFAULT_POLICY
+        breaker = _breakers_get(target)
+        if breaker is None:
+            breaker = breaker_for(target, policy)
+        if breaker.state != CLOSED and not breaker.allow():
+            raise _resilience_error()(
+                grpc.StatusCode.UNAVAILABLE,
+                f"circuit breaker open for {target} ({short}.{method})",
+            )
+        # deadline: the inherited budget caps the per-service default;
+        # an explicit caller timeout wins over both. Only unary-RESPONSE
+        # calls get the per-service default — a long-lived bidi stream
+        # (AnnouncePeer, SyncProbes, KeepAlive) legitimately outlives any
+        # per-call deadline, so streams run on the caller's explicit
+        # timeout / inherited budget alone.
+        dl = _deadline_get()
+        rem = None if dl is None else dl - _monotonic()
+        if rem is not None and rem <= 0:
+            # allow() above may have admitted us as the half-open probe;
+            # shedding without touching the wire must free that slot or
+            # the breaker rejects the target forever
+            breaker.release_probe()
+            DEADLINE_SHED_TOTAL.labels(service, method).inc()
+            EV_SHED(service=service, method=method, budget_ms=rem * 1000.0, side="client")
+            raise _resilience_error()(
+                grpc.StatusCode.DEADLINE_EXCEEDED,
+                f"deadline budget exhausted before send ({short}.{method})",
+            )
+        eff_timeout = timeout
+        if eff_timeout is None and is_unary:
+            eff_timeout = (
+                policy.deadline_s if rem is None else min(rem, policy.deadline_s)
+            )
+        # streams with an inherited budget still propagate it downstream
+        # even though the stream itself runs uncapped: the server sheds
+        # work whose caller already stopped waiting
+        header_budget = eff_timeout if eff_timeout is not None else rem
+        stamped = False  # did WE add the header (vs the caller's own)?
+        if metadata is None:
+            if header_budget is None:
+                md = ()
+            else:
+                stamped = True
+                md = _hdr_cache.get(header_budget)
+                if md is None:
+                    md = ((DEADLINE_HEADER, str(int(header_budget * 1000))),)
+                    if len(_hdr_cache) < 64:  # distinct deadlines are few
+                        _hdr_cache[header_budget] = md
+        else:
+            md = list(metadata)
+            if header_budget is not None and not any(
+                k == DEADLINE_HEADER for k, _ in md
+            ):
+                stamped = True
+                md.append((DEADLINE_HEADER, str(int(header_budget * 1000))))
+
+        hedgeable = maybe_hedgeable and policy.hedge_delay_s > 0
+        deadline_at = (
+            _monotonic() + eff_timeout if eff_timeout is not None else None
+        )
+
+        attempt = 0
+        # attempt 0's wire timeout IS the freshly-computed eff_timeout —
+        # re-reading the clock to subtract sub-µs of elapsed time buys
+        # nothing; retries recompute against deadline_at below
+        t_remaining = eff_timeout
+        while True:
+            if attempt and deadline_at is not None:
+                t_remaining = deadline_at - _monotonic()
+                if t_remaining <= 0:
+                    raise _resilience_error()(
+                        grpc.StatusCode.DEADLINE_EXCEEDED,
+                        f"deadline exhausted after {attempt} attempt(s)"
+                        f" ({short}.{method})",
+                    )
+                # refresh OUR df-deadline-ms for the retry: the server
+                # must see what the caller will still actually wait, not
+                # attempt 0's figure — else it keeps (and propagates)
+                # work for seconds after the client gave up. A header
+                # the caller stamped themselves is left alone.
+                if stamped:
+                    hdr = (DEADLINE_HEADER, str(int(t_remaining * 1000)))
+                    if metadata is None:
+                        md = (hdr,)
+                    else:
+                        md = [kv for kv in md if kv[0] != DEADLINE_HEADER]
+                        md.append(hdr)
+            try:
+                # the fault point fires per ATTEMPT (inside the retry
+                # loop): injected wire errors exercise the same
+                # retry/breaker machinery real ones do — gated here on
+                # the module flag so the disarmed path skips the call
+                if _faults._active:
+                    _fp()
+                if hedgeable:
+                    result = _hedged(
+                        inner, request_or_iterator, t_remaining, md, kwargs,
+                        service, method, policy.hedge_delay_s,
+                    )
+                elif kwargs:
+                    result = inner(
+                        request_or_iterator, timeout=t_remaining, metadata=md,
+                        **kwargs,
+                    )
+                else:
+                    # the common shape gets a plain call: CPython's
+                    # **-unpacking path costs real ns at this call rate
+                    result = inner(
+                        request_or_iterator, timeout=t_remaining, metadata=md
+                    )
+            except (grpc.RpcError, faults.InjectedFault) as e:
+                code = _code_name(e)
+                if code in ("UNAVAILABLE", "DEADLINE_EXCEEDED"):
+                    breaker.on_failure()
+                else:
+                    # the target answered — it's alive, just unhappy
+                    breaker.on_success()
+                if (
+                    not unary_request
+                    or policy.max_attempts <= 1
+                    or code not in policy.retryable_codes
+                    or attempt + 1 >= policy.max_attempts
+                ):
+                    raise
+                budget = budget_for(service, target, policy)
+                if not budget.try_spend():
+                    raise
+                if not breaker.allow():
+                    raise
+                RETRIES_TOTAL.labels(service, method).inc()
+                EV_RETRY(
+                    service=service, method=method, target=target,
+                    attempt=attempt + 1, code=code,
+                )
+                sleep_s = full_jitter_backoff(
+                    attempt, policy.backoff_base_s, policy.backoff_cap_s
+                )
+                # never sleep past the deadline: a bounded wait is the
+                # whole point of the budget machinery
+                if deadline_at is not None:
+                    sleep_s = min(sleep_s, max(deadline_at - _monotonic(), 0.0))
+                time.sleep(sleep_s)
+                attempt += 1
+                continue
+            except BaseException:
+                # a non-wire escape (serialization bug, KeyboardInterrupt)
+                # reports no outcome — free a held half-open probe slot
+                breaker.release_probe()
+                raise
+            # streams: success here means initiation succeeded; outcome
+            # accounting stays with glue's _InstrumentedStream. The
+            # steady healthy state (closed, zero failures) skips the
+            # method call entirely
+            if breaker.state != CLOSED or breaker.consecutive_failures:
+                breaker.on_success()
+            # the budget only exists once a retry drained it — an absent
+            # bucket is a full bucket, nothing to refill
+            b = _budgets_get(_budget_key)
+            if b is not None:
+                b.on_success()
+            return result
+
+    return call
+
+
+def _hedged(inner, request, t_remaining, md, kwargs, service, method, hedge_delay_s):
+    """Primary + (after hedge_delay) one hedge, first outcome wins. Both
+    attempts run the full traced inner callable; the loser's result is
+    discarded (unary responses are plain messages — nothing to cancel
+    that matters at this layer)."""
+    import grpc
+
+    # shutdown(wait=False) at the end: the loser attempt may still be
+    # waiting out its own timeout, and blocking on it would hand back the
+    # exact tail latency hedging exists to cut
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+    t_remaining = t_remaining if t_remaining is not None else 3600.0
+    deadline = time.monotonic() + t_remaining
+    try:
+        primary = pool.submit(
+            inner, request, timeout=t_remaining, metadata=md, **kwargs
+        )
+        done, _ = concurrent.futures.wait(
+            [primary], timeout=min(hedge_delay_s, t_remaining)
+        )
+        if done:
+            return primary.result()
+        HEDGES_TOTAL.labels(service, method).inc()
+        EV_HEDGE(service=service, method=method)
+        hedge = pool.submit(
+            inner,
+            request,
+            timeout=max(deadline - time.monotonic(), 0.001),
+            metadata=md,
+            **kwargs,
+        )
+        # first SUCCESS wins; one attempt erroring hands the full
+        # remaining window to the other — raising the primary's error
+        # while the hedge is still in flight would defeat the point
+        pending = {primary, hedge}
+        first_errored = None
+        while pending:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                break
+            done, pending = concurrent.futures.wait(
+                pending,
+                timeout=left,
+                return_when=concurrent.futures.FIRST_COMPLETED,
+            )
+            if not done:
+                break
+            for fut in done:
+                if fut.exception() is None:
+                    if fut is hedge:
+                        HEDGE_WINS_TOTAL.labels(service, method).inc()
+                    return fut.result()
+                if first_errored is None:
+                    first_errored = fut
+        if first_errored is not None and not pending:
+            # both attempts finished, both failed: surface the primary's
+            # error when it has one (it saw the request first)
+            loser = primary if primary.done() else first_errored
+            return loser.result()  # raises that attempt's error
+        raise _resilience_error()(
+            grpc.StatusCode.DEADLINE_EXCEEDED, f"hedged {method} timed out"
+        )
+    finally:
+        pool.shutdown(wait=False)

@@ -1,21 +1,108 @@
-"""Scheduler Prometheus series the decision path and the preheat plane
-feed — the schedule, scoring-service, wave and preheat series of the
-reference's ``scheduler/metrics.py`` (the announce, register, piece and
-record series come with the server slice)."""
+"""Scheduler Prometheus series (upstream scheduler/metrics/metrics.go:
+46-454 — the operationally-load-bearing subset: announce/register/
+schedule traffic, piece/peer outcomes, record sink, probe sync)."""
 
 from dragonfly2_torch.utils.metrics import default_registry as _r
 
+ANNOUNCE_PEER_TOTAL = _r.counter(
+    "scheduler_announce_peer_total", "AnnouncePeer stream events", ("event",)
+)
+REGISTER_PEER_TOTAL = _r.counter(
+    "scheduler_register_peer_total", "Peer registrations", ("size_scope",)
+)
+DOWNLOAD_PEER_FINISHED_TOTAL = _r.counter(
+    "scheduler_download_peer_finished_total", "Peers that finished downloading"
+)
+DOWNLOAD_PEER_FAILURE_TOTAL = _r.counter(
+    "scheduler_download_peer_failure_total", "Peers that failed downloading"
+)
+DOWNLOAD_PIECE_FINISHED_TOTAL = _r.counter(
+    "scheduler_download_piece_finished_total", "Piece results ingested", ("traffic_type",)
+)
 SCHEDULE_DURATION = _r.histogram(
     "scheduler_schedule_duration_seconds", "Candidate-parent scheduling latency"
 )
 SCHEDULE_TOTAL = _r.counter(
     "scheduler_schedule_total", "Scheduling decisions", ("outcome",)
 )
+DOWNLOAD_RECORD_TOTAL = _r.counter(
+    "scheduler_download_record_total", "Training Download records written"
+)
+SYNC_PROBES_TOTAL = _r.counter(
+    "scheduler_sync_probes_total", "SyncProbes stream messages", ("kind",)
+)
+HOST_TOTAL = _r.counter(
+    "scheduler_announce_host_total", "AnnounceHost calls"
+)
+LEAVE_HOST_TOTAL = _r.counter("scheduler_leave_host_total", "LeaveHost calls")
+TRAIN_UPLOAD_TOTAL = _r.counter(
+    "scheduler_train_upload_total", "Dataset uploads to the trainer", ("outcome",)
+)
+TRAFFIC_BYTES_TOTAL = _r.counter(
+    "scheduler_traffic_bytes_total", "Piece bytes by traffic type", ("traffic_type",)
+)
+PEER_GAUGE = _r.gauge("scheduler_peers", "Live peers in the resource model", ("state",))
+TASK_GAUGE = _r.gauge("scheduler_tasks", "Live tasks in the resource model")
+HOST_GAUGE = _r.gauge("scheduler_hosts", "Announced hosts", ("type",))
+
+# -- round-5 breadth to reference coverage (metrics.go:46-454) -----------
+ANNOUNCE_PEER_FAILURE_TOTAL = _r.counter(
+    "scheduler_announce_peer_failure_total", "AnnouncePeer stream failures"
+)
+REGISTER_PEER_FAILURE_TOTAL = _r.counter(
+    "scheduler_register_peer_failure_total", "Failed peer registrations"
+)
+STAT_PEER_TOTAL = _r.counter("scheduler_stat_peer_total", "StatPeer calls")
+STAT_PEER_FAILURE_TOTAL = _r.counter(
+    "scheduler_stat_peer_failure_total", "StatPeer calls that failed"
+)
+LEAVE_PEER_TOTAL = _r.counter("scheduler_leave_peer_total", "LeavePeer/LeaveTask calls")
+LEAVE_PEER_FAILURE_TOTAL = _r.counter(
+    "scheduler_leave_peer_failure_total", "LeavePeer/LeaveTask calls that failed"
+)
+STAT_TASK_TOTAL = _r.counter("scheduler_stat_task_total", "StatTask calls")
+STAT_TASK_FAILURE_TOTAL = _r.counter(
+    "scheduler_stat_task_failure_total", "StatTask calls that failed"
+)
+DOWNLOAD_PEER_STARTED_TOTAL = _r.counter(
+    "scheduler_download_peer_started_total", "Peers that started downloading"
+)
+DOWNLOAD_PEER_BACK_TO_SOURCE_STARTED_TOTAL = _r.counter(
+    "scheduler_download_peer_back_to_source_started_total",
+    "Peers that started downloading back-to-source",
+)
+DOWNLOAD_PIECE_FAILURE_TOTAL = _r.counter(
+    "scheduler_download_piece_failure_total", "Failed piece results ingested"
+)
+ANNOUNCE_HOST_FAILURE_TOTAL = _r.counter(
+    "scheduler_announce_host_failure_total", "AnnounceHost calls that failed"
+)
+LEAVE_HOST_FAILURE_TOTAL = _r.counter(
+    "scheduler_leave_host_failure_total", "LeaveHost calls that failed"
+)
+SYNC_PROBES_FAILURE_TOTAL = _r.counter(
+    "scheduler_sync_probes_failure_total", "SyncProbes stream failures"
+)
+# per-host traffic (upstream metrics.go:244-251: the HostTraffic series
+# keyed by traffic type + host). Cardinality note mirrors the reference:
+# one series per (type, host) pair — bounded by cluster size.
+HOST_TRAFFIC_BYTES_TOTAL = _r.counter(
+    "scheduler_host_traffic_bytes_total",
+    "Piece bytes by traffic type and host",
+    ("traffic_type", "host_id", "host_ip"),
+)
+# whole-download duration by task size class (reference
+# DownloadPeerDuration with CalculateSizeLevel buckets)
+DOWNLOAD_PEER_DURATION_MS = _r.histogram(
+    "scheduler_download_peer_duration_milliseconds",
+    "Whole-download duration per finished peer",
+    buckets=(100, 500, 1000, 5000, 10000, 30000, 60000, 300000),
+)
 CONCURRENT_SCHEDULE_GAUGE = _r.gauge(
     "scheduler_concurrent_schedule", "Scheduling passes in flight"
 )
 
-# -- batched scoring service (scheduler/serving.py) -------------------------
+# -- batched scoring service (scheduler/serving.py, docs/serving.md) --------
 SERVING_SUBMITTED_TOTAL = _r.counter(
     "scheduler_serving_submitted_total",
     "Candidate-matrix score submissions by path",
@@ -45,8 +132,9 @@ SERVING_FALLBACK_TOTAL = _r.counter(
     ("to",),  # mlp | base
 )
 
-# -- wave scheduling (scheduler/wave.py): W decisions × C candidates packed
-# into one scoring dispatch; occupancy is rows = Σ wave sizes --------------
+# -- wave scheduling (scheduler/wave.py, docs/serving.md "wave
+# scheduling"): W decisions × C candidates packed into one scoring
+# dispatch; occupancy is rows = Σ wave sizes ------------------------------
 WAVE_DECISIONS_TOTAL = _r.counter(
     "scheduler_wave_decisions_total",
     "Scheduling decisions submitted via wave packing, by path",
@@ -62,9 +150,8 @@ WAVE_UNPACK_SECONDS = _r.histogram(
     "Segment-rank unpack wall per wave request",
     buckets=(1e-5, 5e-5, 1e-4, 5e-4, 1e-3, 5e-3, 2e-2),
 )
-
-# -- predictive preheat plane (dragonfly2_torch/preheat/): demand folding,
-# forecast sweeps, planned tasks and the jobs they ride ---------------------
+# -- predictive preheat plane (preheat/):
+# demand folding, forecast sweeps, planned tasks and the jobs they ride --
 PREHEAT_SWEEPS_TOTAL = _r.counter(
     "scheduler_preheat_sweeps_total",
     "Planner sweeps by outcome",
@@ -105,3 +192,38 @@ PREHEAT_SWEEP_SECONDS = _r.histogram(
     "Whole planner sweep wall (forecast + plan + job submit)",
     buckets=(1e-3, 5e-3, 0.02, 0.1, 0.5, 2.0, 10.0),
 )
+
+VERSION_GAUGE = _r.gauge(
+    "scheduler_version", "Build info (value is always 1)", ("version",)
+)
+
+
+def set_version_info() -> None:
+    from dragonfly2_torch.version import __version__
+
+    VERSION_GAUGE.labels(__version__).set(1)
+
+
+# label values seen on previous refreshes — a group that disappears must
+# be zeroed, not left at its last value (phantom peers in dashboards)
+_seen_peer_states: set = set()
+_seen_host_types: set = set()
+
+
+def refresh_resource_gauges(resource) -> None:
+    """Update cluster-state gauges from the live resource model (the
+    reference exports these via promauto collectors; here a periodic
+    refresh keeps the scrape path allocation-free)."""
+    by_state: dict = {}
+    for p in resource.peer_manager.all():
+        by_state[p.fsm.current] = by_state.get(p.fsm.current, 0) + 1
+    _seen_peer_states.update(by_state)
+    for state in _seen_peer_states:
+        PEER_GAUGE.labels(state).set(by_state.get(state, 0))
+    TASK_GAUGE.set(len(resource.task_manager.all()))
+    by_type: dict = {}
+    for h in resource.host_manager.all():
+        by_type[h.type.value] = by_type.get(h.type.value, 0) + 1
+    _seen_host_types.update(by_type)
+    for t in _seen_host_types:
+        HOST_GAUGE.labels(t).set(by_type.get(t, 0))

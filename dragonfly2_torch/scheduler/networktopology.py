@@ -1,44 +1,313 @@
-"""Network topology: the probe graph the GNN trains on and embeds
-(counterpart of the reference's ``scheduler/networktopology.py``, the
-engine-backed path only).
+"""Network topology: the probe graph the GNN trains on (counterpart of the
+reference's ``scheduler/networktopology.py``).
 
-The reference keeps the probe graph in a KV store (Redis role) and mirrors
-it into a ``topology.TopologyEngine``, its live replica on the device;
-``export_records`` reads the engine's adjacency, not the store. The port
-has the engine path: a ``NetworkTopology`` over an engine and the
-scheduler's host manager. The KV store (probe ingestion, the probe-target
-choice, hydration, the KV walk when no engine is attached) and the
-snapshot into the scheduler's record storage wait for
-``utils/kvstore.py`` and ``scheduler/storage.py`` (ROADMAP queue A item
-5b); a KV store raises.
+KV-backed (Redis role) store of host→host probe measurements (upstream
+scheduler/networktopology/network_topology.go:52-436, probes.go:37-383):
+
+- ``networktopology:src:dest`` hash — averageRTT + created/updated times
+- ``probes:src:dest`` list — bounded queue (len 5) of raw probes
+- ``probedcount:host`` counter — fairness signal for probe target choice
+
+EWMA: averageRTT = 0.1·old + 0.9·new (old-average weight 0.1 — nearly
+last-sample; upstream probes.go:195-196). ``find_probed_hosts`` picks ≤50
+random candidate hosts and returns the 5 least-probed. ``snapshot`` appends
+NetworkTopologyRecord rows to scheduler storage every collect interval
+(default 2h) — from the device-resident adjacency when a
+``topology.TopologyEngine`` is attached (the KV store stays the durable
+multi-scheduler truth; the engine is its live computational replica and
+the export source, so snapshots stop re-walking KV), falling back to the
+KV walk otherwise.
 """
 
 from __future__ import annotations
 
-from dragonfly2_torch.schema import records as R
+import json
+import random
+import time
+import uuid
+from dataclasses import dataclass, field
 
-_KV_NOT_PORTED = (
-    "the KV-backed network topology is not ported yet (ROADMAP queue A item 5b):"
-    " build NetworkTopology over a topology engine, with kv=None"
+from dragonfly2_torch.schema import records as R
+from dragonfly2_torch.scheduler.resource import Host, HostManager
+from dragonfly2_torch.scheduler.storage import Storage
+from dragonfly2_torch.utils.kvstore import (
+    KVStore,
+    make_network_topology_key,
+    make_probed_count_key,
+    make_probes_key,
 )
+
+# defaults (upstream scheduler/config/constants.go:176-189,
+# network_topology.go:48-49)
+DEFAULT_PROBE_QUEUE_LENGTH = 5
+DEFAULT_PROBE_COUNT = 5  # hosts probed per sync round
+DEFAULT_CANDIDATE_HOSTS = 50  # random candidate pool per request
+DEFAULT_COLLECT_INTERVAL = 2 * 3600.0
+EWMA_OLD_WEIGHT = 0.1  # averageRTT = 0.1*old + 0.9*new
+
+NS_PER_S = 1_000_000_000
+
+
+@dataclass
+class Probe:
+    host_id: str
+    rtt_ns: int
+    created_at: float = field(default_factory=time.time)
 
 
 class NetworkTopology:
-    def __init__(self, host_manager, engine=None, kv=None):
-        if kv is not None or engine is None:
-            raise NotImplementedError(_KV_NOT_PORTED)
+    def __init__(
+        self,
+        kv: KVStore,
+        host_manager: HostManager,
+        storage: Storage | None = None,
+        queue_length: int = DEFAULT_PROBE_QUEUE_LENGTH,
+        probe_count: int = DEFAULT_PROBE_COUNT,
+        candidate_hosts: int = DEFAULT_CANDIDATE_HOSTS,
+        engine=None,  # topology.TopologyEngine | None
+    ):
+        self.kv = kv
         self.host_manager = host_manager
-        self.engine = engine  # topology.TopologyEngine
+        self.storage = storage
+        self.queue_length = queue_length
+        self.probe_count = probe_count
+        self.candidate_hosts = candidate_hosts
+        self.engine = engine
 
+    # -- probe ingestion (SyncProbes server side) -------------------------
+    def has_edge(self, src: str, dest: str) -> bool:
+        return self.kv.exists(make_network_topology_key(src, dest))
+
+    def store_edge(self, src: str, dest: str) -> None:
+        """Create the edge hash on first probe between a pair."""
+        key = make_network_topology_key(src, dest)
+        if not self.kv.exists(key):
+            now_ns = int(time.time() * NS_PER_S)
+            self.kv.hset(key, {"averageRTT": 0, "createdAt": now_ns, "updatedAt": now_ns})
+
+    def enqueue_probe(self, src: str, probe: Probe) -> None:
+        """Append a raw probe, maintain the bounded queue and the EWMA
+        (upstream probes.go:145-222). Probe entries are JSON strings —
+        the same marshaling the reference pushes into Redis lists — so
+        the in-process and RESP/Redis backends hold identical bytes."""
+        dest = probe.host_id
+        self.store_edge(src, dest)
+        qkey = make_probes_key(src, dest)
+        # `while`, not `if`: with N schedulers sharing the store, two
+        # writers can both see len==4 and push to 6 — the reference has
+        # the same unguarded Llen/Lpop/Rpush sequence (probes.go:158-170)
+        # so its bound is equally best-effort, but a while-loop makes the
+        # queue CONVERGE back to the bound on the next write instead of
+        # staying permanently over it. The EWMA read-modify-write below
+        # shares the same documented raciness (one concurrent update may
+        # be lost; the 0.9-new weighting makes the next probe dominate
+        # anyway).
+        while self.kv.llen(qkey) >= self.queue_length:
+            if self.kv.lpop(qkey) is None:
+                break  # another writer drained it first
+        self.kv.rpush(
+            qkey, json.dumps({"rtt": probe.rtt_ns, "createdAt": probe.created_at})
+        )
+
+        ekey = make_network_topology_key(src, dest)
+        # int(...): the RESP backend returns strings (and "0" is truthy)
+        old = int(self.kv.hget(ekey, "averageRTT") or 0)
+        if old == 0:
+            avg = probe.rtt_ns
+        else:
+            avg = int(EWMA_OLD_WEIGHT * old + (1 - EWMA_OLD_WEIGHT) * probe.rtt_ns)
+        self.kv.hset(
+            ekey,
+            {"averageRTT": avg, "updatedAt": int(probe.created_at * NS_PER_S)},
+        )
+        self.kv.incr(make_probed_count_key(dest))
+        if self.engine is not None:
+            # mirror into the device adjacency through the batching
+            # delta queue — same raw sample, same EWMA fold, applied at
+            # the next flush instead of per-RPC
+            self.engine.enqueue(src, dest, probe.rtt_ns, probe.created_at)
+
+    def average_rtt(self, src: str, dest: str) -> int | None:
+        v = self.kv.hget(make_network_topology_key(src, dest), "averageRTT")
+        return int(v) if v is not None else None
+
+    def probes(self, src: str, dest: str) -> list[dict]:
+        return [
+            json.loads(e) if isinstance(e, str) else e
+            for e in self.kv.lrange(make_probes_key(src, dest), 0, -1)
+        ]
+
+    def probed_count(self, host_id: str) -> int:
+        return int(self.kv.get(make_probed_count_key(host_id)) or 0)
+
+    # -- probe target selection ------------------------------------------
+    def find_probed_hosts(self, src_host_id: str) -> list[Host]:
+        """≤candidate_hosts random hosts (excluding src) → the probe_count
+        least-probed (upstream network_topology.go:183-250).
+
+        The probed-count reads are batched: against the RESP backend a
+        per-key ``get`` costs one network round-trip each — up to 50 per
+        sync round — so a single ``mget`` fetches them all; the
+        in-process store (no wire, no ``mget`` needed) keeps the plain
+        per-key path."""
+        hosts = [h for h in self.host_manager.all() if h.id != src_host_id]
+        if not hosts:
+            return []
+        if len(hosts) > self.candidate_hosts:
+            hosts = random.sample(hosts, self.candidate_hosts)
+        mget = getattr(self.kv, "mget", None)
+        if mget is not None:
+            counts = mget([make_probed_count_key(h.id) for h in hosts])
+            by_id = {h.id: int(c or 0) for h, c in zip(hosts, counts)}
+            hosts.sort(key=lambda h: by_id[h.id])
+        else:
+            hosts.sort(key=lambda h: self.probed_count(h.id))
+        return hosts[: self.probe_count]
+
+    # -- lifecycle --------------------------------------------------------
+    def delete_host(self, host_id: str) -> None:
+        """Purge all probe state touching a departed host (upstream
+        network_topology.go:253-291)."""
+        keys = (
+            self.kv.scan_iter(f"networktopology:{host_id}:*")
+            + self.kv.scan_iter(f"networktopology:*:{host_id}")
+            + self.kv.scan_iter(f"probes:{host_id}:*")
+            + self.kv.scan_iter(f"probes:*:{host_id}")
+            + [make_probed_count_key(host_id)]
+        )
+        if keys:
+            self.kv.delete(*keys)
+        if self.engine is not None:
+            self.engine.delete_host(host_id)
+
+    def _edge_field_batch(self, src: str, dests: list[str], field: str) -> list:
+        """One edge-hash field per (src, dest) — pipelined on the RESP
+        backend (one round-trip batch), per-key on in-process stores
+        (no wire to amortize)."""
+        keys = [make_network_topology_key(src, d) for d in dests]
+        hget_batch = getattr(self.kv, "hget_batch", None)
+        if hget_batch is not None:
+            return hget_batch(keys, field)
+        return [self.kv.hget(k, field) for k in keys]
+
+    def _edge_updated_at(self, src: str, dests: list[str]) -> list[int]:
+        return [int(v or 0) for v in self._edge_field_batch(src, dests, "updatedAt")]
+
+    def hydrate_engine(self) -> int:
+        """Adopt the KV graph's edges into the device adjacency —
+        restart recovery plus the merge path for edges probed via peer
+        schedulers sharing the KV store (their raw probes never pass
+        through this process's ``enqueue_probe``). Newer engine-local
+        state wins per edge. Returns edges adopted."""
+        if self.engine is None:
+            return 0
+        adopted = 0
+        by_src: dict[str, list[str]] = {}
+        for key in self.kv.scan_iter("networktopology:*:*"):
+            _, src, dest = key.split(":", 2)
+            by_src.setdefault(src, []).append(dest)
+        for src, dests in by_src.items():
+            avgs = self._edge_field_batch(src, dests, "averageRTT")
+            updates = self._edge_field_batch(src, dests, "updatedAt")
+            for dest, avg, upd in zip(dests, avgs, updates):
+                if avg is None:
+                    continue
+                if self.engine.adopt(
+                    src, dest, int(avg), int(upd or 0) / NS_PER_S
+                ):
+                    adopted += 1
+        return adopted
+
+    # -- snapshot (training-data export) ----------------------------------
     def export_records(self, dest_limit: int = R.MAX_DEST_HOSTS) -> list:
-        """Live probe graph → ``NetworkTopologyRecord`` rows (one per source
-        host, up to ``dest_limit`` dest hosts each, the most recently
-        updated kept), straight from the engine's adjacency. The snapshot
-        sink, the GNN's swap-time embed and seed placement consume this.
+        """Live probe graph → NetworkTopologyRecord rows (one per source
+        host, up to ``dest_limit`` dest hosts each) — the snapshot sink
+        and the seed-placement advisor both consume this. With a
+        topology engine attached the rows come straight from the
+        device-resident adjacency (no KV walk); otherwise the KV store
+        is scanned.
 
-        ``dest_limit`` is clamped to the record schema's fixed group width:
-        the columnar flatten pads/truncates ``dest_hosts`` to
-        ``MAX_DEST_HOSTS``, so a larger limit would be dropped downstream
-        rather than widen coverage."""
+        ``dest_limit`` is clamped to the record schema's fixed group
+        width: the columnar flatten pads/truncates ``dest_hosts`` to
+        MAX_DEST_HOSTS, so a larger limit would be silently dropped
+        downstream rather than widening coverage. Either path keeps the
+        most-recently-updated edges when truncating, so the training
+        snapshot carries fresh measurements instead of whatever key
+        sorted first."""
         dest_limit = min(dest_limit, R.MAX_DEST_HOSTS)
-        return self.engine.export_records(self.host_manager, dest_limit)
+        if self.engine is not None:
+            # merge KV state first: the engine only mirrors THIS
+            # process's probes, but the shared KV carries edges from
+            # peer schedulers and from before a restart — without the
+            # merge those would silently vanish from every snapshot
+            self.hydrate_engine()
+            return self.engine.export_records(self.host_manager, dest_limit)
+        by_src: dict[str, list[str]] = {}
+        for key in self.kv.scan_iter("networktopology:*:*"):
+            _, src, dest = key.split(":", 2)
+            by_src.setdefault(src, []).append(dest)
+
+        out: list[R.NetworkTopologyRecord] = []
+        now_ns = int(time.time() * NS_PER_S)
+        for src, dests in by_src.items():
+            sh = self.host_manager.load(src)
+            if sh is None:
+                continue
+            # freshness first, then truncate: scan order is arbitrary,
+            # and truncating before looking at updatedAt would pin stale
+            # edges into every snapshot. Only updatedAt is read for ALL
+            # dests (one pipelined batch on the RESP backend); the full
+            # hash is fetched just for the dest_limit winners.
+            updated = self._edge_updated_at(src, dests)
+            ranked = sorted(zip(dests, updated), key=lambda e: -e[1])
+            dest_hosts: list[R.DestHost] = []
+            for dest, _ in ranked[:dest_limit]:
+                edge = self.kv.hgetall(make_network_topology_key(src, dest))
+                if not edge:
+                    continue
+                dh = self.host_manager.load(dest)
+                if dh is None:
+                    continue
+                dest_hosts.append(
+                    R.DestHost(
+                        id=dh.id,
+                        type=dh.type.value,
+                        hostname=dh.hostname,
+                        ip=dh.ip,
+                        port=dh.port,
+                        network=dh.network,
+                        probes=R.ProbesRecord(
+                            average_rtt=int(edge.get("averageRTT", 0)),
+                            created_at=int(edge.get("createdAt", 0)),
+                            updated_at=int(edge.get("updatedAt", 0)),
+                        ),
+                    )
+                )
+            if not dest_hosts:
+                continue
+            out.append(
+                R.NetworkTopologyRecord(
+                    id=str(uuid.uuid4()),
+                    host=R.SrcHost(
+                        id=sh.id,
+                        type=sh.type.value,
+                        hostname=sh.hostname,
+                        ip=sh.ip,
+                        port=sh.port,
+                        network=sh.network,
+                    ),
+                    dest_hosts=dest_hosts,
+                    created_at=now_ns,
+                )
+            )
+        return out
+
+    def snapshot(self) -> int:
+        """Append the live probe graph to the CSV record sink (upstream
+        network_topology.go:325-436). Returns rows written."""
+        if self.storage is None:
+            return 0
+        records = self.export_records()
+        for rec in records:
+            self.storage.create_network_topology(rec)
+        return len(records)

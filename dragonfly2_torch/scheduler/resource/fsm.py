@@ -27,10 +27,14 @@ class Transition:
 
 
 class FSM:
-    def __init__(self, initial: str, transitions: list[Transition]):
+    def __init__(self, initial: str, transitions: list[Transition], on_transition=None):
         self._state = initial
         self._by_event = {t.event: t for t in transitions}
         self._lock = threading.Lock()
+        # observer for successful transitions, called with the new state
+        # AFTER the lock is released — one hook covers every event()
+        # caller (service demux, scheduling, gc, leave paths)
+        self.on_transition = on_transition
 
     @property
     def current(self) -> str:
@@ -54,3 +58,6 @@ class FSM:
             if self._state not in t.sources:
                 raise InvalidTransitionError(event, self._state)
             self._state = t.dst
+        cb = self.on_transition
+        if cb is not None:
+            cb(t.dst)

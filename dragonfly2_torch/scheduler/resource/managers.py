@@ -1,10 +1,7 @@
-"""Resource managers: in-memory cluster state with interval GC (counterpart
-of the reference's ``scheduler/resource/managers.py``; upstream
-Dragonfly2's scheduler/resource/{peer,task,host}_manager.go). The swarm
-observatory's hooks (peer, peer gone, task gone) come with the server
-slice.
+"""Resource managers: in-memory cluster state with interval GC (upstream
+scheduler/resource/{peer,task,host}_manager.go).
 
-GC policy mirrors upstream: peers older than their TTL (or stuck in a
+GC policy mirrors the reference: peers older than their TTL (or stuck in a
 terminal state) are reclaimed, tasks with no peers left are dropped, hosts
 with no peers and stale announcements leave.
 """
@@ -15,10 +12,13 @@ import threading
 import time
 from dataclasses import dataclass
 
+from dragonfly2_torch.scheduler import swarm
 from dragonfly2_torch.scheduler.resource.host import Host
 from dragonfly2_torch.scheduler.resource.peer import (
     PEER_EVENT_LEAVE,
+    PEER_STATE_FAILED,
     PEER_STATE_LEAVE,
+    PEER_STATE_SUCCEEDED,
     Peer,
 )
 from dragonfly2_torch.scheduler.resource.task import Task
@@ -48,6 +48,11 @@ class PeerManager:
             self._peers[peer.id] = peer
         peer.task.store_peer(peer)
         peer.host.store_peer(peer)
+        swarm.on_peer(
+            peer.task.id, peer.id,
+            seed=peer.host.type.is_seed,
+            total_pieces=peer.task.total_piece_count,
+        )
 
     def load_or_store(self, peer: Peer) -> tuple[Peer, bool]:
         with self._lock:
@@ -57,6 +62,11 @@ class PeerManager:
             self._peers[peer.id] = peer
         peer.task.store_peer(peer)
         peer.host.store_peer(peer)
+        swarm.on_peer(
+            peer.task.id, peer.id,
+            seed=peer.host.type.is_seed,
+            total_pieces=peer.task.total_piece_count,
+        )
         return peer, False
 
     def delete(self, peer_id: str) -> None:
@@ -65,6 +75,7 @@ class PeerManager:
         if peer is not None:
             peer.task.delete_peer(peer_id)
             peer.host.delete_peer(peer_id)
+            swarm.on_peer_gone(peer.task.id, peer_id)
 
     def all(self) -> list[Peer]:
         with self._lock:
@@ -110,13 +121,14 @@ class TaskManager:
     def delete(self, task_id: str) -> None:
         with self._lock:
             self._tasks.pop(task_id, None)
+        swarm.on_task_gone(task_id)
 
     def all(self) -> list[Task]:
         with self._lock:
             return list(self._tasks.values())
 
     def run_gc(self) -> int:
-        """Drop tasks with no peers (upstream task_manager gc: peer-empty
+        """Drop tasks with no peers (reference task_manager gc: peer-empty
         tasks are unreachable state)."""
         dead = [t.id for t in self.all() if t.peer_count() == 0]
         for tid in dead:

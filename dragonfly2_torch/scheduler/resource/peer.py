@@ -1,20 +1,20 @@
-"""Peer — one download attempt of one task by one host (counterpart of the
-reference's ``scheduler/resource/peer.py``; upstream Dragonfly2's
+"""Peer — one download attempt of one task by one host (upstream
 scheduler/resource/peer.go:51-330).
 
 Lifecycle FSM:
   Pending → Received{Empty,Tiny,Small,Normal} → Running
           → BackToSource | Succeeded | Failed | Leave
 (upstream peer.go:226-247 transition table, reproduced exactly — the
-filter rules and bad-node checks key off these states). The swarm
-observatory's hooks (state, piece) come with the server slice.
+filter rules and bad-node checks key off these states).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from typing import Optional
 
+from dragonfly2_torch.scheduler import swarm
 from dragonfly2_torch.scheduler.resource.fsm import FSM, Transition
 from dragonfly2_torch.scheduler.resource.host import Host
 
@@ -105,7 +105,15 @@ class Peer:
         self.priority = priority
         self.range_header = range_header
 
-        self.fsm = FSM(PEER_STATE_PENDING, _TRANSITIONS)
+        # one observatory hook covers every fsm.event() call site; the
+        # FSM invokes it after its lock is released (swarm takes its own)
+        self.fsm = FSM(
+            PEER_STATE_PENDING,
+            _TRANSITIONS,
+            on_transition=lambda state, _t=task.id, _p=peer_id: swarm.on_state(
+                _t, _p, state
+            ),
+        )
         self.finished_pieces: set[int] = set()
         # piece number → Piece (with parent provenance) for this download
         self.pieces: dict[int, object] = {}
@@ -150,6 +158,10 @@ class Peer:
                 self.piece_costs_ms.append(cost_ms)
             self.piece_updated_at = time.time()
             self.updated_at = time.time()
+            done = len(self.finished_pieces)
+        # observatory hook outside our lock (it takes the module ledger
+        # lock; locks never nest across the two)
+        swarm.on_piece(self.task.id, self.id, done, self.task.total_piece_count)
 
     def finished_piece_count(self) -> int:
         with self._lock:

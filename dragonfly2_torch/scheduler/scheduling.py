@@ -1,21 +1,25 @@
-"""Scheduling algorithm: find candidate parents for downloading peers
-(counterpart of the reference's ``scheduler/scheduling.py``).
+"""Scheduling algorithm: assign candidate parents to downloading peers.
 
-Semantics track upstream Dragonfly2's v2 path (its
-scheduler/scheduling/scheduling.go:383-424 FindCandidateParents and
-:500-571 filterCandidateParents): the six filter rules — blocklist,
-DAG-edge feasibility, same-host exclusion, bad-node, the in-degree/seed
-"parent must itself be fed" rule, and free upload slots — then the
-evaluator's ranking, cut to the candidate-parent limit. The wave form
-filters each peer on the host and ranks the whole wave in one evaluator
-dispatch. The retry loop that pushes decisions to a peer's stream
-(``schedule_candidate_parents``) comes with the server slice.
+Semantics track the reference's v2 path (upstream
+scheduler/scheduling/scheduling.go:85-213 ScheduleCandidateParents,
+:383-424 FindCandidateParents, :500-571 filterCandidateParents) — the
+retry loop with back-to-source decisions, and the six filter rules:
+blocklist, DAG-edge feasibility, same-host exclusion, bad-node, the
+in-degree/seed "parent must itself be fed" rule, and free upload slots.
+
+Decisions are pushed to the peer's stored stream handle (installed by the
+RPC layer); responses are plain dataclasses so the algorithm is
+transport-independent and testable in-process, the same way the upstream
+tests drive it against scripted mocks.
 """
+
+# dfanalyze: hot — one schedule_candidate_parents call per peer decision
 
 from __future__ import annotations
 
+import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from dragonfly2_torch.scheduler.evaluator import Evaluator
 from dragonfly2_torch.scheduler.resource import (
@@ -26,21 +30,61 @@ from dragonfly2_torch.scheduler.resource import (
     HostType,
     Peer,
 )
-from dragonfly2_torch.utils import profiling, tracing
+from dragonfly2_torch.scheduler import metrics as M
+from dragonfly2_torch.scheduler import swarm
+from dragonfly2_torch.utils import dflog, faults, flight, profiling, tracing
 
-# phase: the evaluator leg of a decision (or of a whole wave)
+logger = dflog.get("scheduling")
+
+# dfprof phase ledger: the schedule op's wall split (whole decision vs
+# the evaluator leg; the topology and storage legs are declared at
+# their own sites) — live counters on /debug/prof, always on
+PH_SCHEDULE = profiling.phase_type("scheduler.schedule_op")
 PH_EVALUATE = profiling.phase_type("scheduler.evaluate")
 
-# defaults (upstream scheduler/config/constants.go); the retry limits come
-# with the retry loop
+# flight-recorder emitters: one event per scheduling decision, always on
+# (the per-decision record the sampled trace usually misses); bench.py
+# recorder_overhead_pct keeps the emit cost < 2% of the schedule op
+EV_SCHEDULE = flight.event_type("scheduler.schedule")
+EV_BACK_TO_SOURCE = flight.event_type("scheduler.schedule_back_to_source")
+EV_SCHEDULE_FAILED = flight.event_type("scheduler.schedule_failed")
+
+# fault point: one scheduling decision — chaos schedules inject latency
+# (a wedged scheduler) or errors here; single predicate when disarmed
+FP_SCHEDULE = faults.point("scheduler.schedule")
+
+# defaults (upstream scheduler/config/constants.go)
+DEFAULT_RETRY_LIMIT = 5
+DEFAULT_RETRY_BACK_TO_SOURCE_LIMIT = 3
+DEFAULT_RETRY_INTERVAL = 0.05
 DEFAULT_FILTER_PARENT_LIMIT = 15
 DEFAULT_CANDIDATE_PARENT_LIMIT = 4
 
 
 @dataclass
 class SchedulingConfig:
+    retry_limit: int = DEFAULT_RETRY_LIMIT
+    retry_back_to_source_limit: int = DEFAULT_RETRY_BACK_TO_SOURCE_LIMIT
+    retry_interval: float = DEFAULT_RETRY_INTERVAL
     filter_parent_limit: int = DEFAULT_FILTER_PARENT_LIMIT
     candidate_parent_limit: int = DEFAULT_CANDIDATE_PARENT_LIMIT
+
+
+# -- responses pushed to the peer's stream ----------------------------------
+
+
+@dataclass
+class NormalTaskResponse:
+    candidate_parents: list[Peer]
+
+
+@dataclass
+class NeedBackToSourceResponse:
+    description: str
+
+
+class SchedulingError(Exception):
+    pass
 
 
 class Scheduling:
@@ -49,12 +93,14 @@ class Scheduling:
         evaluator: Evaluator,
         config: SchedulingConfig | None = None,
         dynconfig=None,  # optional provider of live candidate/filter limits
+        seed_client=None,  # optional resource.seed_peer.SeedPeerClient
     ):
         self.evaluator = evaluator
         self.config = config or SchedulingConfig()
         self.dynconfig = dynconfig
+        self.seed_client = seed_client
 
-    # -- limits (dynconfig-overridable, upstream scheduling.go:405-413) ---
+    # -- limits (dynconfig-overridable, upstream scheduling.go:405-413) --
     def _candidate_parent_limit(self) -> int:
         if self.dynconfig is not None:
             v = getattr(self.dynconfig, "candidate_parent_limit", 0)
@@ -68,6 +114,148 @@ class Scheduling:
             if v and v > 0:
                 return int(v)
         return self.config.filter_parent_limit
+
+    # -- v2 entrypoint ----------------------------------------------------
+    def schedule_candidate_parents(
+        self, peer: Peer, blocklist: set[str] | None = None, cancelled=None
+    ) -> None:
+        """Retry loop: find candidates and push NormalTaskResponse, or
+        decide back-to-source (peer demand or retry exhaustion) and push
+        NeedBackToSourceResponse. Raises SchedulingError when the retry
+        limit is exhausted and back-to-source isn't possible."""
+        blocklist = blocklist or set()
+        n = 0
+        FP_SCHEDULE()
+        _t0 = time.perf_counter()
+        # the per-schedule span only exists when something will record
+        # it: the unsampled/disabled path (is_sampling False — this IS
+        # the hot path when no collector is drinking) pays a predicate
+        # and no-op calls, < 2% of the schedule wall (bench.py
+        # tracing_overhead_pct keeps that measured)
+        if tracing.is_sampling():
+            _span = tracing.get("scheduler").start_span(
+                "schedule", peer_id=peer.id, task_id=peer.task.id
+            )
+            _cm = tracing.use_span(_span)
+        else:
+            _span = tracing.NOOP_SPAN
+            _cm = tracing.noop_cm()
+        M.CONCURRENT_SCHEDULE_GAUGE.inc()
+        try:
+            # active while the loop runs so evaluator/topology child
+            # spans parent under the scheduling decision automatically
+            with _cm:
+                self._schedule_loop(peer, blocklist, cancelled, n, _t0, _span)
+        except BaseException:
+            _span.end("error")
+            raise
+        finally:
+            M.CONCURRENT_SCHEDULE_GAUGE.dec()
+            _span.end("ok")  # idempotent; attributes set at decision points
+            # observe-only off the existing timer (one ~0.6µs ledger
+            # add, no enter bookkeeping): concurrency is already
+            # visible via CONCURRENT_SCHEDULE_GAUGE
+            PH_SCHEDULE.observe(time.perf_counter() - _t0)
+
+    def _schedule_loop(self, peer, blocklist, cancelled, n, _t0, _span):
+        while True:
+            if cancelled is not None and cancelled():
+                return
+
+            # while a seed download is in flight for this task, don't send
+            # the child to the origin and don't burn its retry budget — the
+            # whole point of the seed is that origin traffic happens once
+            seeding = (
+                self.seed_client is not None
+                and self.seed_client.is_inflight(peer.task.id)
+            )
+
+            # explicit demand wins even while seeding — the demanding peer
+            # IS the seed (its registration carries need_back_to_source)
+            if peer.need_back_to_source and peer.task.can_back_to_source():
+                _span.set(back_to_source="peer demand", retries=n)
+                EV_BACK_TO_SOURCE(
+                    peer_id=peer.id, task_id=peer.task.id,
+                    reason="peer demand", retries=n,
+                )
+                self._send(
+                    peer,
+                    NeedBackToSourceResponse("peer's NeedBackToSource is true"),
+                )
+                return
+
+            if not seeding and peer.task.can_back_to_source():
+                if n >= self.config.retry_back_to_source_limit:
+                    _span.set(back_to_source="retry limit", retries=n)
+                    EV_BACK_TO_SOURCE(
+                        peer_id=peer.id, task_id=peer.task.id,
+                        reason="retry limit", retries=n,
+                    )
+                    self._send(
+                        peer,
+                        NeedBackToSourceResponse(
+                            "scheduling exceeded RetryBackToSourceLimit"
+                        ),
+                    )
+                    return
+
+            if not seeding and n >= self.config.retry_limit:
+                EV_SCHEDULE_FAILED(
+                    peer_id=peer.id, task_id=peer.task.id, retries=n,
+                    reason="retry limit exhausted",
+                )
+                raise SchedulingError(
+                    f"scheduling exceeded RetryLimit {self.config.retry_limit}"
+                )
+
+            # re-schedule from a clean slate: drop existing parent edges
+            peer.task.delete_peer_in_edges(peer.id)
+            swarm.on_reschedule(peer.task.id, peer.id)
+
+            candidate_parents, found = self.find_candidate_parents(peer, blocklist)
+            if not found:
+                if n == 0 and self.seed_client is not None:
+                    # cold task with no feedable parents: ask a seed peer
+                    # to fetch it (upstream seed_peer.go:92-213 trigger);
+                    # the retry loop then finds the seed as first parent.
+                    # The full UrlMeta rides along — filter/range are part
+                    # of the task id, so dropping them would make the seed
+                    # register a different task entirely
+                    task = peer.task
+                    self.seed_client.trigger(
+                        task.id,
+                        task.url,
+                        tag=task.tag,
+                        application=task.application,
+                        digest=task.digest,
+                        url_filter="&".join(task.filters),
+                        url_range=task.url_range,
+                    )
+                n += 1
+                time.sleep(self.config.retry_interval)
+                continue
+
+            M.SCHEDULE_DURATION.observe(time.perf_counter() - _t0)
+            _span.set(candidates=len(candidate_parents), retries=n).end("ok")
+            EV_SCHEDULE(
+                peer_id=peer.id,
+                task_id=peer.task.id,
+                retries=n,
+                parent_ids=[p.id for p in candidate_parents],
+            )
+            self._send(peer, NormalTaskResponse(candidate_parents))
+
+            for parent in candidate_parents:
+                try:
+                    peer.task.add_peer_edge(parent, peer)
+                except Exception as e:
+                    logger.warning("peer %s add edge failed: %s", peer.id, e)
+            # the first ranked candidate is the decision's primary
+            # parent — the tree edge the swarm observatory tracks
+            swarm.on_primary_parent(
+                peer.task.id, peer.id, candidate_parents[0].id
+            )
+            return
 
     # -- finders ----------------------------------------------------------
     def find_candidate_parents(
@@ -201,3 +389,13 @@ class Scheduling:
                 continue
             out.append(cand)
         return out
+
+    @staticmethod
+    def _send(peer: Peer, response) -> None:
+        M.SCHEDULE_TOTAL.labels(
+            "parents" if isinstance(response, NormalTaskResponse) else "back_to_source"
+        ).inc()
+        stream = peer.load_stream()
+        if stream is None:
+            raise SchedulingError(f"peer {peer.id}: load stream failed")
+        stream.send(response)

@@ -1,0 +1,619 @@
+"""Scheduler gRPC service (v2 shape): AnnouncePeer bidi stream + host and
+probe RPCs (upstream scheduler/service/service_v2.go:89-1387).
+
+The AnnouncePeer stream demuxes register / started / piece / finished /
+failed / reschedule events into FSM transitions and scheduling calls; the
+response side of the stream carries scheduling decisions pushed through
+the peer's stored stream handle. On DownloadPeerFinished/Failed the
+download record is written to storage — v2 keeps the record sink the
+reference only wired into v1 (upstream service_v1.go:1629), because the
+records are what the trainer fits on.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+
+import grpc
+
+from dragonfly2_torch.rpc import protos
+
+common_pb2 = protos.load("common_pb2")
+scheduler_pb2 = protos.load("scheduler_pb2")
+
+from dragonfly2_torch.scheduler import resource as res
+from dragonfly2_torch.scheduler.fleet import WrongShardError
+from dragonfly2_torch.scheduler.networktopology import NetworkTopology, Probe
+from dragonfly2_torch.scheduler.scheduling import (
+    NeedBackToSourceResponse,
+    NormalTaskResponse,
+    Scheduling,
+    SchedulingError,
+)
+from dragonfly2_torch.scheduler.storage import Storage, build_download_record
+from dragonfly2_torch.scheduler import metrics as M
+from dragonfly2_torch.scheduler import swarm
+from dragonfly2_torch.utils import dflog
+from dragonfly2_torch.utils.idgen import URLMeta, task_id_v1
+
+logger = dflog.get("scheduler.rpc")
+
+from dragonfly2_torch.rpc.glue import SCHEDULER_SERVICE as SERVICE_NAME
+
+
+class _StreamAdapter:
+    """Bridges scheduling decisions onto the gRPC response stream: the
+    algorithm pushes dataclasses; this translates them to protos and
+    queues them for the stream generator."""
+
+    def __init__(self):
+        self.out: "queue.Queue[scheduler_pb2.AnnouncePeerResponse | None]" = queue.Queue()
+
+    def send(self, decision) -> None:
+        if isinstance(decision, NormalTaskResponse):
+            resp = scheduler_pb2.AnnouncePeerResponse(
+                normal_task=scheduler_pb2.NormalTaskResponse(
+                    candidate_parents=[_candidate_parent(p) for p in decision.candidate_parents]
+                )
+            )
+        elif isinstance(decision, NeedBackToSourceResponse):
+            resp = scheduler_pb2.AnnouncePeerResponse(
+                need_back_to_source=scheduler_pb2.NeedBackToSourceResponse(
+                    description=decision.description
+                )
+            )
+        else:
+            resp = decision  # already a proto (empty/tiny/small task)
+        self.out.put(resp)
+
+    def close(self) -> None:
+        self.out.put(None)
+
+
+def _candidate_parent(p: res.Peer) -> scheduler_pb2.CandidateParent:
+    return scheduler_pb2.CandidateParent(
+        peer_id=p.id,
+        host=_host_info(p.host),
+        finished_pieces=sorted(p.finished_pieces),
+        task_content_length=p.task.content_length,
+        task_total_piece_count=p.task.total_piece_count,
+        task_piece_length=p.task.piece_length,
+    )
+
+
+def _host_info(h: res.Host) -> common_pb2.HostInfo:
+    return common_pb2.HostInfo(
+        id=h.id,
+        type=h.type.value,
+        hostname=h.hostname,
+        ip=h.ip,
+        port=h.port,
+        download_port=h.download_port,
+        os=h.os,
+        concurrent_upload_limit=h.concurrent_upload_limit,
+        network=common_pb2.NetworkStat(
+            tcp_connection_count=h.network.tcp_connection_count,
+            upload_tcp_connection_count=h.network.upload_tcp_connection_count,
+            location=h.network.location,
+            idc=h.network.idc,
+        ),
+        cpu=common_pb2.CpuStat(percent=h.cpu.percent),
+        memory=common_pb2.MemoryStat(used_percent=h.memory.used_percent),
+        disk=common_pb2.DiskStat(used_percent=h.disk.used_percent),
+        scheduler_cluster_id=h.scheduler_cluster_id,
+    )
+
+
+def _host_from_info(info: common_pb2.HostInfo) -> res.Host:
+    h = res.Host(
+        id=info.id,
+        type=res.HostType(info.type) if info.type else res.HostType.NORMAL,
+        hostname=info.hostname,
+        ip=info.ip,
+        port=info.port,
+        download_port=info.download_port,
+        os=info.os,
+        concurrent_upload_limit=info.concurrent_upload_limit
+        or res.DEFAULT_CONCURRENT_UPLOAD_LIMIT,
+        scheduler_cluster_id=info.scheduler_cluster_id,
+    )
+    h.cpu.logical_count = info.cpu.logical_count
+    h.cpu.physical_count = info.cpu.physical_count
+    h.cpu.percent = info.cpu.percent
+    h.cpu.process_percent = info.cpu.process_percent
+    h.memory.total = info.memory.total
+    h.memory.available = info.memory.available
+    h.memory.used = info.memory.used
+    h.memory.used_percent = info.memory.used_percent
+    h.memory.process_used_percent = info.memory.process_used_percent
+    h.memory.free = info.memory.free
+    h.disk.total = info.disk.total
+    h.disk.free = info.disk.free
+    h.disk.used = info.disk.used
+    h.disk.used_percent = info.disk.used_percent
+    h.disk.inodes_total = info.disk.inodes_total
+    h.disk.inodes_used = info.disk.inodes_used
+    h.disk.inodes_used_percent = info.disk.inodes_used_percent
+    h.network.tcp_connection_count = info.network.tcp_connection_count
+    h.network.upload_tcp_connection_count = info.network.upload_tcp_connection_count
+    h.network.location = info.network.location
+    h.network.idc = info.network.idc
+    return h
+
+
+def url_meta_of(msg) -> URLMeta:
+    """UrlMeta wire message → domain URLMeta (one definition for every
+    RPC that carries one — v1 and v2 both)."""
+    return URLMeta(
+        digest=msg.digest,
+        tag=msg.tag,
+        range=msg.range,
+        filter=msg.filter,
+        application=msg.application,
+    )
+
+
+def load_or_create_task(
+    resource: res.Resource,
+    url: str,
+    meta: URLMeta,
+    task_id: str,
+    wire_task_type: int,
+) -> tuple[res.Task, bool]:
+    """Shared task resolution for both wire generations: load by id or
+    create with meta-derived attributes (reference storeTask,
+    service_v1.go:919-1004 / service_v2.go handleRegisterPeerRequest).
+    Returns (task, created) so callers learn freshness from the single
+    lookup instead of re-probing (TOCTOU-free)."""
+    task = resource.task_manager.load(task_id)
+    if task is not None:
+        return task, False
+    task_type = {
+        common_pb2.TASK_TYPE_DFSTORE: res.TaskType.DFSTORE,
+        common_pb2.TASK_TYPE_DFCACHE: res.TaskType.DFCACHE,
+    }.get(wire_task_type, res.TaskType.STANDARD)
+    task = res.Task(
+        task_id,
+        url=url,
+        task_type=task_type,
+        digest=meta.digest,
+        tag=meta.tag,
+        application=meta.application,
+        filters=[f for f in meta.filter.split("&") if f] if meta.filter else [],
+        url_range=meta.range,
+    )
+    resource.task_manager.store(task)
+    return task, True
+
+
+def write_download_record(
+    storage: Storage | None, peer: res.Peer, error_code: str = "", error_message: str = ""
+) -> None:
+    """Shared Download-record sink for both wire generations (reference
+    createDownloadRecord, service_v1.go:1418-1632)."""
+    if storage is None:
+        return
+    try:
+        M.DOWNLOAD_RECORD_TOTAL.inc()
+        storage.create_download(build_download_record(peer, error_code, error_message))
+    except Exception:
+        logger.exception("write download record failed for %s", peer.id)
+
+
+class SchedulerService:
+    def __init__(
+        self,
+        resource: res.Resource,
+        scheduling: Scheduling,
+        storage: Storage | None = None,
+        networktopology: NetworkTopology | None = None,
+        fleet=None,  # scheduler.fleet.FleetMembership; None = no sharding
+        replication=None,  # scheduler.swarm_replication.SwarmReplicator
+    ):
+        self.resource = resource
+        self.scheduling = scheduling
+        self.storage = storage
+        self.networktopology = networktopology
+        self.fleet = fleet
+        self.replication = replication
+
+    # ------------------------------------------------------------------
+    # AnnouncePeer bidi stream
+    # ------------------------------------------------------------------
+    def AnnouncePeer(self, request_iterator, context):
+        from dragonfly2_torch.utils import tracing
+
+        adapter = _StreamAdapter()
+        state: dict = {"peer": None}
+        # the rpc.AnnouncePeer span is current on the handler thread;
+        # hand it to the pump thread so scheduling spans (fired from
+        # request handling) stay in the caller's trace
+        rpc_span = tracing.current_span()
+
+        def pump():
+            try:
+                with tracing.use_span(rpc_span):
+                    for req in request_iterator:
+                        self._handle_announce(req, adapter, state)
+            except WrongShardError as e:
+                # typed refusal: surfaced to the handler thread, which
+                # aborts the stream with FAILED_PRECONDITION so the
+                # daemon's retry loop can parse the owner hint
+                adapter.out.put(e)
+            except grpc.RpcError:
+                pass  # client hung up — normal stream teardown
+            except Exception:
+                M.ANNOUNCE_PEER_FAILURE_TOTAL.inc()
+                logger.exception("announce stream failed")
+            finally:
+                peer = state.get("peer")
+                if peer is not None:
+                    peer.delete_stream()
+                adapter.close()
+
+        # <service>.<role>: dfprof/flight/Diagnose attribute by role
+        t = threading.Thread(target=pump, name="scheduler.announce-pump", daemon=True)
+        t.start()
+        while True:
+            resp = adapter.out.get()
+            if resp is None:
+                return
+            if isinstance(resp, WrongShardError):
+                context.abort(grpc.StatusCode.FAILED_PRECONDITION, str(resp))
+            yield resp
+
+    def _handle_announce(self, req, adapter: _StreamAdapter, state: dict) -> None:
+        which = req.WhichOneof("request")
+        M.ANNOUNCE_PEER_TOTAL.labels(which or "unknown").inc()
+        if which == "register_peer":
+            state["peer"] = self._register_peer(req, adapter)
+            return
+        peer = state.get("peer") or self.resource.peer_manager.load(req.peer_id)
+        if peer is None:
+            logger.warning("event %s for unknown peer %s", which, req.peer_id)
+            return
+        state["peer"] = peer
+
+        if which == "download_peer_started":
+            M.DOWNLOAD_PEER_STARTED_TOTAL.inc()
+            if peer.fsm.can(res.PEER_EVENT_DOWNLOAD):
+                peer.fsm.event(res.PEER_EVENT_DOWNLOAD)
+            if peer.task.fsm.can(res.TASK_EVENT_DOWNLOAD):
+                peer.task.fsm.event(res.TASK_EVENT_DOWNLOAD)
+        elif which == "download_peer_back_to_source_started":
+            M.DOWNLOAD_PEER_BACK_TO_SOURCE_STARTED_TOTAL.inc()
+            if peer.fsm.can(res.PEER_EVENT_DOWNLOAD_BACK_TO_SOURCE):
+                peer.fsm.event(res.PEER_EVENT_DOWNLOAD_BACK_TO_SOURCE)
+                peer.task.back_to_source_peers.add(peer.id)
+            if peer.task.fsm.can(res.TASK_EVENT_DOWNLOAD):
+                peer.task.fsm.event(res.TASK_EVENT_DOWNLOAD)
+        elif which == "reschedule":
+            for pid in req.reschedule.blocked_parent_ids:
+                peer.block_parents.add(pid)
+            self._schedule(peer, adapter)
+        elif which == "download_piece_finished":
+            piece = req.download_piece_finished.piece
+            M.DOWNLOAD_PIECE_FINISHED_TOTAL.labels(piece.traffic_type or "unknown").inc()
+            M.TRAFFIC_BYTES_TOTAL.labels(piece.traffic_type or "unknown").inc(piece.length)
+            M.HOST_TRAFFIC_BYTES_TOTAL.labels(
+                piece.traffic_type or "unknown", peer.host.id, peer.host.ip
+            ).inc(piece.length)
+            self._piece_finished(peer, piece)
+        elif which == "download_piece_failed":
+            M.DOWNLOAD_PIECE_FAILURE_TOTAL.inc()
+            parent_id = req.download_piece_failed.parent_id
+            if parent_id:
+                peer.block_parents.add(parent_id)
+                parent = self.resource.peer_manager.load(parent_id)
+                if parent is not None:
+                    parent.host.record_upload(success=False)
+        elif which == "download_peer_finished":
+            M.DOWNLOAD_PEER_FINISHED_TOTAL.inc()
+            fin = req.download_peer_finished
+            peer.cost_ns = fin.cost_ns
+            if fin.cost_ns > 0:
+                M.DOWNLOAD_PEER_DURATION_MS.observe(fin.cost_ns / 1e6)
+            if peer.fsm.can(res.PEER_EVENT_DOWNLOAD_SUCCEEDED):
+                peer.fsm.event(res.PEER_EVENT_DOWNLOAD_SUCCEEDED)
+            # a finished download always knows its true size — 0 is a
+            # legitimate value (empty file), not "unset": truthiness
+            # checks here would leave empty tasks at length -1 forever
+            if peer.task.content_length < 0:
+                peer.task.content_length = fin.content_length
+            if peer.task.total_piece_count < 0:
+                peer.task.total_piece_count = fin.piece_count
+            # the observatory's last on_piece predates this learn — a
+            # back-to-source task would read coverage 0 forever without it
+            swarm.on_total(peer.task.id, peer.task.total_piece_count)
+            if peer.task.fsm.can(res.TASK_EVENT_DOWNLOAD_SUCCEEDED):
+                peer.task.fsm.event(res.TASK_EVENT_DOWNLOAD_SUCCEEDED)
+            self._write_download_record(peer)
+        elif which == "download_peer_failed":
+            M.DOWNLOAD_PEER_FAILURE_TOTAL.inc()
+            if peer.fsm.can(res.PEER_EVENT_DOWNLOAD_FAILED):
+                peer.fsm.event(res.PEER_EVENT_DOWNLOAD_FAILED)
+            if peer.task.fsm.can(res.TASK_EVENT_DOWNLOAD_FAILED):
+                peer.task.fsm.event(res.TASK_EVENT_DOWNLOAD_FAILED)
+            self._write_download_record(
+                peer, error_code="download_failed",
+                error_message=req.download_peer_failed.description,
+            )
+
+    def _register_peer(self, req, adapter: _StreamAdapter) -> res.Peer | None:
+        reg = req.register_peer
+        meta = url_meta_of(reg.url_meta)
+        task_id = reg.task_id or task_id_v1(reg.url, meta)
+        if self.fleet is not None:
+            # shard ownership gate, BEFORE any state mutates: a task
+            # owned by another live member is refused with the typed
+            # WRONG_SHARD status (raises through the pump); tasks this
+            # member already serves drain behind the rebalance grace
+            existing = self.resource.task_manager.load(task_id)
+            try:
+                self.fleet.check_owner(
+                    task_id,
+                    task_in_flight=existing is not None and existing.peer_count() > 0,
+                )
+            except WrongShardError as e:
+                # hand the swarm over with the refusal: the replica
+                # (handoff-marked) reaches the KV before the daemon's
+                # re-pick reaches the new owner
+                if existing is not None and self.replication is not None:
+                    self.replication.migrate(task_id, e.owner)
+                raise
+            if existing is None and self.replication is not None:
+                # first sighting of a task this shard owns: a dead
+                # member's replica may be waiting — adopt it so the
+                # registering peer is recognized instead of rebuilt
+                self.replication.adopt_task(task_id)
+        host = self.resource.host_manager.load(req.host_id)
+        if host is None:
+            logger.warning("register from unannounced host %s", req.host_id)
+            host = res.Host(id=req.host_id)
+            self.resource.host_manager.store(host)
+
+        task, _ = load_or_create_task(self.resource, reg.url, meta, task_id, reg.task_type)
+
+        peer = res.Peer(
+            reg.peer_id, task, host, tag=meta.tag, application=meta.application
+        )
+        peer, existed = self.resource.peer_manager.load_or_store(peer)
+        peer.store_stream(adapter)
+        peer.need_back_to_source = reg.need_back_to_source
+
+        if existed and not peer.fsm.is_state(res.PEER_STATE_PENDING):
+            # reconnect with the same peer_id: don't re-fire register
+            # events (illegal transition); re-dispatch by current state
+            if peer.fsm.is_state(res.PEER_STATE_RECEIVED_NORMAL, res.PEER_STATE_RUNNING):
+                self._schedule(peer, adapter)
+            return peer
+
+        # size-scope dispatch (upstream service_v2.go:820-920 /
+        # service_v1.go:1005-1110)
+        scope = task.size_scope()
+        M.REGISTER_PEER_TOTAL.labels(scope).inc()
+        if scope is res.SizeScope.EMPTY:
+            peer.fsm.event(res.PEER_EVENT_REGISTER_EMPTY)
+            adapter.send(
+                scheduler_pb2.AnnouncePeerResponse(
+                    empty_task=scheduler_pb2.EmptyTaskResponse()
+                )
+            )
+        elif scope is res.SizeScope.TINY and task.can_reuse_direct_piece():
+            peer.fsm.event(res.PEER_EVENT_REGISTER_TINY)
+            adapter.send(
+                scheduler_pb2.AnnouncePeerResponse(
+                    tiny_task=scheduler_pb2.TinyTaskResponse(content=task.direct_piece)
+                )
+            )
+        else:
+            peer.fsm.event(res.PEER_EVENT_REGISTER_NORMAL)
+            self._schedule(peer, adapter)
+        return peer
+
+    def _schedule(self, peer: res.Peer, adapter: _StreamAdapter) -> None:
+        try:
+            self.scheduling.schedule_candidate_parents(peer, set(peer.block_parents))
+        except SchedulingError as e:
+            logger.warning("scheduling peer %s failed: %s", peer.id, e)
+
+    def _piece_finished(self, peer: res.Peer, piece: common_pb2.PieceInfo) -> None:
+        # adopt task geometry from the first reported piece, so candidate
+        # parents can advertise it to children (reference task metadata
+        # updates in AnnouncePeer piece handling, service_v2.go:1102)
+        if piece.number == 0 and piece.length:
+            peer.task.piece_length = piece.length
+        cost_ms = piece.cost_ns / 1e6
+        peer.finish_piece(
+            piece.number,
+            cost_ms=cost_ms,
+            piece=res.Piece(
+                number=piece.number,
+                parent_id=piece.parent_id,
+                offset=piece.offset,
+                length=piece.length,
+                digest=piece.digest,
+                traffic_type=piece.traffic_type,
+                cost_ms=cost_ms,
+                created_at=piece.created_at_ns / 1e9 if piece.created_at_ns else time.time(),
+            ),
+        )
+        if piece.parent_id:
+            parent = self.resource.peer_manager.load(piece.parent_id)
+            if parent is not None:
+                parent.host.record_upload(success=True)
+
+    def _write_download_record(self, peer: res.Peer, error_code: str = "", error_message: str = "") -> None:
+        write_download_record(self.storage, peer, error_code, error_message)
+
+    # ------------------------------------------------------------------
+    # unary RPCs
+    # ------------------------------------------------------------------
+    def StatPeer(self, request, context):
+        M.STAT_PEER_TOTAL.inc()
+        peer = self.resource.peer_manager.load(request.peer_id)
+        if peer is None:
+            M.STAT_PEER_FAILURE_TOTAL.inc()
+            context.abort(grpc.StatusCode.NOT_FOUND, f"peer {request.peer_id} not found")
+        return scheduler_pb2.PeerStat(
+            id=peer.id,
+            state=peer.fsm.current,
+            finished_piece_count=peer.finished_piece_count(),
+            cost_ns=peer.cost_ns,
+        )
+
+    def LeavePeer(self, request, context):
+        M.LEAVE_PEER_TOTAL.inc()
+        peer = self.resource.peer_manager.load(request.peer_id)
+        if peer is None:
+            # tolerated (idempotent leave) but COUNTED — the reference
+            # errors here, so the failure series is where operators see it
+            M.LEAVE_PEER_FAILURE_TOTAL.inc()
+        if peer is not None:
+            if peer.fsm.can(res.PEER_EVENT_LEAVE):
+                peer.fsm.event(res.PEER_EVENT_LEAVE)
+            peer.task.delete_peer_in_edges(peer.id)
+            peer.task.delete_peer_out_edges(peer.id)
+        return scheduler_pb2.Empty()
+
+    def StatTask(self, request, context):
+        M.STAT_TASK_TOTAL.inc()
+        task = self.resource.task_manager.load(request.task_id)
+        if task is None:
+            M.STAT_TASK_FAILURE_TOTAL.inc()
+            context.abort(grpc.StatusCode.NOT_FOUND, f"task {request.task_id} not found")
+        return scheduler_pb2.TaskStat(
+            id=task.id,
+            state=task.fsm.current,
+            content_length=task.content_length,
+            total_piece_count=task.total_piece_count,
+            peer_count=task.peer_count(),
+            has_available_peer=task.has_available_peer(),
+        )
+
+    def AnnounceHost(self, request, context):
+        M.HOST_TOTAL.inc()
+        try:
+            return self._announce_host(request)
+        except Exception:
+            M.ANNOUNCE_HOST_FAILURE_TOTAL.inc()
+            raise
+
+    def _announce_host(self, request):
+        host = _host_from_info(request.host)
+        existing = self.resource.host_manager.load(host.id)
+        if existing is None:
+            self.resource.host_manager.store(host)
+        else:
+            # refresh stats in place, keep identity + peer ownership
+            existing.cpu = host.cpu
+            existing.memory = host.memory
+            existing.network = host.network
+            existing.disk = host.disk
+            existing.concurrent_upload_limit = host.concurrent_upload_limit
+            existing.touch()
+        return scheduler_pb2.Empty()
+
+    def AnnounceTask(self, request, context):
+        """Register an already-completed local task: the announcing peer
+        lands in Succeeded with all pieces finished, so the scheduler can
+        hand it out as a candidate parent (upstream
+        scheduler/service/service_v1.go AnnounceTask — dfcache import and
+        the object gateway's seed-on-write path)."""
+        host = self.resource.host_manager.load(request.host_id)
+        if host is None and request.HasField("host") and request.host.id:
+            # the request carries full host addressing (reference
+            # service_v1.go:349 ships PeerHost and registers it via
+            # storeHost) — a restarted scheduler re-learns the host here
+            # instead of rejecting the announce
+            host = _host_from_info(request.host)
+            self.resource.host_manager.store(host)
+        if host is None:
+            # no addressing at all: registering would hand children a
+            # permanently unreachable parent
+            context.abort(
+                grpc.StatusCode.NOT_FOUND,
+                f"host {request.host_id} has not announced and carried no addressing",
+            )
+
+        meta = url_meta_of(request.url_meta)
+        task_id = request.task_id or task_id_v1(request.url, meta)
+        task, fresh = load_or_create_task(
+            self.resource, request.url, meta, task_id, request.task_type
+        )
+        # a fresh task adopts the announced grid outright —
+        # Task.piece_length defaults to a truthy 4 MiB, so a
+        # "not set" check can never fire here
+        if fresh and request.piece_length:
+            task.piece_length = request.piece_length
+        if request.content_length >= 0 and task.content_length < 0:
+            task.content_length = request.content_length
+        if request.pieces and task.total_piece_count < 0:
+            task.total_piece_count = len(request.pieces)
+            swarm.on_total(task.id, task.total_piece_count)
+
+        peer = res.Peer(request.peer_id, task, host, tag=meta.tag, application=meta.application)
+        peer, _ = self.resource.peer_manager.load_or_store(peer)
+        if peer.fsm.is_state(res.PEER_STATE_PENDING):
+            peer.fsm.event(res.PEER_EVENT_REGISTER_NORMAL)
+        if peer.fsm.can(res.PEER_EVENT_DOWNLOAD):
+            peer.fsm.event(res.PEER_EVENT_DOWNLOAD)
+        for piece in request.pieces:
+            self._piece_finished(peer, piece)
+        if peer.fsm.can(res.PEER_EVENT_DOWNLOAD_SUCCEEDED):
+            peer.fsm.event(res.PEER_EVENT_DOWNLOAD_SUCCEEDED)
+        if task.fsm.can(res.TASK_EVENT_DOWNLOAD):
+            task.fsm.event(res.TASK_EVENT_DOWNLOAD)
+        if task.fsm.can(res.TASK_EVENT_DOWNLOAD_SUCCEEDED):
+            task.fsm.event(res.TASK_EVENT_DOWNLOAD_SUCCEEDED)
+        return scheduler_pb2.Empty()
+
+    def LeaveHost(self, request, context):
+        M.LEAVE_HOST_TOTAL.inc()
+        host = self.resource.host_manager.load(request.host_id)
+        if host is None:
+            M.LEAVE_HOST_FAILURE_TOTAL.inc()  # see LeavePeer note
+        if host is not None:
+            host.leave_peers()
+            self.resource.host_manager.delete(request.host_id)
+        if self.networktopology is not None:
+            self.networktopology.delete_host(request.host_id)
+        return scheduler_pb2.Empty()
+
+    # ------------------------------------------------------------------
+    # SyncProbes bidi stream (upstream service_v1.go:688-778)
+    # ------------------------------------------------------------------
+    def SyncProbes(self, request_iterator, context):
+        try:
+            yield from self._sync_probes(request_iterator)
+        except Exception:
+            M.SYNC_PROBES_FAILURE_TOTAL.inc()
+            raise
+
+    def _sync_probes(self, request_iterator):
+        for req in request_iterator:
+            which = req.WhichOneof("request")
+            src_id = req.host.id
+            M.SYNC_PROBES_TOTAL.labels(which or "unknown").inc()
+            if which == "probe_started":
+                if self.networktopology is None:
+                    return
+                hosts = self.networktopology.find_probed_hosts(src_id)
+                yield scheduler_pb2.SyncProbesResponse(
+                    hosts=[scheduler_pb2.ProbeHost(host=_host_info(h)) for h in hosts]
+                )
+            elif which == "probe_finished" and self.networktopology is not None:
+                for probe in req.probe_finished.probes:
+                    self.networktopology.enqueue_probe(
+                        src_id,
+                        Probe(
+                            probe.host_id,
+                            rtt_ns=probe.rtt_ns,
+                            created_at=probe.created_at_ns / 1e9
+                            if probe.created_at_ns
+                            else time.time(),
+                        ),
+                    )
+            # probe_failed: nothing to record

@@ -35,7 +35,7 @@ class AdjacencyStore:
         self.index: dict[str, int] = {}
         self.ids: list[str] = []
         # (src_idx, dst_idx) -> [avg_rtt_ns, updated_at_s]
-        self.edges: dict[tuple[int, int], list[float]] = {}
+        self.edges: dict[tuple[int, int], tuple[float, float]] = {}
 
     # -- interning --------------------------------------------------------
     def intern(self, host_id: str) -> int:
@@ -57,14 +57,17 @@ class AdjacencyStore:
     # -- mutation ---------------------------------------------------------
     def apply_probe(self, src: str, dest: str, rtt_ns: float, at: float) -> None:
         s, d = self.intern(src), self.intern(dest)
+        # an edge is an (avg rtt ns, updated at) tuple, replaced on every
+        # fold: a tuple of floats is untracked by the cyclic collector, so
+        # the probe graph's edges add nothing to a full collection's walk
         e = self.edges.get((s, d))
         if e is None or e[0] <= 0:
-            self.edges[(s, d)] = [float(rtt_ns), at]
+            self.edges[(s, d)] = (float(rtt_ns), at)
         else:
-            e[0] = float(
-                int(EWMA_OLD_WEIGHT * e[0] + (1 - EWMA_OLD_WEIGHT) * rtt_ns)
+            self.edges[(s, d)] = (
+                float(int(EWMA_OLD_WEIGHT * e[0] + (1 - EWMA_OLD_WEIGHT) * rtt_ns)),
+                max(e[1], at),
             )
-            e[1] = max(e[1], at)
 
     def adopt_edge(
         self, src: str, dest: str, avg_rtt_ns: float, updated_at: float
@@ -75,7 +78,7 @@ class AdjacencyStore:
         e = self.edges.get((s, d))
         if e is not None and e[1] >= updated_at:
             return False
-        self.edges[(s, d)] = [float(avg_rtt_ns), updated_at]
+        self.edges[(s, d)] = (float(avg_rtt_ns), updated_at)
         return True
 
     def purge_host(self, host_id: str) -> bool:

@@ -1,0 +1,174 @@
+"""Trainer server assembly (counterpart of the reference's
+``trainer/server.py``; upstream Dragonfly2's trainer/trainer.go): manager
+client + storage + training core + gRPC server, Serve/Stop lifecycle.
+
+The fits run on ``device`` (``"cuda"`` by default; a machine without a
+card raises unless ``"cpu"`` is asked for). Left out of the port, each
+raising ``NotImplementedError`` when a config asks for it: the telemetry
+reporter (``telemetry_interval > 0`` with a manager — the reference's
+default is 15 s, so set it to 0), the metrics exposition endpoint
+(``metrics_port >= 0``) and fit snapshots (``checkpoint_dir``, raised by
+``Training``) (ROADMAP queue A).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+
+from dragonfly2_torch.cli.config import check_ported
+from dragonfly2_torch.rpc import glue
+from dragonfly2_torch.rpc.glue import TRAINER_SERVICE as SERVICE_NAME
+from dragonfly2_torch.trainer.service import TrainerService
+from dragonfly2_torch.trainer.storage import TrainerStorage
+from dragonfly2_torch.trainer.train import FitConfig, GNNFitConfig
+from dragonfly2_torch.trainer.training import Training, TrainingConfig
+from dragonfly2_torch.utils import dflog, flight, profiling
+
+logger = dflog.get("trainer.server")
+
+
+@dataclass
+class TrainerServerConfig:
+    data_dir: str = "/tmp/dragonfly2-trainer"
+    # where the fits run: "cuda" (the card) or "cpu" when the caller asks
+    device: str = "cuda"
+    listen: str = "127.0.0.1:0"
+    manager_address: str = ""
+    # fit knobs (subset; full control through TrainingConfig in-process)
+    mlp_epochs: int = 3
+    mlp_batch_size: int = 8192
+    gnn_epochs: int = 60
+    min_download_records: int = 1
+    min_topology_records: int = 1
+    # third model family: GRU over per-(task,parent) piece-cost
+    # sequences extracted from the same download records. On by default,
+    # matching TrainingConfig.gru: the ml evaluator's model-based
+    # bad-node detection must train under production defaults.
+    gru: bool = True
+    gru_min_sequences: int = 8
+    incremental: bool = False
+    streaming: bool = True
+    streaming_workers: int = 1
+    # data-parallel fit over every card of the host when more than one is
+    # present (TrainingConfig.auto_mesh); on a one-card host the fit is
+    # single-device, and the multi-card mesh is not ported (raises)
+    auto_mesh: bool = True
+    # torch.profiler trace per round ("" = off)
+    profile_dir: str = ""
+    # per-(model, host) fit snapshots; not ported: non-empty raises
+    checkpoint_dir: str = ""
+    # run fits inline with the Train RPC (tests/debug) instead of async
+    synchronous: bool = False
+    # Prometheus /metrics endpoint: -1 = disabled (not ported: >= 0 raises)
+    metrics_port: int = -1
+    metrics_host: str = "127.0.0.1"
+    # cluster telemetry push cadence; <= 0 disables. The reporter is not
+    # ported: with a manager configured anything above 0 raises
+    telemetry_interval: float = 15.0
+    # gRPC TLS: PEM file paths; tls_client_ca_file enforces mTLS
+    tls_cert_file: str = ""
+    tls_key_file: str = ""
+    tls_client_ca_file: str = ""
+    # client-side root (and optional mTLS client pair) for the manager
+    manager_tls_ca_file: str = ""
+    manager_tls_server_name: str = ""
+    manager_tls_client_cert_file: str = ""
+    manager_tls_client_key_file: str = ""
+
+
+class TrainerServer:
+    def __init__(self, config: TrainerServerConfig):
+        self.cfg = config
+        check_ported(config)
+        Path(config.data_dir).mkdir(parents=True, exist_ok=True)
+        self.storage = TrainerStorage(config.data_dir)
+
+        self._manager_channel = None
+        manager_client = None
+        if config.manager_address:
+            self._manager_channel = glue.dial(
+                config.manager_address,
+                **glue.dial_tls_args(
+                    config.manager_tls_ca_file,
+                    config.manager_tls_server_name,
+                    config.manager_tls_client_cert_file,
+                    config.manager_tls_client_key_file,
+                ),
+            )
+            from dragonfly2_torch.manager.service import ManagerGrpcClientAdapter
+
+            manager_client = ManagerGrpcClientAdapter(self._manager_channel)
+
+        self.training = Training(
+            self.storage,
+            manager_client=manager_client,
+            config=TrainingConfig(
+                mlp=FitConfig(
+                    epochs=config.mlp_epochs, batch_size=config.mlp_batch_size
+                ),
+                gnn=GNNFitConfig(epochs=config.gnn_epochs),
+                min_download_records=config.min_download_records,
+                min_topology_records=config.min_topology_records,
+                gru=config.gru,
+                gru_min_sequences=config.gru_min_sequences,
+                incremental=config.incremental,
+                clear_after_train=not config.incremental,
+                streaming=config.streaming,
+                streaming_workers=config.streaming_workers,
+                auto_mesh=config.auto_mesh,
+                profile_dir=config.profile_dir,
+                checkpoint_dir=config.checkpoint_dir,
+            ),
+            device=config.device,
+        )
+        self.service = TrainerService(
+            self.storage, self.training, synchronous=config.synchronous
+        )
+        self._grpc = None
+
+    def serve(self) -> str:
+        # flight recorder: stall/crash dumps + the Diagnose snapshot RPC
+        flight.install("trainer")
+        # continuous profiler: always-on sampler + phase ledger
+        # (/debug/prof, Diagnose profile section, dump windows)
+        profiling.install("trainer")
+        flight.register_probe(
+            "trainer.storage",
+            lambda: {"host_ids": self.storage.host_ids()},
+        )
+        from dragonfly2_torch.rpc.diagnose import DiagnoseService
+
+        self._grpc, port = glue.serve(
+            {SERVICE_NAME: self.service, glue.DIAGNOSE_SERVICE: DiagnoseService()},
+            self.cfg.listen,
+            **glue.serve_tls_args(
+                self.cfg.tls_cert_file, self.cfg.tls_key_file, self.cfg.tls_client_ca_file
+            ),
+        )
+        addr = f"{self.cfg.listen.rsplit(':', 1)[0]}:{port}"
+        from dragonfly2_torch.utils.metrics import set_build_info
+
+        set_build_info("trainer")
+        logger.info("trainer gRPC on %s", addr)
+        return addr
+
+    def stop(self) -> None:
+        if self._grpc is not None:
+            self._grpc.stop(grace=2).wait(5)
+        if self._manager_channel is not None:
+            self._manager_channel.close()
+        # the reference clears trainer storage on shutdown
+        # (upstream trainer/trainer.go:156-161) unless running incremental
+        # rounds
+        if not self.cfg.incremental:
+            self.storage.clear()
+
+
+def build(config_path, overrides):
+    from dragonfly2_torch.cli.config import load_config
+
+    cfg = load_config(
+        TrainerServerConfig, config_path, env_prefix="DF_TRAINER", overrides=overrides
+    )
+    return TrainerServer(cfg)

@@ -1,9 +1,11 @@
-"""Structured logging (counterpart of the reference's ``utils/dflog.py``).
+"""Structured logging (reference parity: internal/dflog).
 
-Per-subsystem loggers under ``dragonfly2_torch.<subsystem>``, with a
-key=value formatter so log lines stay grep-able without external deps.
-Every record carries the active span's ``trace_id``/``span_id``, appended
-only when a sampled span is current.
+Per-subsystem loggers with host/peer context helpers. Uses stdlib logging
+with a key=value formatter so log lines stay grep-able without external
+deps. Every record carries the active span's ``trace_id``/``span_id``
+(logs↔traces correlation: grep a trace id from dftrace/dfdoctor straight
+into the service logs) — appended as key=value only when a sampled span
+is actually current, so span-less lines stay clean.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ _FORMAT = "%(asctime)s\t%(levelname)s\t%(name)s\t%(message)s%(trace_ctx)s"
 
 class _TraceContextFilter(logging.Filter):
     """Stamp the active span's identity onto every record the handler
-    emits (an empty suffix without a sampled current span)."""
+    emits. Attributes are always set (the formatter needs them), but the
+    rendered suffix is empty without a sampled current span."""
 
     def filter(self, record: logging.LogRecord) -> bool:
         span = tracing.current_span()
@@ -51,5 +54,20 @@ def configure(level: int = logging.INFO, stream=None) -> None:
 
 
 def get(subsystem: str) -> logging.LoggerAdapter:
-    """Subsystem logger: scheduler.evaluator, scheduler.serving, …"""
+    """Subsystem logger: core, grpc, gc, storage, job, trainer…"""
     return logging.LoggerAdapter(logging.getLogger(f"dragonfly2_torch.{subsystem}"), {})
+
+
+class _Ctx(logging.LoggerAdapter):
+    """key=value context adapter — defined once at module level, not per
+    with_context call (the old per-call class build allocated a fresh
+    type object on every invocation)."""
+
+    def process(self, msg, kwargs):
+        prefix = " ".join(f"{k}={v}" for k, v in self.extra.items())
+        return (f"{prefix} {msg}" if prefix else msg), kwargs
+
+
+def with_context(subsystem: str, **ctx: str) -> logging.LoggerAdapter:
+    """Logger carrying key=value context (WithPeer / WithHostnameAndIP)."""
+    return _Ctx(logging.getLogger(f"dragonfly2_torch.{subsystem}"), ctx)

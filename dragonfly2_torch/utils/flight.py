@@ -1,7 +1,8 @@
 """Black-box flight recorder: always-on bounded event rings per category,
 dumped as jsonl to ``DF_DIAG_DIR`` on demand — counterpart of the
-reference's ``utils/flight.py``, with its stall watchdog. The crash
-hooks come with the server slice.
+reference's ``utils/flight.py``: the stall watchdog, the crash hooks
+(``install``: SIGTERM and fatal exceptions dump the rings) and the runtime
+state the Diagnose RPC serves (thread stacks, registered probes).
 
 Typed emitters are declared once per module with ``event_type``; the
 name is ``<service>.<what>`` and its service segment names the ring, so
@@ -18,9 +19,12 @@ from __future__ import annotations
 import collections
 import json
 import os
+import signal
 import statistics
+import sys
 import threading
 import time
+import traceback
 
 from dragonfly2_torch.utils import tracing
 from dragonfly2_torch.utils.metrics import default_registry as _r
@@ -36,6 +40,16 @@ DROPPED_TOTAL = _r.counter(
 DUMPS_TOTAL = _r.counter("flight_dumps_total", "Flight-recorder dumps written", ("reason",))
 
 _DEFAULT_RING = 512
+
+_dump_augments: list = []
+
+
+def register_dump_augment(fn) -> None:
+    """Attach extra state to every future dump's meta line. ``fn`` is a
+    zero-arg callable returning a dict (merged into meta) — failures are
+    swallowed at dump time, never fatal mid-crash."""
+    if fn not in _dump_augments:
+        _dump_augments.append(fn)
 
 
 def _env_ring_size() -> int:
@@ -104,9 +118,12 @@ class FlightRecorder:
         # one mutable [count] box per category, shared with its EventTypes
         self._dropboxes: dict[str, list[int]] = {}
         self._dropped_synced: dict[str, int] = {}
-        self._create_lock = threading.Lock()  # ring creation only
+        self._create_lock = threading.Lock()  # ring/probe creation only
+        self._probes: dict[str, object] = {}
         self.service = ""
         self.dumps = 0
+        self._installed = False
+        self._prev_excepthook = None
 
     def event_type(self, name: str) -> EventType:
         return EventType(name, self)
@@ -123,6 +140,13 @@ class FlightRecorder:
                     category, collections.deque(maxlen=self.ring_size)
                 )
         return ring
+
+    def register_probe(self, name: str, fn) -> None:
+        """A zero-arg callable whose result rides every dump/Diagnose
+        snapshot as runtime state — queue depths, topology engine stats,
+        resource counts. Failures are captured, never raised."""
+        with self._create_lock:
+            self._probes[name] = fn
 
     def snapshot(self, categories: "list[str] | None" = None) -> dict:
         """{category: [event, ...]} — a point-in-time copy of the rings,
@@ -155,9 +179,38 @@ class FlightRecorder:
                 continue
         return []
 
+    def categories(self) -> list[str]:
+        return sorted(self._rings)
+
     def dropped(self, category: str) -> int:
         box = self._dropboxes.get(category)
         return box[0] if box else 0
+
+    def runtime_state(self, include_stacks: bool = True) -> dict:
+        """Live process state for Diagnose/dumps: thread inventory (and
+        stacks), per-category drop counts, registered probe results."""
+        state: dict = {
+            "pid": os.getpid(),
+            "thread_count": threading.active_count(),
+            "dropped": {c: box[0] for c, box in self._dropboxes.items()},
+        }
+        if include_stacks:
+            frames = sys._current_frames()
+            stacks = {}
+            for t in threading.enumerate():
+                fr = frames.get(t.ident)
+                if fr is not None:
+                    stacks[t.name] = "".join(traceback.format_stack(fr))
+            state["thread_stacks"] = stacks
+        probes = {}
+        for name, fn in list(self._probes.items()):
+            try:
+                probes[name] = fn()
+            except Exception as e:
+                probes[name] = {"error": str(e)}
+        if probes:
+            state["probes"] = probes
+        return state
 
     def dump(self, reason: str, diag_dir: "str | None" = None) -> "str | None":
         """Write every ring as jsonl under ``DF_DIAG_DIR`` (first line: dump
@@ -181,8 +234,13 @@ class FlightRecorder:
                 "dumped_at_ns": time.time_ns(),
                 "ring_size": self.ring_size,
                 "events": {c: len(e) for c, e in snap.items()},
-                "dropped": {c: box[0] for c, box in self._dropboxes.items()},
+                "runtime": self.runtime_state(),
             }
+            for fn in list(_dump_augments):
+                try:
+                    meta.update(fn() or {})
+                except Exception:
+                    continue
             with open(path, "w") as f:
                 f.write(json.dumps({"meta": meta}, default=str) + "\n")
                 for cat, events in snap.items():
@@ -194,6 +252,57 @@ class FlightRecorder:
         except Exception:
             # a failing dump must never turn into a crash
             return None
+
+    def install(self, service: str) -> None:
+        """Wire the crash dumps for this process: SIGTERM and uncaught
+        fatal exceptions each write a dump before the previous behavior
+        runs. Idempotent; a process hosting several services records
+        every name."""
+        if service:
+            if not self.service:
+                self.service = service
+            elif service not in self.service.split("+"):
+                self.service += f"+{service}"
+        if self._installed:
+            return
+        self._installed = True
+        try:
+            prev = signal.getsignal(signal.SIGTERM)
+
+            def _on_term(signum, frame):
+                try:
+                    self.dump("sigterm")
+                finally:
+                    if callable(prev) and prev not in (signal.SIG_IGN, signal.SIG_DFL):
+                        prev(signum, frame)
+                    elif prev is signal.SIG_IGN:
+                        pass  # SIGTERM was ignored before; keep ignoring
+                    else:
+                        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+                        os.kill(os.getpid(), signal.SIGTERM)
+
+            signal.signal(signal.SIGTERM, _on_term)
+        except ValueError:
+            pass  # not the main thread: signal hooks unavailable here
+        self._prev_excepthook = sys.excepthook
+
+        def _hook(exc_type, exc, tb):
+            try:
+                self.dump(f"fatal:{exc_type.__name__}")
+            finally:
+                (self._prev_excepthook or sys.__excepthook__)(exc_type, exc, tb)
+
+        sys.excepthook = _hook
+        prev_thread_hook = threading.excepthook
+
+        def _thread_hook(args):
+            try:
+                name = args.exc_type.__name__ if args.exc_type else "Unknown"
+                self.dump(f"fatal:{name}")
+            finally:
+                prev_thread_hook(args)
+
+        threading.excepthook = _thread_hook
 
 
 class StallWatchdog:
@@ -266,6 +375,14 @@ def event_type(name: str) -> EventType:
     """Declare a typed emitter on the process-wide recorder; the name must
     be ``<service>.<what>``."""
     return _recorder.event_type(name)
+
+
+def install(service: str) -> None:
+    _recorder.install(service)
+
+
+def register_probe(name: str, fn) -> None:
+    _recorder.register_probe(name, fn)
 
 
 def dump(reason: str, diag_dir: "str | None" = None) -> "str | None":

@@ -152,6 +152,23 @@ class Registry:
         self.namespace = namespace
         self._metrics: dict[str, _Metric] = {}
         self._lock = threading.Lock()
+        self._sync_hooks: list = []
+
+    def on_sync(self, fn) -> None:
+        """Register a zero-arg callable run before every registry read —
+        for series whose hot path must not touch a counter lock (the swarm
+        observatory's gauges): they refresh here, once per read."""
+        with self._lock:
+            self._sync_hooks.append(fn)
+
+    def sync(self) -> None:
+        """Run the sync hooks; reader-side, so a failing hook must not take
+        the read down with it."""
+        for fn in list(self._sync_hooks):
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — the read survives a bad hook
+                continue
 
     def _register(self, metric: _Metric) -> _Metric:
         with self._lock:
@@ -179,3 +196,21 @@ class Registry:
 
 # process-wide default registry: each module defines its series here
 default_registry = Registry()
+
+# cross-service identity series: every exporter carries one
+# dragonfly_build_info{service,version} = 1 sample, so dashboards can
+# join any series to the build that produced it. A process hosting
+# several services sets one sample per service name.
+BUILD_INFO = default_registry.gauge(
+    "build_info",
+    "Build identity of this exporter (value is always 1)",
+    ("service", "version"),
+)
+
+
+def set_build_info(service: str) -> None:
+    """Stamp the exporter identity sample; every server assembly calls
+    this on serve with its own service name."""
+    from dragonfly2_torch.version import __version__
+
+    BUILD_INFO.labels(service, __version__).set(1)

@@ -1,21 +1,84 @@
-"""Phase ledger: named wall-clock phases declared once per module
-(``PH = profiling.phase_type("scheduler.wave_pack")``) and accounted
-continuously — ``with PH: ...`` for timed blocks, ``PH.observe(dt)``
-where the caller already measured. Counterpart of the phase-ledger half
-of the reference's ``utils/profiling.py``; the sampling profiler comes
-with a later slice.
+"""dfprof: the always-on continuous profiling plane.
+
+Two instruments, both cheap enough to leave on in production:
+
+- **Sampling profiler**: a daemon thread walks ``sys._current_frames()``
+  at ``DF_PROF_HZ`` (default 20 Hz) and folds each thread's stack —
+  package frames only, interned sites — into a bounded per-thread-role
+  trie plus a bounded recent-sample ring. The trie answers "where has
+  this process spent its life"; the ring answers "what was hot in the
+  last N seconds" (the window flight-recorder dumps attach, so a wedged
+  fit names its hot frames in the postmortem). Node growth past
+  ``DF_PROF_NODES`` drop-counts instead of allocating, like a full
+  flight ring. bench.py's ``prof_overhead_pct`` keeps the whole sweep
+  under 2% of one core at the configured rate.
+
+- **Phase ledger**: named wall-clock phases declared once per module
+  (``PH = profiling.phase_type("trainer.buffer_wait")``) and accounted
+  continuously — ``with PH: ...`` for timed blocks, ``PH.observe(dt)``
+  where the caller already measured. The ledger generalizes the
+  trainer's per-fit StreamStats split into live, cross-service
+  counters: the same buffer_wait/decode_wait/h2d/step attribution,
+  scrapeable mid-fit via ``/metrics`` (``prof_phase_seconds``) and
+  ``GET /debug/prof``, next to the scheduler's evaluate/topology/store
+  legs and the daemon's parent-wait/read/write piece path.
+
+Exposure: ``GET /debug/prof?seconds=N`` on every MetricsServer
+(collapsed flamegraph text + the ledger as JSON), the ``Diagnose`` RPC
+(``profile`` section), flight-recorder dumps (``meta.profile`` window),
+telemetry pushes (top-K hot stacks + phase shares to the manager), and
+``tools/dfprof.py`` (top-N self-time, ``--diff``, ``--rpc`` live
+capture).
+
+Thread-role attribution folds numbered siblings together: a thread
+named ``trainer.ingest-decode-3`` profiles under the role
+``trainer.ingest-decode``. Long-lived threads are therefore named
+``<service>.<role>`` at creation (linted convention, like flight event
+types).
+
+Env: ``DF_PROF`` (``0`` disables the sampler entirely), ``DF_PROF_HZ``
+(sample rate, default 20), ``DF_PROF_NODES`` (trie node budget,
+default 8192), ``DF_PROF_RING`` (recent-sample entries, default
+16384), ``DF_PROF_DEPTH`` (max frames kept per stack, default 64),
+``DF_PROF_DUMP_WINDOW`` (seconds of samples attached to flight dumps,
+default 30).
 """
+
+# dfanalyze: hot — Phase.observe rides every schedule op / superbatch,
+# and the sampler sweep runs DF_PROF_HZ times a second forever
 
 from __future__ import annotations
 
 import bisect
+import collections
+import os
+import sys
 import threading
 import time
 
+from dragonfly2_torch.utils import dflog, flight
 from dragonfly2_torch.utils.metrics import default_registry as _r
 
-# synced lazily from the ledger at snapshot time, so the per-phase hot
-# path never takes a metric lock
+logger = dflog.get("profiling")
+
+PROF_SAMPLES_TOTAL = _r.counter(
+    "prof_samples_total", "Sampler sweeps over sys._current_frames()"
+)
+PROF_STACKS_DROPPED_TOTAL = _r.counter(
+    "prof_stacks_dropped_total",
+    "Samples truncated because the stack trie hit its node budget",
+)
+PROF_TRIE_NODES = _r.gauge(
+    "prof_trie_nodes", "Nodes resident in the sampler's stack tries"
+)
+PROF_SAMPLE_SECONDS = _r.histogram(
+    "prof_sample_seconds",
+    "Wall cost of one sampler sweep",
+    buckets=(1e-5, 5e-5, 1e-4, 5e-4, 1e-3, 5e-3, 0.05, float("inf")),
+)
+# phase-ledger exposure: synced lazily from the ledger at snapshot time
+# (every /debug/prof, Diagnose, dump, telemetry push) so the per-phase
+# hot path never takes a metric lock — the flight-ring gauge pattern
 PROF_PHASE_SECONDS_TOTAL = _r.counter(
     "prof_phase_seconds_total",
     "Cumulative wall seconds accounted per phase-ledger phase",
@@ -28,14 +91,319 @@ PROF_PHASE_ACTIVE = _r.gauge(
     "prof_phase_active", "Phase-ledger entries currently open", ("phase",)
 )
 
+# the prof.* flight namespace is reserved for this module (dfanalyze
+# metrics pass): sampler lifecycle markers in the shared rings
+EV_OVERFLOW = flight.event_type("prof.trie_overflow")
+EV_WINDOW = flight.event_type("prof.window_attached")
+
+_DEFAULT_HZ = 20.0
+_DEFAULT_NODES = 8192
+_DEFAULT_RING = 16384
+_DEFAULT_DEPTH = 64
+_DEFAULT_DUMP_WINDOW_S = 30.0
+_ROLE_CACHE_MAX = 4096
+
+# .../dragonfly2_torch — frames outside the package are folded away so
+# stacks stay role-shaped ("ingest._dispatch_loop") instead of
+# interpreter-shaped ("threading.run;...")
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PKG_PREFIX = _PKG_DIR + os.sep
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return max(64, int(os.environ.get(name, default)))
+    except ValueError:
+        return default
+
+
+def default_hz() -> float:
+    return _env_float("DF_PROF_HZ", _DEFAULT_HZ)
+
+
+def enabled() -> bool:
+    return os.environ.get("DF_PROF", "1").lower() not in ("0", "false", "no")
+
+
+_HEX_CHARS = frozenset("0123456789abcdef")
+
+
+def _is_id_segment(seg: str) -> bool:
+    # worker indexes ("3"), or peer-id fragments — which are hex, so a
+    # digit-free slice like "deadbeef" must fold too or every peer
+    # mints its own role (and trie root)
+    return any(c.isdigit() for c in seg) or (
+        len(seg) >= 6 and set(seg) <= _HEX_CHARS
+    )
+
+
+def thread_role(name: str) -> str:
+    """Fold numbered/id-suffixed thread names into one role: trailing
+    ``-`` segments that are worker indexes or peer-id fragments
+    (``trainer.ingest-decode-3``, ``daemon.announce-1a2b…``) are not
+    distinct roles."""
+    parts = name.split("-")
+    while len(parts) > 1 and _is_id_segment(parts[-1]):
+        parts.pop()
+    return "-".join(parts)
+
+
+class _Node:
+    __slots__ = ("children", "self_n")
+
+    def __init__(self):
+        self.children: dict = {}
+        self.self_n = 0
+
+
+class SamplingProfiler:
+    """The sampling half. One process-wide instance lives behind the
+    module API (``install``/``start``/``stop``); benches and tests may
+    build private instances and drive ``sample_once`` directly."""
+
+    def __init__(
+        self,
+        hz: "float | None" = None,
+        max_nodes: "int | None" = None,
+        ring: "int | None" = None,
+        max_depth: "int | None" = None,
+    ):
+        self.hz = hz if hz is not None else default_hz()
+        self.max_nodes = max_nodes or _env_int("DF_PROF_NODES", _DEFAULT_NODES)
+        self.max_depth = max_depth or _env_int("DF_PROF_DEPTH", _DEFAULT_DEPTH)
+        self.service = ""
+        self.samples = 0  # sweeps taken
+        self.dropped = 0  # stacks truncated by the node budget
+        self.sweep_errors = 0  # failed sweeps (first one logged)
+        self.sample_s = 0.0  # cumulative sweep cost
+        self._tries: dict[str, _Node] = {}  # role -> root
+        self._node_count = 0
+        self._overflowed = False
+        self._ring: collections.deque = collections.deque(
+            maxlen=ring or _env_int("DF_PROF_RING", _DEFAULT_RING)
+        )
+        self._site_cache: dict = {}  # code object -> interned site string
+        self._role_cache: dict[str, str] = {}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: "threading.Thread | None" = None
+
+    # -- lifecycle -----------------------------------------------------
+    def running(self) -> bool:
+        t = self._thread
+        return t is not None and t.is_alive()
+
+    def start(self) -> bool:
+        if self.hz <= 0 or self.running():
+            return False
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._loop, name="prof.sampler", daemon=True
+        )
+        self._thread.start()
+        return True
+
+    def stop(self) -> None:
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=2.0)
+        self._thread = None
+
+    def _loop(self) -> None:
+        period = 1.0 / self.hz
+        while not self._stop.wait(period):
+            try:
+                self.sample_once()
+            except Exception:
+                # a failed sweep must never kill the sampler; the next
+                # tick retries — first failure logged, rest counted
+                self.sweep_errors += 1
+                if self.sweep_errors == 1:
+                    logger.warning("dfprof sweep failed", exc_info=True)
+
+    # -- sampling ------------------------------------------------------
+    def _site(self, code) -> "str | None":
+        site = self._site_cache.get(code)
+        if site is None:
+            fname = code.co_filename
+            if not fname.startswith(_PKG_PREFIX):
+                self._site_cache[code] = ""
+                return None
+            rel = fname[len(_PKG_PREFIX):]
+            if rel.endswith(".py"):
+                rel = rel[:-3]
+            site = sys.intern(
+                f"{rel.replace(os.sep, '.')}.{code.co_name}".replace(";", ":")
+            )
+            self._site_cache[code] = site
+        return site or None
+
+    def sample_once(self) -> int:
+        """One sweep: every thread's current stack folded into its
+        role's trie and appended to the recent ring. Returns the number
+        of stacks recorded."""
+        t0 = time.perf_counter()
+        # thread-name map refreshed per sweep, outside our lock (the
+        # interpreter's own bookkeeping lock must not nest inside it)
+        names = {t.ident: t.name for t in threading.enumerate()}
+        frames = sys._current_frames()
+        # the sampler never profiles itself, and its own frame leaves the
+        # snapshot at once: left in, it closes a cycle (this frame → its
+        # ``frames`` local → this frame) that keeps every thread's stack
+        # and locals alive until the cyclic collector finds it — at 20 Hz
+        # on a busy server most of the process's cyclic garbage, and what
+        # makes its full collections long and frequent
+        frames.pop(threading.get_ident(), None)
+        now_ns = time.time_ns()
+        recorded = 0
+        with self._lock:
+            for ident, frame in frames.items():
+                name = names.get(ident) or "tid"
+                role = self._role_cache.get(name)
+                if role is None:
+                    if len(self._role_cache) >= _ROLE_CACHE_MAX:
+                        # per-task threads carry fresh ids in their
+                        # names; an always-on daemon must not grow the
+                        # cache forever (cleared wholesale, rebuilt from
+                        # the handful of live threads next sweep)
+                        self._role_cache.clear()
+                    role = self._role_cache.setdefault(name, thread_role(name))
+                stack = []
+                f = frame
+                while f is not None and len(stack) < self.max_depth:
+                    site = self._site(f.f_code)
+                    if site is not None:
+                        stack.append(site)
+                    f = f.f_back
+                if not stack:
+                    continue  # fully outside the package (idle interpreter)
+                stack.reverse()  # root-first, flamegraph order
+                tup = tuple(stack)
+                self._fold(role, tup)
+                self._ring.append((now_ns, role, tup))
+                recorded += 1
+            self.samples += 1
+        dt = time.perf_counter() - t0
+        self.sample_s += dt
+        PROF_SAMPLES_TOTAL.inc()
+        PROF_SAMPLE_SECONDS.observe(dt)
+        return recorded
+
+    def _fold(self, role: str, stack: tuple) -> None:
+        node = self._tries.get(role)
+        if node is None:
+            if self._node_count >= self.max_nodes:
+                # even the role root is over budget: the sample is
+                # wholly dropped (counted), like a full flight ring
+                self._drop_one()
+                return
+            node = self._tries.setdefault(role, _Node())
+            self._node_count += 1
+        truncated = False
+        for site in stack:
+            child = node.children.get(site)
+            if child is None:
+                if self._node_count >= self.max_nodes:
+                    truncated = True
+                    break
+                child = _Node()
+                node.children[site] = child
+                self._node_count += 1
+            node = child
+        node.self_n += 1
+        if truncated:
+            self._drop_one()
+
+    def _drop_one(self) -> None:
+        self.dropped += 1
+        PROF_STACKS_DROPPED_TOTAL.inc()
+        if not self._overflowed:
+            # one transition marker, not one event per truncated
+            # sample — an overflow storm must not spam the rings
+            self._overflowed = True
+            EV_OVERFLOW(nodes=self._node_count, budget=self.max_nodes)
+
+    # -- reads ---------------------------------------------------------
+    def folded(self, seconds: "float | None" = None) -> dict:
+        """{(role, stack_tuple): count}. With ``seconds``, folds the
+        recent-sample ring's last-N-seconds window; otherwise the
+        all-time tries."""
+        out: dict = {}
+        if seconds is not None:
+            cutoff = time.time_ns() - int(seconds * 1e9)
+            with self._lock:
+                entries = list(self._ring)
+            for ts, role, tup in entries:
+                if ts >= cutoff:
+                    key = (role, tup)
+                    out[key] = out.get(key, 0) + 1
+            return out
+        with self._lock:
+            roots = list(self._tries.items())
+            # DFS copies under the lock: the trie mutates per sweep and
+            # a torn walk could double-count a just-split node
+            for role, root in roots:
+                stack: list = [(root, ())]
+                while stack:
+                    node, path = stack.pop()
+                    if node.self_n:
+                        out[(role, path)] = node.self_n
+                    for site, child in node.children.items():
+                        stack.append((child, path + (site,)))
+        return out
+
+    def collapsed(self, seconds: "float | None" = None) -> str:
+        """Flamegraph-compatible collapsed-stack text:
+        ``role;frame;frame count`` per line, sorted for determinism."""
+        lines = [
+            ";".join((role,) + tup) + f" {n}"
+            for (role, tup), n in self.folded(seconds).items()
+        ]
+        return "\n".join(sorted(lines))
+
+    def stats(self) -> dict:
+        with self._lock:
+            nodes = self._node_count
+            roles = sorted(self._tries)
+        PROF_TRIE_NODES.set(nodes)
+        return {
+            "service": self.service,
+            "running": self.running(),
+            "hz": self.hz,
+            "samples": self.samples,
+            "dropped": self.dropped,
+            "sample_s": round(self.sample_s, 6),
+            "trie_nodes": nodes,
+            "roles": roles,
+        }
+
+
+# ---------------------------------------------------------------------------
+# phase ledger
+# ---------------------------------------------------------------------------
+
 _PHASE_BUCKETS = (1e-5, 1e-4, 1e-3, 0.01, 0.1, 0.5, 1.0, 5.0, 30.0)
 
 
 class Phase:
-    """One named wall-clock phase, usable as a (re-entrant, thread-safe)
-    context manager or fed pre-measured durations with ``observe``. The
-    hot path is ledger-only: one bisect and one short lock per
-    ``observe``."""
+    """One named wall-clock phase. Declared once per module via
+    :func:`phase_type`; usable as a (re-entrant, thread-safe) context
+    manager or fed pre-measured durations with ``observe``.
+
+    The hot path is ledger-only — one bisect + one short lock per
+    ``observe``, plain GIL int adds for the active counter (the flight
+    dropbox discipline: diagnostic-grade, never a metric lock). The
+    Prometheus twins (``prof_phase_seconds_total`` /
+    ``prof_phase_total`` / ``prof_phase_active``) are synced lazily by
+    :func:`ledger_snapshot`, which every scrape surface calls."""
 
     __slots__ = (
         "name", "count", "total_s", "max_s", "bucket_counts", "active_n",
@@ -77,6 +445,10 @@ class Phase:
         self.observe(dt)
         return False
 
+    @property
+    def active(self) -> int:
+        return self.active_n
+
     def snapshot(self) -> dict:
         with self._lock:
             count, total, mx = self.count, self.total_s, self.max_s
@@ -89,26 +461,34 @@ class Phase:
         }
 
     def _sync_metrics(self, count: int, total_s: float) -> None:
-        """Bring the Prometheus series up to the given cumulative values
-        (callers serialize via ``_sync_lock``)."""
+        """Bring the Prometheus series up to the given cumulative
+        values. Callers serialize via ``_sync_lock`` — two concurrent
+        snapshot surfaces (telemetry push + /debug/prof) reading the
+        same ``_synced_*`` watermark would double-increment."""
         if count > self._synced_count:
             PROF_PHASE_TOTAL.labels(self.name).inc(count - self._synced_count)
             self._synced_count = count
         if total_s > self._synced_total_s:
-            PROF_PHASE_SECONDS_TOTAL.labels(self.name).inc(total_s - self._synced_total_s)
+            PROF_PHASE_SECONDS_TOTAL.labels(self.name).inc(
+                total_s - self._synced_total_s
+            )
             self._synced_total_s = total_s
         PROF_PHASE_ACTIVE.labels(self.name).set(self.active_n)
 
 
 _phases: dict[str, Phase] = {}
 _phases_lock = threading.Lock()
-# serializes the lazy Prometheus sync across snapshot readers
+# serializes the lazy Prometheus sync across snapshot surfaces (the
+# sync is read-watermark-then-inc, unsafe to race); never held while
+# the per-observe hot path runs
 _sync_lock = threading.Lock()
 
 
 def phase_type(name: str) -> Phase:
     """Declare (or fetch) a named phase. Names are ``<service>.<what>``
-    in ``[a-z0-9_.]``; re-declaring a name returns the same entry."""
+    like flight event types and are censused by the dfanalyze metrics
+    pass (duplicates, convention). Idempotent: re-declaring a name
+    returns the same ledger entry."""
     service, _, what = name.partition(".")
     if not service or not what or not all(
         c.islower() or c.isdigit() or c in "._" for c in name
@@ -124,13 +504,25 @@ def phase_type(name: str) -> Phase:
     return ph
 
 
+def phase(name: str) -> Phase:
+    """Inline form: ``with profiling.phase("trainer.buffer_wait"): ...``.
+    Prefer a module-level ``phase_type`` declaration on hot paths (the
+    dict lookup here is the only difference)."""
+    return _phases.get(name) or phase_type(name)
+
+
 def ledger_snapshot() -> dict:
-    """{phase: {count, total_s, mean_s, max_s, active, share}} — share is
-    the phase's fraction of its service group's total wall."""
+    """{phase: {count, total_s, mean_s, max_s, active, share}} — share
+    is the phase's fraction of its service group's total wall (the
+    four trainer ingest legs sum to 1.0 among themselves), so the
+    buffer_wait share StreamStats reports per fit is readable live."""
     with _phases_lock:
         items = list(_phases.items())
     snaps = {name: ph.snapshot() for name, ph in items}
     with _sync_lock:
+        # lazy Prometheus sync: every snapshot surface (scrape helpers,
+        # /debug/prof, Diagnose, dumps, telemetry) brings the series
+        # current, so the per-phase hot path never touches them
         for name, ph in items:
             ph._sync_metrics(snaps[name]["count"], snaps[name]["total_s"])
     group_totals: dict[str, float] = {}
@@ -141,3 +533,73 @@ def ledger_snapshot() -> dict:
         total = group_totals[name.split(".", 1)[0]]
         snap["share"] = round(snap["total_s"] / total, 4) if total else 0.0
     return snaps
+
+
+# ---------------------------------------------------------------------------
+# process-wide instance + exposure surfaces
+# ---------------------------------------------------------------------------
+
+_profiler = SamplingProfiler()
+
+
+def profiler() -> SamplingProfiler:
+    return _profiler
+
+
+def install(service: str) -> None:
+    """Start the process-wide sampler (idempotent), next to
+    ``flight.install`` in every server assembly. ``DF_PROF=0`` or
+    ``DF_PROF_HZ=0`` leaves the phase ledger live but samples nothing."""
+    if service:
+        if not _profiler.service:
+            _profiler.service = service
+        elif service not in _profiler.service.split("+"):
+            _profiler.service += f"+{service}"
+    if enabled():
+        _profiler.start()
+
+
+def start() -> bool:
+    return _profiler.start()
+
+
+def stop() -> None:
+    _profiler.stop()
+
+
+def running() -> bool:
+    return _profiler.running()
+
+
+def profile_snapshot(seconds: "float | None" = None) -> dict:
+    """The capture shape every surface serves (/debug/prof, Diagnose,
+    dfprof --rpc): sampler stats + collapsed stacks (windowed when
+    ``seconds`` is given) + the phase ledger."""
+    snap = _profiler.stats()
+    snap["window_s"] = seconds
+    snap["collapsed"] = _profiler.collapsed(seconds)
+    snap["phases"] = ledger_snapshot()
+    return snap
+
+
+def _dump_section() -> dict:
+    """Flight-dump augment: the last DF_PROF_DUMP_WINDOW seconds of
+    samples + the ledger, attached under ``meta.profile`` so a stall or
+    crash dump names its hot frames without any live query."""
+    window = _env_float("DF_PROF_DUMP_WINDOW", _DEFAULT_DUMP_WINDOW_S)
+    collapsed = _profiler.collapsed(window)
+    ledger = ledger_snapshot()
+    if not collapsed and not ledger:
+        return {}
+    EV_WINDOW(window_s=window, samples=_profiler.samples)
+    return {
+        "profile": {
+            "window_s": window,
+            "hz": _profiler.hz,
+            "collapsed": collapsed,
+            "phases": ledger,
+        }
+    }
+
+
+flight.register_dump_augment(_dump_section)

@@ -1,9 +1,11 @@
 """Lightweight in-process tracing — the part of the reference's
-``utils/tracing.py`` the scheduler's decision path calls: spans with
-parent links and attributes recorded into a bounded in-memory ring per
-service, a contextvar-held current span, and the root sampling ratio. File
-and OTLP export and W3C trace-context propagation come with the server
-slice.
+``utils/tracing.py`` the port's paths call: spans with parent links and
+attributes recorded into a bounded in-memory ring per service, a
+contextvar-held current span, the root sampling ratio, and W3C
+trace-context propagation: ``format_traceparent`` / ``parse_traceparent``
+carry ``00-<trace32>-<span16>-<flags>`` over gRPC invocation metadata
+(``rpc/glue`` injects it client-side and extracts it server-side). File
+and OTLP export stay out until a port caller needs them.
 
 Env: ``DF_TRACE_SAMPLE`` (root sampling ratio in [0, 1], default 1).
 """
@@ -14,12 +16,15 @@ import collections
 import contextvars
 import os
 import random
+import re
 import threading
 import time
 import uuid
 from dataclasses import dataclass, field
 
 _RING_SIZE = 1024
+
+TRACEPARENT_HEADER = "traceparent"
 
 
 # Span ids come from the stdlib Mersenne generator, not uuid4: trace ids
@@ -38,6 +43,45 @@ def _gen_span_id() -> str:
 _current: "contextvars.ContextVar[Span | None]" = contextvars.ContextVar(
     "df_current_span", default=None
 )
+
+
+@dataclass(frozen=True)
+class SpanContext:
+    """A remote parent: just the propagated identity (what a
+    ``traceparent`` header carries), no recording behavior."""
+
+    trace_id: str
+    span_id: str
+    sampled: bool = True
+
+
+def format_traceparent(span: "Span | SpanContext") -> str:
+    """W3C traceparent (version 00) for ``span``:
+    ``00-<trace32>-<span16>-<flags>`` with the sampled bit from the
+    span's sampling decision."""
+    flags = "01" if getattr(span, "sampled", True) else "00"
+    return f"00-{span.trace_id}-{span.span_id}-{flags}"
+
+
+_TRACEPARENT_RE = re.compile(
+    r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$"
+)
+
+
+def parse_traceparent(header: "str | None") -> "SpanContext | None":
+    """Parse a ``traceparent`` header into a SpanContext, or None for
+    absent/malformed input — the caller starts a new root instead of
+    crashing (W3C: invalid trace-context is discarded, never fatal)."""
+    if not header:
+        return None
+    m = _TRACEPARENT_RE.match(header.strip().lower())
+    if m is None:
+        return None
+    version, trace_id, span_id, flags = m.groups()
+    # version ff is forbidden; all-zero ids are the spec's invalid values
+    if version == "ff" or trace_id == "0" * 32 or span_id == "0" * 16:
+        return None
+    return SpanContext(trace_id, span_id, sampled=bool(int(flags, 16) & 0x01))
 
 
 def current_span() -> "Span | None":
@@ -201,8 +245,9 @@ class Tracer:
         self.service = service
         self.finished: collections.deque[Span] = collections.deque(maxlen=_RING_SIZE)
 
-    def start_span(self, name: str, parent: "Span | None" = None, **attrs) -> Span:
-        """Start a span under ``parent``, or under the current span when
+    def start_span(self, name: str, parent: "Span | SpanContext | None" = None, **attrs) -> Span:
+        """Start a span under ``parent`` (a local span, or a ``SpanContext``
+        from a ``traceparent`` header), or under the current span when
         None. A true root draws the sampling decision from the ratio;
         children inherit it."""
         if parent is None:
@@ -229,7 +274,7 @@ class Tracer:
             _tracer=self,
         )
 
-    def span(self, name: str, parent: "Span | None" = None, **attrs) -> Span:
+    def span(self, name: str, parent: "Span | SpanContext | None" = None, **attrs) -> Span:
         """Context-manager form: ``with tracer.span("x") as sp: ...``."""
         return self.start_span(name, parent=parent, **attrs)
 

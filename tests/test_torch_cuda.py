@@ -2,9 +2,11 @@
 PyTorch version (strided inputs, alignment checks, the tf32x3 pre-pass bit
 for bit and per-kernel launch counting included), and the serving and
 topology planes on the card against the same port on the CPU, one wave
-of the scheduler's ``ml`` decision path on the card, and the trainer's
+of the scheduler's ``ml`` decision path on the card, the trainer's
 fits (streamed, batch, GNN) on the card against the CPU with the pinned
-buffers' reuse rule.
+buffers' reuse rule, and the live scheduler and trainer servers on the
+card (``chip_smoke.server_leg`` at a reduced size: every decision served,
+scores as on the CPU, the trained models installed).
 
 Every test here needs a card and skips without one. It imports neither jax
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -523,6 +525,7 @@ def test_a_gnn_installs_on_the_card_and_serves_its_waves(cuda):
     from dragonfly2_torch.schema.columnar import records_to_columns
     from dragonfly2_torch.schema.features import GNN_NODE_FEATURE_DIM, build_probe_graph
     from dragonfly2_torch.trainer.serving import GNNScorer, serialize_params
+    from dragonfly2_torch.utils.kvstore import KVStore
 
     hosts = 40
     resource = res.Resource()
@@ -533,7 +536,7 @@ def test_a_gnn_installs_on_the_card_and_serves_its_waves(cuda):
     for i in range(hosts):
         for j in rng.choice([k for k in range(hosts) if k != i], 6, replace=False):
             engine.enqueue(f"h{i}", f"h{j}", int(rng.integers(1, 80) * 1e6), created_at=990.0)
-    topology = NetworkTopology(resource.host_manager, engine=engine)
+    topology = NetworkTopology(KVStore(), resource.host_manager, engine=engine)
     graph = build_probe_graph(records_to_columns(topology.export_records()))
     gnn = init_graphsage(torch.Generator().manual_seed(0), GNN_NODE_FEATURE_DIM, (16, 16),
                          num_nodes=graph.num_nodes)
@@ -568,3 +571,23 @@ def test_a_gnn_installs_on_the_card_and_serves_its_waves(cuda):
         np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
     finally:
         service.stop()
+
+
+def test_live_servers_on_the_card(cuda):
+    """The scheduler and trainer servers built on the card (the engine,
+    the scorers the refresher installs and the fits), driven over gRPC by
+    ``chip_smoke.server_leg`` at a reduced size: the leg's own checks —
+    legal parents, no decision below the serving rung after the warm-up,
+    ``rank_order`` of the card scores, the MLP within 2e-2 and the GNN
+    within 5e-2 of the CPU, the three uploads installed — raise on any
+    failure."""
+    import chip_smoke
+
+    out = chip_smoke.server_leg(
+        "cuda", hosts=128, probes=16, tasks=8, peers=64, concurrency=8, phase2=16,
+        probe_rounds=4, mlp_batch=16, gnn_epochs=300,
+    )
+    assert out["edges"] == 128 * 16
+    assert out["phase1"]["served"] > 0 and out["phase2"]["served"] > 0
+    assert out["score_err"]["mlp"] <= chip_smoke.SCORE_TOL
+    assert out["score_err"]["gnn"] <= chip_smoke.GNN_SCORE_TOL

@@ -23,6 +23,7 @@ from dragonfly2_torch.scheduler import resource as t_res
 from dragonfly2_torch.scheduler import seed_placement as t_seeds
 from dragonfly2_torch.scheduler import wave as t_wave
 from dragonfly2_torch.scheduler.evaluator import MLEvaluator as TEvaluator
+from dragonfly2_torch.scheduler import networktopology as t_networktopology
 from dragonfly2_torch.scheduler.networktopology import NetworkTopology as TNetworkTopology
 from dragonfly2_torch.scheduler.serving import GNNServed as TGNNServed
 from dragonfly2_torch.scheduler.serving import ScoringService as TService
@@ -32,6 +33,7 @@ from dragonfly2_torch.topology import TopologyConfig as TConfig
 from dragonfly2_torch.topology import TopologyEngine as TEngine
 from dragonfly2_torch.trainer import serving as t_serving
 from dragonfly2_torch.utils import flight
+from dragonfly2_torch.utils.kvstore import KVStore as TKVStore
 from dragonfly2_tpu.manager.database import Database
 from dragonfly2_tpu.manager.models_registry import ModelRegistry
 from dragonfly2_tpu.manager.objectstorage import FSObjectStorage
@@ -44,6 +46,7 @@ from dragonfly2_tpu.scheduler import resource as j_res
 from dragonfly2_tpu.scheduler import seed_placement as j_seeds
 from dragonfly2_tpu.scheduler.evaluator import MLEvaluator as JEvaluator
 from dragonfly2_tpu.scheduler.model_refresher import ModelRefresher as JRefresher
+from dragonfly2_tpu.scheduler import networktopology as j_networktopology
 from dragonfly2_tpu.scheduler.networktopology import NetworkTopology as JNetworkTopology
 from dragonfly2_tpu.scheduler.serving import GNNServed as JGNNServed
 from dragonfly2_tpu.scheduler.serving import ScoringService as JService
@@ -96,7 +99,7 @@ def _world(seed=0, probes=6):
         for s, d, rtt, at in stream:
             eng.enqueue(s, d, rtt, created_at=at)
         if side is t_res:
-            out.append(TNetworkTopology(resource.host_manager, engine=eng))
+            out.append(TNetworkTopology(TKVStore(), resource.host_manager, engine=eng))
         else:
             out.append(JNetworkTopology(KVStore(), resource.host_manager, engine=eng))
         out[-1].resource = resource
@@ -164,11 +167,22 @@ def test_engine_export_keeps_hosts_the_manager_knows(world):
 
 
 def test_network_topology_is_engine_backed_only(world):
-    port, _ = world
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        TNetworkTopology(port.resource.host_manager, engine=port.engine, kv=KVStore())
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        TNetworkTopology(port.resource.host_manager)
+    # since the KV half landed, a topology without an engine walks its KV
+    # store: the same probes through both packages' enqueue_probe give the
+    # same rows, and an engine attached later adopts the KV graph
+    port, ref = world
+    tt = TNetworkTopology(TKVStore(), port.resource.host_manager)
+    jt = JNetworkTopology(KVStore(), ref.resource.host_manager)
+    for k in range(40):
+        src, dst = f"h{k % HOSTS}", f"h{(3 * k + 1) % HOSTS}"
+        if src == dst:
+            continue
+        for topo, side in ((tt, t_networktopology), (jt, j_networktopology)):
+            topo.enqueue_probe(src, side.Probe(dst, rtt_ns=1_000_000 * (k + 1), created_at=1_000.0 + k))
+    assert _rows(tt.export_records()) == _rows(jt.export_records())
+    engine = TEngine(TConfig(flush_threshold=10**9), device="cpu")
+    tt.engine = engine
+    assert tt.hydrate_engine() == len(tt.kv.scan_iter("networktopology:*:*")) > 0
 
 
 def test_probe_graphs_are_the_same(graphs):

@@ -9,8 +9,9 @@ system refuses the blocked packages: one imports every port module and
 runs the five legs of ``chip_smoke.py`` on the CPU at a tiny size (the
 trainer leg feeds its Train stream through plain messages and uploads
 through plain requests; the preheat leg's job goes out through a plain
-request); the other also refuses gRPC and protobuf, imports only
-``chip_smoke`` and runs the five legs again."""
+request), then the server leg, whose scheduler and trainer servers talk
+gRPC; the other also refuses gRPC and protobuf, imports only
+``chip_smoke`` and runs the five legs again, never the servers."""
 
 import ast
 import os
@@ -100,6 +101,15 @@ enc = chip_smoke.encoder_leg(
     cfg=dict(in_dim=2, model_dim=32, num_heads=4, num_layers=2),
 )
 assert enc["launches"] == 0 and enc["err"] < 5e-2, enc
+if {servers!r}:
+    live = chip_smoke.server_leg(
+        "cpu", hosts=128, probes=16, tasks=8, peers=64, concurrency=8, phase2=16,
+        probe_rounds=4, mlp_batch=16, gnn_epochs=300,
+    )
+    assert live["edges"] == 2048 and live["phase1"]["decisions"] == 512, live
+    assert live["phase2"]["decisions"] == 16 and live["phase2"]["served"] > 0, live
+else:
+    assert not any(n.startswith("dragonfly2_torch.scheduler.server") for n in sys.modules)
 loaded = sorted(
     n for n in sys.modules
     if any(n == b or n.startswith(b + ".") for b in BLOCKED) and sys.modules[n] is not None
@@ -112,12 +122,13 @@ print("ISOLATED", len(mods))
 def _run_child(blocked, every_module: bool) -> int:
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
-        [sys.executable, "-c", _CHILD.format(blocked=blocked, every_module=every_module)],
+        [sys.executable, "-c", _CHILD.format(blocked=blocked, every_module=every_module,
+                                              servers=every_module)],
         cwd=str(REPO),
         env=env,
         capture_output=True,
         text=True,
-        timeout=240,
+        timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     last = proc.stdout.strip().splitlines()[-1]
@@ -126,9 +137,9 @@ def _run_child(blocked, every_module: bool) -> int:
 
 
 def test_port_runs_with_jax_and_reference_blocked():
-    # every module of the port was imported (69 with the GNN/GRU serving
-    # and preheat slice)
-    assert _run_child(BLOCKED, every_module=True) >= 69
+    # every module of the port was imported (92 with the scheduler and
+    # trainer servers)
+    assert _run_child(BLOCKED, every_module=True) >= 92
 
 
 def test_chip_smoke_runs_without_grpc_or_protobuf():

@@ -5,12 +5,13 @@
 
 Phases (any failed check raises and the script exits non-zero):
 
-1. device and build: the card's name and power limit, then both flash
-   kernels' CUDA sources built with ``nvcc`` at once (each timed), with
+1. device and build: the card's name and power limit, then the three
+   CUDA sources (both flash forwards and the flash backward) built with
+   ``nvcc`` at once (each timed), with
    ``ptxas``'s registers, spills and added wgmma fences per
    instantiation and, where
    ``cuobjdump`` sits beside ``nvcc``, the count of HGMMA (wgmma)
-   instructions in each library's SASS (0 fails);
+   instructions in each forward library's SASS (0 fails);
 2. the tf32x3 kernel's pre-pass against its plain split, bit for bit (and
    timed alone at the encoder's shape); each flash kernel against the
    plain PyTorch version at every checked shape, with max|err| of O and
@@ -18,7 +19,12 @@ Phases (any failed check raises and the script exits non-zero):
    encoder's shape (float32 → tf32x3, bfloat16 → sm90) and at D = 8 in
    bfloat16 (tf32x3's other role) the kernel, SDPA and the plain version
    are timed in turns beside the card's bound for the same work, and the
-   CUDA kernels SDPA runs are named from a profiler trace;
+   CUDA kernels SDPA runs are named from a profiler trace; then the
+   backward kernel (``flash_bwd``) against ``flash_backward_reference`` on
+   the same (O, LSE, dO) at every checked shape (every head dim, both
+   types, ragged T, causal or not, packed views), with max|err| of dQ, dK
+   and dV and the share of each limit used, and at the encoder's shape in
+   both types the kernel, SDPA's backward and the plain version timed;
 3. serve leg at cluster scale: 10,000 hosts × 16 probes through the
    topology engine, one flush on the card, then waves of 256 decisions ×
    15 candidates joined (rtt affinity) and ranked by a [19, 128, 128, 1]
@@ -84,7 +90,15 @@ Phases (any failed check raises and the script exits non-zero):
    the plain ``local_attention``: once in bfloat16, which must launch
    ``flash_fwd_sm90`` once per layer and ``flash_fwd_tf32x3`` never, and
    once in float32, which must launch ``flash_fwd_tf32x3`` once per layer
-   and ``flash_fwd_sm90`` never.
+   and ``flash_fwd_sm90`` never;
+9. encoder-gradient leg at the same width: ``apply_transformer`` with
+   ``make_ulysses_attention(..., use_kernel=True)`` over an sp = 1 NCCL
+   process group, a seeded loss and ``backward()``, in bfloat16 and in
+   float32: each step must launch the forward kernel and ``flash_bwd``
+   once per layer and nothing else, every gradient must be finite and
+   within ``ENCODER_GRAD_TOL`` (``ENCODER_GRAD_QK_TOL`` for wq and wk) of
+   the same step with ``local_attention`` under autograd; the step's wall
+   and its peak memory are printed beside ``local_attention``'s.
 
 The line before the last holds the kernels' table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -109,6 +123,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -117,6 +132,8 @@ from dragonfly2_torch.models.attention import apply_transformer, init_transforme
 from dragonfly2_torch.models.gru import init_gru
 from dragonfly2_torch.models.mlp import init_mlp
 from dragonfly2_torch.ops import flash
+from dragonfly2_torch.ops.ulysses import make_ulysses_attention
+from dragonfly2_torch.parallel import make_mesh
 from dragonfly2_torch.preheat import planner as preheat_planner
 from dragonfly2_torch.preheat.demand import DemandWindow
 from dragonfly2_torch.preheat.forecast import DemandForecaster
@@ -212,6 +229,45 @@ ENCODER_BT = (2, 8192)
 ENCODER_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
 D8_BF16 = (2, 8192, 4, 8)  # tf32x3's bf16 role at the encoder's B, T and H
 KERNEL_NAMES = {"sm90": "flash_fwd_sm90", "tf32x3": "flash_fwd_tf32x3"}
+BWD_LIBRARY = "flash_bwd"  # CUDA cores only: no wgmma to count in its SASS
+# The backward kernel's dQ, dK, dV against flash_backward_reference on the
+# same (q, k, v, O, LSE, dO), per element |g - ref| <= rtol·|ref| +
+# atol·max|ref| as (rtol, atol). float32: both sum up to T products in
+# float32 in other orders (the plain version sits within 0.06 of this limit
+# of a float64 backward on the CPU at T = 2048); bfloat16: both round the
+# same float32 values, which may land on either side of a rounding point —
+# one step (2^-7·|ref|) and one more.
+BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2**-6, 1e-5)}
+# (B, T, H, D, causal, dtype, packed q/k/v): every head dim in both types,
+# ragged T, causal or not, views of one packed projection; the encoder's
+# shape is checked and timed after these
+BWD_SHAPES = [
+    (2, 200, 4, 64, True, torch.float32, False),  # ragged tail
+    (2, 200, 4, 64, True, torch.bfloat16, False),
+    (1, 333, 2, 32, False, torch.float32, False),  # odd length, non-causal
+    (1, 333, 2, 32, False, torch.bfloat16, False),
+    (1, 96, 8, 128, True, torch.float32, False),  # short sequence, wide head
+    (1, 300, 2, 128, False, torch.bfloat16, False),
+    (2, 100, 4, 8, True, torch.float32, False),
+    (2, 100, 4, 8, True, torch.bfloat16, False),  # the tf32x3 forward's bf16 role
+    (1, 77, 2, 16, False, torch.bfloat16, False),
+    (1, 70, 2, 16, True, torch.float32, False),
+    (2, 300, 4, 64, True, torch.bfloat16, True),  # views of one [B, T, 3, H, D] projection
+    (1, 4096, 2, 64, True, torch.float32, False),
+]
+# The encoder's gradients with flash (kernels forward and backward) against
+# the same with local_attention under autograd on the card, per parameter
+# as ||g - ref|| / ||ref||. float32: the kernels keep float32 limits, so
+# only summation orders differ (3e-5 in a CPU emulation at T = 1024). In
+# bfloat16, δ = rowsum(dO ⊙ O) reads the bf16 O, as the reference's
+# _blockwise_bwd does, where autograd through local_attention takes the
+# float32 P: at this init dS = P ⊙ (dP − δ) cancels to a small part of its
+# terms, so O's rounding moves dQ and dK — the gradients of wq and wk —
+# far more than anything else (0.21 at T = 1024 and 0.34 at T = 4096 in a
+# CPU emulation of the sm90 forward, 0.01 with δ from a float32 O); every
+# other parameter stays at a few 1e-3.
+ENCODER_GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+ENCODER_GRAD_QK_TOL = {torch.float32: 1e-3, torch.bfloat16: 0.75}
 MLP_DIMS = [MLP_FEATURE_DIM, 128, 128, 1]  # the trainer's default MLP
 # bfloat16 products on the card against float32 on the CPU
 SCORE_TOL = 2e-2
@@ -306,18 +362,18 @@ def flash_flops(b: int, t: int, h: int, d: int, causal: bool) -> int:
 
 
 def build_kernels() -> None:
-    """Both libraries built at once, each timed, with ptxas's report per
-    instantiation and the wgmma count of each library's SASS."""
+    """Every library built at once, each timed, with ptxas's report per
+    instantiation and the wgmma count of each forward library's SASS."""
 
     def timed_load(name):
         t0 = time.perf_counter()
         _build.load(name)
         return name, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(KERNEL_NAMES)) as pool:
-        for name, secs in pool.map(timed_load, KERNEL_NAMES.values()):
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        for name, secs in pool.map(timed_load, _build.SOURCES):
             print(f"build: {name} in {secs:.1f}s")
-    for name in KERNEL_NAMES.values():
+    for name in _build.SOURCES:
         for fn, regs, spills, fences in ptxas_report(_build.build_log(name)):
             print(f"  {name} {fn}: {regs} registers, {spills}, {fences} wgmma fences added by ptxas")
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
@@ -505,6 +561,100 @@ def flash_phase() -> dict:
         except Exception as exc:  # the trace is a reading aid; the times above stand
             names = [f"no trace: {exc}"]
         print(f"  sdpa at {shape_name(q, True)} runs: {'; '.join(names) or 'no kernel seen'}")
+    return rows
+
+
+def bwd_bound_ms(b: int, t: int, h: int, d: int, causal: bool, dtype) -> "tuple[float, str]":
+    """Least time for the attention backward on this card, the largest of:
+    five products of 2·D operations per (query, key) pair (S, dP, dV, dK,
+    dQ) over the type's peak, one exponential per pair over the
+    special-function rate, and q, k, v, O, dO and LSE read and dQ, dK, dV
+    written once over the memory rate."""
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = 8 * b * t * h * d * elem + 4 * b * h * t
+    pairs = b * h * flash_pairs(t, causal)
+    ops_ms = max(10 * d * pairs / PEAK_FLOPS[dtype], pairs / PEAK_EXP_PER_S) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def bwd_inputs(q, k, v, causal, seed):
+    """O and LSE from the forward kernel the path takes, and a seeded
+    cotangent dO."""
+    with torch.no_grad():
+        o, lse = flash.launch_kernel(q, k, v, causal)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return o, lse, torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+
+
+def bwd_case(q, k, v, causal, seed) -> dict:
+    """The backward kernel at one shape against its plain version on the
+    same (O, LSE, dO) → {"max_abs_err", "bound_ms", "bound_by"}."""
+    b, t, h, d = q.shape
+    o, lse, do = bwd_inputs(q, k, v, causal, seed)
+    got = flash.launch_backward(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    want = flash.flash_backward_reference(q, k, v, o, lse, do, causal)
+    rtol, atol = BWD_TOL[q.dtype]
+    name = f"{BWD_LIBRARY} {shape_name(q, causal)}"
+    errs, shares = {}, {}
+    for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.shape == q.shape and g.dtype == q.dtype and torch.isfinite(g).all().item(),
+              f"{name}: {grad} shape, dtype or finiteness")
+        diff = (g.float() - w.float()).abs()
+        limit = rtol * w.float().abs() + atol * w.float().abs().max()
+        errs[grad] = diff.max().item()
+        shares[grad] = (diff / limit).max().item()
+    print(
+        f"{name}: max|err| " + " ".join(f"{g}={errs[g]:.3g} ({shares[g]:.3g} of the limit)" for g in errs)
+        + f" (limit {rtol:g}*|ref| + {atol:g}*max|ref|)"
+    )
+    check(max(shares.values()) <= 1.0, f"{name}: the backward kernel disagrees with the plain version")
+    bound, by = bwd_bound_ms(b, t, h, d, causal, q.dtype)
+    return {"max_abs_err": max(errs.values()), "bound_ms": bound, "bound_by": by}
+
+
+def bwd_times(q, k, v, causal, rounds: int = 3) -> dict:
+    """Device times of the backward at one shape: the kernel and SDPA's
+    backward (on the same inputs in its layout) in turns, ``rounds`` times
+    (medians reported), then the plain version → {"ms", "library_ms",
+    "plain_ms"}."""
+    o, lse, do = bwd_inputs(q, k, v, causal, seed=8)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    out = sdpa(qt, kt, vt, causal)
+    dot = do.transpose(1, 2).contiguous()
+
+    def library():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    ms, lib = [], []
+    for _ in range(rounds):
+        ms.append(cuda_ms(lambda: flash.launch_backward(q, k, v, o, lse, do, causal), 5))
+        lib.append(cuda_ms(library, 5))
+    plain = cuda_ms(lambda: flash.flash_backward_reference(q, k, v, o, lse, do, causal), 2)
+    return {"ms": statistics.median(ms), "library_ms": statistics.median(lib), "plain_ms": plain}
+
+
+def bwd_phase() -> dict:
+    """The backward kernel at every checked shape, then at the encoder's
+    shape in bfloat16 and float32, checked and timed → {dtype name: its
+    entry of the kernels' table, without ``launches``}."""
+    for i, (b, t, h, d, causal, dtype, packed) in enumerate(BWD_SHAPES):
+        bwd_case(*random_qkv(b, t, h, d, dtype, seed=400 + i, packed=packed), causal, seed=500 + i)
+    b, t = ENCODER_BT
+    h = ENCODER["num_heads"]
+    shape = (b, t, h, ENCODER["model_dim"] // h)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = random_qkv(*shape, dtype, seed=9)
+        r = rows[str(dtype)[6:]] = {**bwd_case(q, k, v, True, seed=10), **bwd_times(q, k, v, True)}
+        print(
+            f"{BWD_LIBRARY} {shape_name(q, True)}: kernel_ms={r['ms']:.4f}"
+            f" plain_ms={r['plain_ms']:.4f} library_ms(sdpa backward)={r['library_ms']:.4f}"
+            f" ({r['ms'] / r['library_ms']:.2f}x) bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
+            f" {10 * shape[3] * b * h * flash_pairs(t, True) / r['ms'] / 1e9:.1f} TFLOP/s"
+            f" (five products), {r['bound_ms'] / r['ms']:.2%} of the bound"
+        )
     return rows
 
 
@@ -2094,6 +2244,15 @@ def server_leg(
         shutil.rmtree(SERVER_WORK, ignore_errors=True)
 
 
+def encoder_inputs(batch: int, seq: int, in_dim: int, seed: int) -> torch.Tensor:
+    """Seeded piece histories [B, T, F]: a piece's log cost and its position."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((batch, seq, in_dim), np.float32)
+    x[..., 0] = np.log1p(rng.lognormal(np.log(40.0), 0.8, (batch, seq)))  # piece cost
+    x[..., 1] = (np.arange(seq) + 1) / seq  # piece position
+    return torch.from_numpy(x)
+
+
 def encoder_leg(
     device, batch=ENCODER_BT[0], seq=ENCODER_BT[1], cfg=ENCODER, seed=0, dtype=torch.bfloat16
 ) -> dict:
@@ -2103,11 +2262,7 @@ def encoder_leg(
     device = torch.device(device)
     enc = init_transformer(torch.Generator().manual_seed(seed), **cfg)
     enc = enc.to(device).requires_grad_(False)
-    rng = np.random.default_rng(seed)
-    x = np.zeros((batch, seq, cfg["in_dim"]), np.float32)
-    x[..., 0] = np.log1p(rng.lognormal(np.log(40.0), 0.8, (batch, seq)))  # piece cost
-    x[..., 1] = (np.arange(seq) + 1) / seq  # piece position
-    x = torch.from_numpy(x).to(device)
+    x = encoder_inputs(batch, seq, cfg["in_dim"], seed).to(device)
 
     def flash_causal(q, k, v):
         return flash.flash_attention(q, k, v, causal=True)
@@ -2150,6 +2305,91 @@ def encoder_leg(
     }
 
 
+def encoder_grad_leg(
+    device, batch=ENCODER_BT[0], seq=ENCODER_BT[1], cfg=ENCODER, seed=0, dtype=torch.bfloat16
+) -> dict:
+    """The encoder trained through the flash kernels: ``apply_transformer``
+    with Ulysses attention (``use_kernel``) over an sp = 1 process group
+    (NCCL on the card, gloo on the CPU), a seeded loss, ``backward()``. On
+    the card every layer must launch its forward kernel and the backward
+    kernel once, and nothing else; every parameter's gradient is held
+    against the same step with ``local_attention`` under autograd."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device.index or 0)
+    dist.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo", store=dist.HashStore(), rank=0, world_size=1
+    )
+    try:
+        mesh = make_mesh(sp=1)
+        ulysses = make_ulysses_attention(mesh, "sp", causal=True, use_kernel=True)
+        enc = init_transformer(torch.Generator().manual_seed(seed), **cfg).to(device)
+        x = encoder_inputs(batch, seq, cfg["in_dim"], seed).to(device)
+        w = torch.randn(
+            (batch, seq, cfg["model_dim"]), generator=torch.Generator().manual_seed(seed + 1)
+        ).to(device)
+
+        def step(attention_fn):
+            enc.zero_grad(set_to_none=True)
+            out = apply_transformer(enc, x, attention_fn=attention_fn, causal=True, compute_dtype=dtype)
+            ((out * w).sum() / out.numel()).backward()
+            return out
+
+        flash.reset_launches()
+        out = step(ulysses)
+        sync(device)
+        launches = dict(flash.LAUNCHES_BY)
+        grads = {n: p.grad.clone() for n, p in enc.named_parameters() if p.grad is not None}
+        expected = {kern: 0 for kern in launches}
+        if device.type == "cuda":
+            expected[flash.kernel_for(dtype, cfg["model_dim"] // cfg["num_heads"])] = cfg["num_layers"]
+            expected["bwd"] = cfg["num_layers"]
+        check(launches == expected, f"flash launches {launches}, expected {expected}")
+        check(out.shape == (batch, seq, cfg["model_dim"]) and torch.isfinite(out).all().item(),
+              "encoder output shape or finiteness")
+        check(all(torch.isfinite(g).all().item() for g in grads.values()), "a gradient is not finite")
+        step(None)
+        ref = {n: p.grad for n, p in enc.named_parameters() if p.grad is not None}
+        check(grads.keys() == ref.keys(), "flash and local_attention train different parameters")
+        errs = {n: ((grads[n] - ref[n]).norm() / ref[n].norm().clamp_min(1e-30)).item() for n in ref}
+        qk = [n for n in errs if n.endswith((".wq", ".wk"))]
+        worst = max(errs[n] for n in errs if n not in qk)
+        worst_qk = max(errs[n] for n in qk)
+        tol, tol_qk = ENCODER_GRAD_TOL[dtype], ENCODER_GRAD_QK_TOL[dtype]
+        name = f"encoder_grad[{device}, {str(dtype)[6:]}]"
+        print(
+            f"{name}: B={batch} T={seq} launches={launches}; ||g_flash - g_local||/||g_local||:"
+            f" worst {worst:.3g} (tol {tol:g}), wq/wk worst {worst_qk:.3g} (tol {tol_qk:g}); "
+            + " ".join(f"{n}={e:.3g}" for n, e in errs.items() if n.startswith("layers.0.") or n == "embed")
+        )
+        check(worst <= tol and worst_qk <= tol_qk, f"{name}: gradients differ from local_attention's")
+
+        result = {
+            "kernel": flash.kernel_for(dtype, cfg["model_dim"] // cfg["num_heads"]),
+            "launches_by": launches,
+            "grad_rel_err": worst,
+            "grad_rel_err_qk": worst_qk,
+            "fwd_bwd_ms": wall_ms(lambda: step(ulysses), 3, device),
+            "local_fwd_bwd_ms": wall_ms(lambda: step(None), 3, device),
+        }
+        if device.type == "cuda":
+            for key, fn in (("peak_gib", ulysses), ("local_peak_gib", None)):
+                enc.zero_grad(set_to_none=True)
+                torch.cuda.reset_peak_memory_stats(device)
+                step(fn)
+                sync(device)
+                result[key] = torch.cuda.max_memory_allocated(device) / 2**30
+        print(
+            f"{name}: fwd_bwd_ms={result['fwd_bwd_ms']:.2f} (with local_attention"
+            f" {result['local_fwd_bwd_ms']:.2f}); peak memory"
+            f" {result.get('peak_gib', float('nan')):.3f} GiB (with local_attention"
+            f" {result.get('local_peak_gib', float('nan')):.3f} GiB)"
+        )
+        return result
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
@@ -2176,6 +2416,7 @@ def main() -> int:
     leg("build", build_kernels, attention=True)
     prepass_ms = leg("prepass", prepass_phase, attention=True)
     rows = leg("flash", flash_phase, attention=True)
+    bwd_rows = leg("bwd", bwd_phase, attention=True)
 
     serve = leg("serve", serve_leg, "cuda")
     scheduler = leg("scheduler", scheduler_leg, "cuda")
@@ -2190,8 +2431,12 @@ def main() -> int:
         kern: leg(f"encoder_{kern}", encoder_leg, "cuda", dtype=dtype, attention=True)
         for kern, dtype in (("sm90", torch.bfloat16), ("tf32x3", torch.float32))
     }
-    for kern, leg in encoders.items():
-        check(leg["kernel"] == kern, f"the {leg['kernel']} kernel took the {kern} leg")
+    for kern, out in encoders.items():
+        check(out["kernel"] == kern, f"the {out['kernel']} kernel took the {kern} leg")
+    grad_legs = {
+        name: leg(f"encoder_grad_{name}", encoder_grad_leg, "cuda", dtype=dtype, attention=True)
+        for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32))
+    }
 
     print(json.dumps({
         "serve": serve,
@@ -2200,6 +2445,7 @@ def main() -> int:
         "preheat": preheat,
         "server": server,
         "encoder": encoders,
+        "encoder_grad": grad_legs,
         "tf32x3_d8_bf16": rows["tf32x3_d8_bf16"],
         "tf32x3_prepass_ms": prepass_ms,
         "walls_s": walls,
@@ -2215,7 +2461,19 @@ def main() -> int:
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         }
         for kern in ("sm90", "tf32x3")
+    ] + [
+        {
+            "name": f"{BWD_LIBRARY}[{dtype}]",
+            "route": "cuda",
+            "source": f"dragonfly2_torch/csrc/{BWD_LIBRARY}.cu",
+            "replaces": "dragonfly2_tpu/ops/flash.py:185",
+            "launches": grad_legs[dtype]["launches_by"]["bwd"],
+            **{key: bwd_rows[dtype][key] for key in
+               ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        }
+        for dtype in ("bfloat16", "float32")
     ]
+    check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

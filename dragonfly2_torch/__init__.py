@@ -17,7 +17,10 @@ and batch MLP fits and the GraphSAGE fit (``trainer.training``,
 (``schema.wire``), uploaded to the manager; and the piece-sequence
 transformer encoder, whose attention runs on hand-written CUDA flash
 kernels (``ops.flash``: ``csrc/flash_fwd_sm90.cu`` for bfloat16,
-``csrc/flash_fwd_tf32x3.cu`` for float32); the GNN and GRU serving, seed
+``csrc/flash_fwd_tf32x3.cu`` for float32, ``csrc/flash_bwd.cu`` for the
+gradient) and trains through them, alone or under ring and Ulysses
+sequence parallelism over ``torch.distributed`` (``ops.ring``,
+``ops.ulysses``, ``parallel``); the GNN and GRU serving, seed
 placement and the preheat plane; and the scheduler and trainer servers
 (``scheduler.server``, ``trainer.server``, ``python -m
 dragonfly2_torch.scheduler`` / ``python -m dragonfly2_torch.trainer``),

@@ -25,7 +25,11 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
 # library name → source file under csrc/
-SOURCES = {"flash_fwd_sm90": "flash_fwd_sm90.cu", "flash_fwd_tf32x3": "flash_fwd_tf32x3.cu"}
+SOURCES = {
+    "flash_fwd_sm90": "flash_fwd_sm90.cu",
+    "flash_fwd_tf32x3": "flash_fwd_tf32x3.cu",
+    "flash_bwd": "flash_bwd.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -4,10 +4,14 @@ reference's ``models/attention.py``).
 The encoder reads per-piece download histories [B, T, F] and returns the
 encoded sequence [B, T, model_dim]. Attention goes through
 ``attention_fn(q, k, v)``: by default the plain ``ops.ring.local_attention``;
-on the card the caller passes the CUDA flash kernel
-(``ops.flash.flash_attention``), which never materializes the [T, T] scores.
-Layer norm and the residual stream stay float32; matmul inputs and q/k/v
-are in ``compute_dtype``.
+on the card the caller passes the CUDA flash kernels
+(``ops.flash.flash_attention``), which never materialize the [T, T] scores,
+or a sequence-parallel function of the rank's shards
+(``ops.ring.make_ring_attention``, ``ops.ulysses.make_ulysses_attention``;
+x is then this rank's [B, T/sp, F]). The encoder is differentiable end to
+end with any of them: the flash path's gradient is its backward kernel, the
+collectives' gradients are their transposes. Layer norm and the residual
+stream stay float32; matmul inputs and q/k/v are in ``compute_dtype``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""Fused attention forward: two hand-written CUDA kernels (counterparts of
-the Pallas kernel ``_flash_forward`` in the reference's ``ops/flash.py``)
-and their plain PyTorch version.
+"""Fused attention: two hand-written CUDA forward kernels (counterparts of
+the Pallas kernel ``_flash_forward`` in the reference's ``ops/flash.py``),
+one hand-written CUDA backward kernel (counterpart of its VJP
+``_blockwise_bwd``), and the plain PyTorch version of each.
 
 ``flash_attention`` / ``flash_attention_with_lse`` take [B, T, H, D] q, k, v
 and return O [B, T, H, D] in the input dtype (and LSE [B, H, T] float32).
@@ -21,8 +22,13 @@ and head dim alone (``kernel_for``):
   (``tf32x3_prepass_reference`` is its plain version); bfloat16 needs no
   lo part, and P is split in registers.
 
-Forward only: the backward comes with the training slice, so a call that
-would need a gradient raises ``NotImplementedError``.
+Differentiable: ``flash_attention`` is a ``torch.autograd.Function``
+(the reference's ``jax.custom_vjp``) that saves (q, k, v, O, LSE) and whose
+backward is ``flash_backward``. That rebuilds P from the saved LSE tile by
+tile and never materializes [T, T], so training keeps the O(T·block) memory
+of the forward. A CUDA tensor launches ``csrc/flash_bwd.cu`` (counted under
+``"bwd"``) or raises; a CPU tensor takes ``flash_backward_reference``.
+Gradients come back in the input dtype, computed in float32.
 """
 
 from __future__ import annotations
@@ -51,15 +57,17 @@ VT_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 # kernel launches since the counters were last reset, in total and by
 # kernel; the plain version never touches them
 LAUNCHES = 0
-LAUNCHES_BY = {"sm90": 0, "tf32x3": 0}
+LAUNCHES_BY = {"sm90": 0, "tf32x3": 0, "bwd": 0}
 
 _LIBRARY = {"sm90": "flash_fwd_sm90", "tf32x3": "flash_fwd_tf32x3"}
+_BWD_LIBRARY = "flash_bwd"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry → its argument types: pointers, then ints, then the 9 strides and the stream
 _ARGTYPES = {
     "df_flash_fwd_sm90": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_P],
     "df_flash_fwd_tf32x3": [_P] * 8 + [_I] * 6 + [_L] * 9 + [_P],
     "df_tf32x3_split": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_P],
+    "df_flash_bwd": [_P] * 10 + [_I] * 6 + [_L] * 15 + [_P],
 }
 _fns: dict = {}
 
@@ -100,11 +108,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "flash attention is forward-only in this port; run it under"
-            " torch.no_grad() or with inputs that do not require grad"
-        )
 
 
 def _softmax_parts(q, k, v, causal):
@@ -294,6 +297,137 @@ def launch_kernel(q, k, v, causal, kernel: "str | None" = None):
     return o, lse
 
 
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def flash_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    causal: bool = False,
+    block_k: int = DEFAULT_BLOCK_K,
+) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
+    """Plain PyTorch version of the backward kernel, the reference's
+    ``_blockwise_bwd`` in torch ops: a loop over key tiles of ``block_k``
+    in float32, P rebuilt per tile from the saved LSE and never [T, T]
+    → (dQ, dK, dV) [B, T, H, D] in the input dtype.
+
+    With δ = rowsum(dO ⊙ O), per tile j: P = exp(s·scale − LSE) (masked
+    pairs take the -1e30 sentinel before the exp, so an empty row's LSE
+    sentinel cannot overflow), dV_j = Pᵀ·dO, dP = dO·V_jᵀ,
+    dS = P ⊙ (dP − δ), dQ += scale·dS·K_j, dK_j = scale·dSᵀ·Q."""
+    b, t, h, d = q.shape
+    scale = 1.0 / d**0.5
+
+    def heads_major(x):
+        return x.permute(0, 2, 1, 3).float()
+
+    qf, kf, vf, of, dof = map(heads_major, (q, k, v, o, do))
+    bk = min(block_k, _ceil_to(t, 8))
+    delta = (dof * of).sum(-1)  # [B, H, T]
+    q_pos = torch.arange(t, device=q.device)
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+    for k0 in range(0, t, bk):
+        k_j, v_j = kf[:, :, k0 : k0 + bk], vf[:, :, k0 : k0 + bk]
+        k_pos = torch.arange(k0, k0 + k_j.shape[2], device=q.device)
+        arg = scale * (qf @ k_j.transpose(-1, -2)) - lse[..., None]  # [B, H, T, bk]
+        if causal:
+            arg = arg.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
+        p = torch.exp(arg)
+        dv[:, :, k0 : k0 + bk] = p.transpose(-1, -2) @ dof
+        dp = dof @ v_j.transpose(-1, -2)
+        ds = p * (dp - delta[..., None])
+        dq += scale * (ds @ k_j)
+        dk[:, :, k0 : k0 + bk] = scale * (ds.transpose(-1, -2) @ qf)
+
+    def back(x, like):
+        return x.permute(0, 2, 1, 3).to(like.dtype)
+
+    return back(dq, q), back(dk, k), back(dv, v)
+
+
+def launch_backward(q, k, v, o, lse, do, causal):
+    """Launch the backward kernel on CUDA tensors → (dQ, dK, dV) in q's
+    dtype. q, k, v, O and dO are read through their B/T/H strides (the head
+    dimension contiguous); LSE is a contiguous [B, H, T] float32 tensor."""
+    global LAUNCHES
+    b, t, h, d = q.shape
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the backward kernel takes float32 or bfloat16, not {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not built; the backward kernel takes {HEAD_DIMS}")
+    _check_layout(q, k, v)
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} must match q's shape, dtype and device")
+        if x.stride(3) != 1:
+            raise ValueError(f"{name}'s head dimension must be contiguous (stride 1)")
+    if lse.shape != (b, h, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous [B, H, T] float32 tensor, got {tuple(lse.shape)}")
+    if q.device.type != "cuda" or lse.device != q.device:
+        raise ValueError(f"the backward kernel runs on cuda tensors, not {q.device}")
+    dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    if t == 0 or b * h == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    err = _entry(_BWD_LIBRARY, "df_flash_bwd")(
+        *(x.data_ptr() for x in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+        b, t, h, d, _DTYPE_CODE[q.dtype], int(bool(causal)),
+        *(st for x in (q, k, v, o, do) for st in x.stride()[:3]),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{_BWD_LIBRARY} launch failed: error {err}")
+    LAUNCHES += 1
+    LAUNCHES_BY["bwd"] += 1
+    return dq, dk, dv
+
+
+def flash_backward(q, k, v, o, lse, do, causal=False, block_k=DEFAULT_BLOCK_K):
+    """(q, k, v, O, LSE) of a forward and the cotangent dO → (dQ, dK, dV)
+    [B, T, H, D] in q's dtype. A CPU tensor goes to the plain version; a
+    CUDA tensor launches the kernel or raises. ``block_k`` is the plain
+    version's tile; the kernel's tiles are fixed at build time."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, o, lse, do, causal, block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+    return launch_backward(q, k, v, o, lse, do, causal)
+
+
+class _Flash(torch.autograd.Function):
+    """The forward kernels with ``flash_backward`` as their gradient (the
+    reference's ``_flash``/``_flash_fwd``/``_flash_bwd``). LSE is an output
+    without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_k):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_reference(q, k, v, causal)
+        elif q.device.type == "cuda":
+            o, lse = launch_kernel(q, k, v, causal)
+        else:
+            raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.block_k = causal, block_k
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(3) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do, ctx.causal, ctx.block_k)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_with_lse(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -302,16 +436,13 @@ def flash_attention_with_lse(
     block_q: int = DEFAULT_BLOCK_Q,
     block_k: int = DEFAULT_BLOCK_K,
 ) -> "tuple[torch.Tensor, torch.Tensor]":
-    """[B, T, H, D] q/k/v → (O [B, T, H, D], LSE [B, H, T] float32).
-    ``block_q``/``block_k`` are scheduling hints kept for the reference's
-    signature; the kernels' tiles are fixed at build time."""
-    del block_q, block_k
+    """[B, T, H, D] q/k/v → (O [B, T, H, D], LSE [B, H, T] float32);
+    differentiable in q, k and v. ``block_q`` is a scheduling hint kept for
+    the reference's signature and ``block_k`` the plain backward's key
+    tile; the kernels' tiles are fixed at build time."""
+    del block_q
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
-    return launch_kernel(q, k, v, causal)
+    return _Flash.apply(q, k, v, causal, block_k)
 
 
 def flash_attention(

@@ -1,6 +1,8 @@
 """The port on an NVIDIA card: both CUDA flash kernels against their plain
 PyTorch version (strided inputs, alignment checks, the tf32x3 pre-pass bit
-for bit and per-kernel launch counting included), and the serving and
+for bit and per-kernel launch counting included), the flash backward
+kernel against its plain version and Ulysses training through both over
+an sp = 1 NCCL group, and the serving and
 topology planes on the card against the same port on the CPU, one wave
 of the scheduler's ``ml`` decision path on the card, the trainer's
 fits (streamed, batch, GNN) on the card against the CPU with the pinned
@@ -193,6 +195,65 @@ def test_tf32x3_prepass_matches_its_plain_split_bit_for_bit(cuda, shape, dtype, 
     for g_, w in zip(got, want):
         assert g_.shape == w.shape
         assert torch.equal(g_.view(torch.int32), w.contiguous().view(torch.int32))
+
+
+# the backward kernel against flash_backward_reference on the same (O, LSE,
+# dO), per element rtol·|ref| + atol·max|ref| (chip_smoke.BWD_TOL: another
+# float32 summation order; in bfloat16 one rounding step and one more)
+BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2**-6, 1e-5)}
+
+
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [((2, 129, 3, 64), torch.float32), ((1, 100, 2, 32), torch.bfloat16)],
+)
+def test_backward_kernel_matches_plain_version(cuda, shape, dtype):
+    """Ragged T, causal: dQ, dK, dV from the kernel and from the plain
+    version on the forward kernel's O and LSE; one ``"bwd"`` launch."""
+    q, k, v = _qkv(shape, dtype, seed=sum(shape))
+    do = _qkv(shape, dtype, seed=sum(shape) + 1)[0]
+    with torch.no_grad():
+        o, lse = flash.launch_kernel(q, k, v, True)
+    before = dict(flash.LAUNCHES_BY)
+    got = flash.flash_backward(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES_BY == {**before, "bwd": before["bwd"] + 1}
+    want = flash.flash_backward_reference(q, k, v, o, lse, do, causal=True)
+    rtol, atol = BWD_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.shape == q.shape and g.dtype == dtype
+        diff = (g.float() - w.float()).abs()
+        limit = rtol * w.float().abs() + atol * w.float().abs().max()
+        assert (diff <= limit).all(), (diff / limit).max().item()
+
+
+def test_ulysses_gradient_on_the_card(cuda):
+    """Ulysses over an sp = 1 NCCL group with the flash kernels as its
+    per-device compute: one forward and one backward launch, gradients as
+    ``local_attention``'s under autograd (float32: summation order only)."""
+    import torch.distributed as dist
+
+    from dragonfly2_torch.ops.ring import local_attention
+    from dragonfly2_torch.ops.ulysses import make_ulysses_attention
+    from dragonfly2_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        uly = make_ulysses_attention(make_mesh(sp=1), "sp", causal=True, use_kernel=True)
+        base = _qkv((2, 300, 4, 64), torch.float32, seed=3)
+        grads = []
+        for fn in (uly, lambda q, k, v: local_attention(q, k, v, causal=True)):
+            q, k, v = (x.clone().requires_grad_(True) for x in base)
+            flash.reset_launches()
+            (fn(q, k, v) ** 2).sum().backward()
+            torch.cuda.synchronize()
+            grads.append([x.grad for x in (q, k, v)])
+            if not grads[1:]:
+                assert flash.LAUNCHES_BY == {"sm90": 0, "tf32x3": 1, "bwd": 1}
+        for g, w in zip(*grads):
+            torch.testing.assert_close(g, w, atol=1e-4 * w.abs().max().item(), rtol=1e-3)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):

@@ -132,12 +132,20 @@ def test_entry_points_default_to_the_card(entry):
 
 
 def test_requires_grad_input_raises():
+    """Kept under its old name: an input that requires grad no longer
+    raises. A gradient flows back through the plain backward, and inference
+    without a gradient gives the same output as before."""
     q, k, v = (torch.from_numpy(x) for x in _qkv((1, 64, 2, 32)))
+    with torch.no_grad():
+        plain = tflash.flash_attention(q, k, v)
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        tflash.flash_attention(q, k, v)
-    with torch.no_grad():  # inference through the same tensors is fine
-        assert tflash.flash_attention(q, k, v).shape == q.shape
+    out = tflash.flash_attention(q, k, v)
+    assert out.requires_grad and torch.equal(out.detach(), plain)
+    out.sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape and torch.isfinite(q.grad).all()
+    with torch.no_grad():  # inference through the same tensors is unchanged
+        again = tflash.flash_attention(q, k, v)
+    assert not again.requires_grad and torch.equal(again, plain)
 
 
 @pytest.mark.parametrize(
@@ -263,7 +271,7 @@ def test_sm90_refuses_unaligned_tma_inputs_before_launching(make):
 def test_reset_launches():
     tflash.LAUNCHES_BY["sm90"] += 3
     tflash.reset_launches()
-    assert tflash.LAUNCHES == 0 and tflash.LAUNCHES_BY == {"sm90": 0, "tf32x3": 0}
+    assert tflash.LAUNCHES == 0 and tflash.LAUNCHES_BY == {"sm90": 0, "tf32x3": 0, "bwd": 0}
 
 
 @pytest.mark.parametrize(

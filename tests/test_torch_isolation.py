@@ -6,7 +6,8 @@ nothing on ``chip_smoke.py``'s import path imports ``grpc`` or
 Checked statically, by parsing every source for its imports, and at run
 time in subprocesses (this process already imported jax) whose import
 system refuses the blocked packages: one imports every port module and
-runs the five legs of ``chip_smoke.py`` on the CPU at a tiny size (the
+runs the five legs of ``chip_smoke.py`` and its encoder-gradient leg
+(Ulysses over a one-rank gloo group) on the CPU at a tiny size (the
 trainer leg feeds its Train stream through plain messages and uploads
 through plain requests; the preheat leg's job goes out through a plain
 request), then the server leg, whose scheduler and trainer servers talk
@@ -101,6 +102,12 @@ enc = chip_smoke.encoder_leg(
     cfg=dict(in_dim=2, model_dim=32, num_heads=4, num_layers=2),
 )
 assert enc["launches"] == 0 and enc["err"] < 5e-2, enc
+grad = chip_smoke.encoder_grad_leg(
+    "cpu", batch=2, seq=40, cfg=dict(in_dim=2, model_dim=32, num_heads=4, num_layers=2),
+    dtype=torch.float32,
+)
+assert grad["launches_by"] == {{"sm90": 0, "tf32x3": 0, "bwd": 0}}, grad
+assert grad["grad_rel_err"] < 1e-3 and grad["grad_rel_err_qk"] < 1e-3, grad
 if {servers!r}:
     live = chip_smoke.server_leg(
         "cpu", hosts=128, probes=16, tasks=8, peers=64, concurrency=8, phase2=16,
@@ -138,8 +145,8 @@ def _run_child(blocked, every_module: bool) -> int:
 
 def test_port_runs_with_jax_and_reference_blocked():
     # every module of the port was imported (92 with the scheduler and
-    # trainer servers)
-    assert _run_child(BLOCKED, every_module=True) >= 92
+    # trainer servers, 96 with the sequence-parallel plane)
+    assert _run_child(BLOCKED, every_module=True) >= 96
 
 
 def test_chip_smoke_runs_without_grpc_or_protobuf():

@@ -5,13 +5,13 @@
 
 Phases (any failed check raises and the script exits non-zero):
 
-1. device and build: the card's name and power limit, then the three
-   CUDA sources (both flash forwards and the flash backward) built with
+1. device and build: the card's name and power limit, then the four
+   CUDA sources (both flash forwards and both flash backwards) built with
    ``nvcc`` at once (each timed), with
    ``ptxas``'s registers, spills and added wgmma fences per
    instantiation and, where
    ``cuobjdump`` sits beside ``nvcc``, the count of HGMMA (wgmma)
-   instructions in each forward library's SASS (0 fails);
+   instructions in the SASS of each tensor-core library (0 fails);
 2. the tf32x3 kernel's pre-pass against its plain split, bit for bit (and
    timed alone at the encoder's shape); each flash kernel against the
    plain PyTorch version at every checked shape, with max|err| of O and
@@ -19,12 +19,15 @@ Phases (any failed check raises and the script exits non-zero):
    encoder's shape (float32 → tf32x3, bfloat16 → sm90) and at D = 8 in
    bfloat16 (tf32x3's other role) the kernel, SDPA and the plain version
    are timed in turns beside the card's bound for the same work, and the
-   CUDA kernels SDPA runs are named from a profiler trace; then the
-   backward kernel (``flash_bwd``) against ``flash_backward_reference`` on
-   the same (O, LSE, dO) at every checked shape (every head dim, both
-   types, ragged T, causal or not, packed views), with max|err| of dQ, dK
-   and dV and the share of each limit used, and at the encoder's shape in
-   both types the kernel, SDPA's backward and the plain version timed;
+   CUDA kernels SDPA runs are named from a profiler trace; then each
+   backward kernel against ``flash_backward_reference`` on the same (O,
+   LSE, dO) at every checked shape it takes (``flash_bwd_sm90``: bfloat16
+   at D in 16, 32, 64, 128, ragged T, packed views; ``flash_bwd``: float32
+   at every head dim and bfloat16 at D = 8), with max|err| of dQ, dK and
+   dV and the share of each limit used, and at the encoder's shape in
+   bfloat16 ``flash_bwd_sm90``, ``flash_bwd`` and SDPA's backward timed in
+   turns, in float32 ``flash_bwd`` and SDPA's backward, each beside the
+   plain version;
 3. serve leg at cluster scale: 10,000 hosts × 16 probes through the
    topology engine, one flush on the card, then waves of 256 decisions ×
    15 candidates joined (rtt affinity) and ranked by a [19, 128, 128, 1]
@@ -94,8 +97,9 @@ Phases (any failed check raises and the script exits non-zero):
 9. encoder-gradient leg at the same width: ``apply_transformer`` with
    ``make_ulysses_attention(..., use_kernel=True)`` over an sp = 1 NCCL
    process group, a seeded loss and ``backward()``, in bfloat16 and in
-   float32: each step must launch the forward kernel and ``flash_bwd``
-   once per layer and nothing else, every gradient must be finite and
+   float32: each step must launch the forward kernel and the backward
+   kernel of its route (``flash_bwd_sm90`` in bfloat16, ``flash_bwd`` in
+   float32) once per layer and nothing else, every gradient must be finite and
    within ``ENCODER_GRAD_TOL`` (``ENCODER_GRAD_QK_TOL`` for wq and wk) of
    the same step with ``local_attention`` under autograd; the step's wall
    and its peak memory are printed beside ``local_attention``'s.
@@ -228,19 +232,29 @@ ENCODER = dict(in_dim=GRU_FEATURE_DIM, model_dim=256, num_heads=4, num_layers=4)
 ENCODER_BT = (2, 8192)
 ENCODER_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
 D8_BF16 = (2, 8192, 4, 8)  # tf32x3's bf16 role at the encoder's B, T and H
-KERNEL_NAMES = {"sm90": "flash_fwd_sm90", "tf32x3": "flash_fwd_tf32x3"}
-BWD_LIBRARY = "flash_bwd"  # CUDA cores only: no wgmma to count in its SASS
+KERNEL_NAMES = {
+    "sm90": "flash_fwd_sm90",
+    "tf32x3": "flash_fwd_tf32x3",
+    "bwd": "flash_bwd",
+    "bwd_sm90": "flash_bwd_sm90",
+}
+# the libraries whose SASS must hold wgmma (flash_bwd runs on the CUDA cores)
+WGMMA_LIBRARIES = ("flash_fwd_sm90", "flash_fwd_tf32x3", "flash_bwd_sm90")
 # The backward kernel's dQ, dK, dV against flash_backward_reference on the
 # same (q, k, v, O, LSE, dO), per element |g - ref| <= rtol·|ref| +
 # atol·max|ref| as (rtol, atol). float32: both sum up to T products in
 # float32 in other orders (the plain version sits within 0.06 of this limit
 # of a float64 backward on the CPU at T = 2048); bfloat16: both round the
 # same float32 values, which may land on either side of a rounding point —
-# one step (2^-7·|ref|) and one more.
+# one step (2^-7·|ref|) and one more. flash_bwd_sm90 also rounds P and dS
+# to bf16 before the dV, dK and dQ products; that moves each gradient by at
+# most 2^-8 times its term of ``flash.bwd_rounding_terms``, which its limit
+# adds (pinned by a CPU emulation in tests/test_torch_flash_bwd.py).
 BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2**-6, 1e-5)}
 # (B, T, H, D, causal, dtype, packed q/k/v): every head dim in both types,
-# ragged T, causal or not, views of one packed projection; the encoder's
-# shape is checked and timed after these
+# ragged T, causal or not, views of one packed projection, each through the
+# backward kernel of its route (bf16 at D >= 16 → flash_bwd_sm90); the
+# encoder's shape is checked and timed after these
 BWD_SHAPES = [
     (2, 200, 4, 64, True, torch.float32, False),  # ragged tail
     (2, 200, 4, 64, True, torch.bfloat16, False),
@@ -248,6 +262,7 @@ BWD_SHAPES = [
     (1, 333, 2, 32, False, torch.bfloat16, False),
     (1, 96, 8, 128, True, torch.float32, False),  # short sequence, wide head
     (1, 300, 2, 128, False, torch.bfloat16, False),
+    (1, 1000, 2, 128, True, torch.bfloat16, False),  # several key tiles at one warpgroup
     (2, 100, 4, 8, True, torch.float32, False),
     (2, 100, 4, 8, True, torch.bfloat16, False),  # the tf32x3 forward's bf16 role
     (1, 77, 2, 16, False, torch.bfloat16, False),
@@ -363,7 +378,7 @@ def flash_flops(b: int, t: int, h: int, d: int, causal: bool) -> int:
 
 def build_kernels() -> None:
     """Every library built at once, each timed, with ptxas's report per
-    instantiation and the wgmma count of each forward library's SASS."""
+    instantiation and the wgmma count of each tensor-core library's SASS."""
 
     def timed_load(name):
         t0 = time.perf_counter()
@@ -380,7 +395,7 @@ def build_kernels() -> None:
     if not cuobjdump.exists():
         print(f"  {cuobjdump} not found: HGMMA instructions not counted")
         return
-    for name in KERNEL_NAMES.values():
+    for name in WGMMA_LIBRARIES:
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(_build.library_path(name))],
             capture_output=True, text=True, check=True,
@@ -587,38 +602,44 @@ def bwd_inputs(q, k, v, causal, seed):
     return o, lse, torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
 
 
-def bwd_case(q, k, v, causal, seed) -> dict:
-    """The backward kernel at one shape against its plain version on the
-    same (O, LSE, dO) → {"max_abs_err", "bound_ms", "bound_by"}."""
+def bwd_case(q, k, v, causal, seed, kernel: "str | None" = None) -> dict:
+    """A backward kernel at one shape against its plain version on the same
+    (O, LSE, dO), with the limit of that kernel → {"max_abs_err",
+    "bound_ms", "bound_by"}. ``kernel`` defaults to the shape's route."""
     b, t, h, d = q.shape
+    kernel = kernel or flash.bwd_kernel_for(q.dtype, d)
     o, lse, do = bwd_inputs(q, k, v, causal, seed)
-    got = flash.launch_backward(q, k, v, o, lse, do, causal)
+    got = flash.launch_backward(q, k, v, o, lse, do, causal, kernel=kernel)
     torch.cuda.synchronize()
     want = flash.flash_backward_reference(q, k, v, o, lse, do, causal)
+    terms = (
+        flash.bwd_rounding_terms(q, k, v, o, lse, do, causal) if kernel == "bwd_sm90" else (0, 0, 0)
+    )
     rtol, atol = BWD_TOL[q.dtype]
-    name = f"{BWD_LIBRARY} {shape_name(q, causal)}"
+    name = f"{KERNEL_NAMES[kernel]} {shape_name(q, causal)}"
     errs, shares = {}, {}
-    for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+    for grad, g, w, term in zip(("dq", "dk", "dv"), got, want, terms):
         check(g.shape == q.shape and g.dtype == q.dtype and torch.isfinite(g).all().item(),
               f"{name}: {grad} shape, dtype or finiteness")
         diff = (g.float() - w.float()).abs()
-        limit = rtol * w.float().abs() + atol * w.float().abs().max()
+        limit = rtol * w.float().abs() + atol * w.float().abs().max() + P_ROUNDING * term
         errs[grad] = diff.max().item()
         shares[grad] = (diff / limit).max().item()
+    p_term = f" + {P_ROUNDING:g}*term" if kernel == "bwd_sm90" else ""
     print(
         f"{name}: max|err| " + " ".join(f"{g}={errs[g]:.3g} ({shares[g]:.3g} of the limit)" for g in errs)
-        + f" (limit {rtol:g}*|ref| + {atol:g}*max|ref|)"
+        + f" (limit {rtol:g}*|ref| + {atol:g}*max|ref|{p_term})"
     )
     check(max(shares.values()) <= 1.0, f"{name}: the backward kernel disagrees with the plain version")
     bound, by = bwd_bound_ms(b, t, h, d, causal, q.dtype)
     return {"max_abs_err": max(errs.values()), "bound_ms": bound, "bound_by": by}
 
 
-def bwd_times(q, k, v, causal, rounds: int = 3) -> dict:
-    """Device times of the backward at one shape: the kernel and SDPA's
-    backward (on the same inputs in its layout) in turns, ``rounds`` times
-    (medians reported), then the plain version → {"ms", "library_ms",
-    "plain_ms"}."""
+def bwd_times(q, k, v, causal, kernels, rounds: int = 3) -> dict:
+    """Device times of the backward at one shape: each of ``kernels`` and
+    SDPA's backward (on the same inputs in its layout) in turns, ``rounds``
+    times (medians reported), then the plain version → {kernel: ms,
+    "library_ms", "plain_ms"}."""
     o, lse, do = bwd_inputs(q, k, v, causal, seed=8)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
     out = sdpa(qt, kt, vt, causal)
@@ -627,34 +648,50 @@ def bwd_times(q, k, v, causal, rounds: int = 3) -> dict:
     def library():
         return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
 
-    ms, lib = [], []
+    times = {kern: [] for kern in (*kernels, "library_ms")}
     for _ in range(rounds):
-        ms.append(cuda_ms(lambda: flash.launch_backward(q, k, v, o, lse, do, causal), 5))
-        lib.append(cuda_ms(library, 5))
+        for kern in kernels:
+            # flash_bwd takes ~11 ms a call at the encoder's shape, the others < 1
+            reps = 5 if kern == "bwd" else 20
+            times[kern].append(
+                cuda_ms(lambda: flash.launch_backward(q, k, v, o, lse, do, causal, kernel=kern), reps)
+            )
+        times["library_ms"].append(cuda_ms(library, 20))
     plain = cuda_ms(lambda: flash.flash_backward_reference(q, k, v, o, lse, do, causal), 2)
-    return {"ms": statistics.median(ms), "library_ms": statistics.median(lib), "plain_ms": plain}
+    return {**{key: statistics.median(ms) for key, ms in times.items()}, "plain_ms": plain}
 
 
 def bwd_phase() -> dict:
-    """The backward kernel at every checked shape, then at the encoder's
-    shape in bfloat16 and float32, checked and timed → {dtype name: its
-    entry of the kernels' table, without ``launches``}."""
+    """Each backward kernel at every checked shape of its route, then at the
+    encoder's shape: in bfloat16 ``flash_bwd_sm90`` (its route) and
+    ``flash_bwd`` (named, for the comparison and its D = 8 role) checked and
+    timed in turns with SDPA's backward, in float32 ``flash_bwd`` → {row:
+    its entry of the kernels' table, without ``launches``} for the rows
+    ``bwd_sm90``, ``bwd_bfloat16`` and ``bwd_float32``."""
     for i, (b, t, h, d, causal, dtype, packed) in enumerate(BWD_SHAPES):
         bwd_case(*random_qkv(b, t, h, d, dtype, seed=400 + i, packed=packed), causal, seed=500 + i)
     b, t = ENCODER_BT
     h = ENCODER["num_heads"]
     shape = (b, t, h, ENCODER["model_dim"] // h)
     rows = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, kernels in ((torch.bfloat16, ("bwd_sm90", "bwd")), (torch.float32, ("bwd",))):
         q, k, v = random_qkv(*shape, dtype, seed=9)
-        r = rows[str(dtype)[6:]] = {**bwd_case(q, k, v, True, seed=10), **bwd_times(q, k, v, True)}
-        print(
-            f"{BWD_LIBRARY} {shape_name(q, True)}: kernel_ms={r['ms']:.4f}"
-            f" plain_ms={r['plain_ms']:.4f} library_ms(sdpa backward)={r['library_ms']:.4f}"
-            f" ({r['ms'] / r['library_ms']:.2f}x) bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
-            f" {10 * shape[3] * b * h * flash_pairs(t, True) / r['ms'] / 1e9:.1f} TFLOP/s"
-            f" (five products), {r['bound_ms'] / r['ms']:.2%} of the bound"
-        )
+        times = bwd_times(q, k, v, True, kernels)
+        for kern in kernels:
+            row = "bwd_sm90" if kern == "bwd_sm90" else f"bwd_{str(dtype)[6:]}"
+            r = rows[row] = {
+                **bwd_case(q, k, v, True, seed=10, kernel=kern),
+                "ms": times[kern],
+                "library_ms": times["library_ms"],
+                "plain_ms": times["plain_ms"],
+            }
+            print(
+                f"{KERNEL_NAMES[kern]} {shape_name(q, True)}: kernel_ms={r['ms']:.4f}"
+                f" plain_ms={r['plain_ms']:.4f} library_ms(sdpa backward)={r['library_ms']:.4f}"
+                f" ({r['ms'] / r['library_ms']:.2f}x) bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
+                f" {10 * shape[3] * b * h * flash_pairs(t, True) / r['ms'] / 1e9:.1f} TFLOP/s"
+                f" (five products), {r['bound_ms'] / r['ms']:.2%} of the bound"
+            )
     return rows
 
 
@@ -2342,8 +2379,9 @@ def encoder_grad_leg(
         grads = {n: p.grad.clone() for n, p in enc.named_parameters() if p.grad is not None}
         expected = {kern: 0 for kern in launches}
         if device.type == "cuda":
-            expected[flash.kernel_for(dtype, cfg["model_dim"] // cfg["num_heads"])] = cfg["num_layers"]
-            expected["bwd"] = cfg["num_layers"]
+            head_dim = cfg["model_dim"] // cfg["num_heads"]
+            expected[flash.kernel_for(dtype, head_dim)] = cfg["num_layers"]
+            expected[flash.bwd_kernel_for(dtype, head_dim)] = cfg["num_layers"]
         check(launches == expected, f"flash launches {launches}, expected {expected}")
         check(out.shape == (batch, seq, cfg["model_dim"]) and torch.isfinite(out).all().item(),
               "encoder output shape or finiteness")
@@ -2463,17 +2501,25 @@ def main() -> int:
         for kern in ("sm90", "tf32x3")
     ] + [
         {
-            "name": f"{BWD_LIBRARY}[{dtype}]",
+            "name": name,
             "route": "cuda",
-            "source": f"dragonfly2_torch/csrc/{BWD_LIBRARY}.cu",
+            "source": f"dragonfly2_torch/csrc/{KERNEL_NAMES[kern]}.cu",
             "replaces": "dragonfly2_tpu/ops/flash.py:185",
-            "launches": grad_legs[dtype]["launches_by"]["bwd"],
-            **{key: bwd_rows[dtype][key] for key in
+            "launches": grad_legs[leg]["launches_by"][kern],
+            **{key: bwd_rows[row][key] for key in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         }
-        for dtype in ("bfloat16", "float32")
+        # flash_bwd[bfloat16] is flash_bwd's bf16 D = 8 role, timed at the
+        # encoder's shape for the comparison: the path launches it no time
+        for name, kern, leg, row in (
+            ("flash_bwd_sm90", "bwd_sm90", "bfloat16", "bwd_sm90"),
+            ("flash_bwd[float32]", "bwd", "float32", "bwd_float32"),
+            ("flash_bwd[bfloat16]", "bwd", "bfloat16", "bwd_bfloat16"),
+        )
     ]
-    check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched")
+    for source in {k["source"] for k in kernels}:
+        check(sum(k["launches"] for k in kernels if k["source"] == source) > 0,
+              f"{source}: a kernel of the path was never launched")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

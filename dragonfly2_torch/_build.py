@@ -29,6 +29,7 @@ SOURCES = {
     "flash_fwd_sm90": "flash_fwd_sm90.cu",
     "flash_fwd_tf32x3": "flash_fwd_tf32x3.cu",
     "flash_bwd": "flash_bwd.cu",
+    "flash_bwd_sm90": "flash_bwd_sm90.cu",
 }
 
 NVCC_FLAGS = (

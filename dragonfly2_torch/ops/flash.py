@@ -1,6 +1,6 @@
 """Fused attention: two hand-written CUDA forward kernels (counterparts of
 the Pallas kernel ``_flash_forward`` in the reference's ``ops/flash.py``),
-one hand-written CUDA backward kernel (counterpart of its VJP
+two hand-written CUDA backward kernels (counterparts of its VJP
 ``_blockwise_bwd``), and the plain PyTorch version of each.
 
 ``flash_attention`` / ``flash_attention_with_lse`` take [B, T, H, D] q, k, v
@@ -26,9 +26,21 @@ Differentiable: ``flash_attention`` is a ``torch.autograd.Function``
 (the reference's ``jax.custom_vjp``) that saves (q, k, v, O, LSE) and whose
 backward is ``flash_backward``. That rebuilds P from the saved LSE tile by
 tile and never materializes [T, T], so training keeps the O(T·block) memory
-of the forward. A CUDA tensor launches ``csrc/flash_bwd.cu`` (counted under
-``"bwd"``) or raises; a CPU tensor takes ``flash_backward_reference``.
-Gradients come back in the input dtype, computed in float32.
+of the forward. A CPU tensor takes ``flash_backward_reference``; a CUDA
+tensor launches the backward kernel ``bwd_kernel_for(dtype, D)`` names, or
+raises:
+
+- ``"bwd_sm90"`` (``csrc/flash_bwd_sm90.cu``): bfloat16 with D in 16, 32,
+  64, 128, the calls whose forward is ``"sm90"`` — all five products on the
+  tensor cores (wgmma + TMA). It rounds P and dS to bfloat16 before the dV,
+  dK and dQ products (``bwd_rounding_terms`` gives the worst case of that),
+  and sums dQ across key tiles with float32 atomics, so its bfloat16
+  gradients are not bit-reproducible from run to run.
+- ``"bwd"`` (``csrc/flash_bwd.cu``): float32 at every D in ``HEAD_DIMS``
+  and bfloat16 at D = 8 — every product on the CUDA cores in float32,
+  deterministic.
+
+Gradients come back in the input dtype, accumulated in float32.
 """
 
 from __future__ import annotations
@@ -57,10 +69,24 @@ VT_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 # kernel launches since the counters were last reset, in total and by
 # kernel; the plain version never touches them
 LAUNCHES = 0
-LAUNCHES_BY = {"sm90": 0, "tf32x3": 0, "bwd": 0}
+LAUNCHES_BY = {"sm90": 0, "tf32x3": 0, "bwd": 0, "bwd_sm90": 0}
 
-_LIBRARY = {"sm90": "flash_fwd_sm90", "tf32x3": "flash_fwd_tf32x3"}
-_BWD_LIBRARY = "flash_bwd"
+_LIBRARY = {
+    "sm90": "flash_fwd_sm90",
+    "tf32x3": "flash_fwd_tf32x3",
+    "bwd": "flash_bwd",
+    "bwd_sm90": "flash_bwd_sm90",
+}
+# (kernel, dtype) → the head dims it is built for
+_BUILT = {
+    ("sm90", torch.bfloat16): SM90_HEAD_DIMS,
+    ("tf32x3", torch.float32): HEAD_DIMS,
+    ("tf32x3", torch.bfloat16): (8,),
+    ("bwd", torch.float32): HEAD_DIMS,
+    ("bwd", torch.bfloat16): HEAD_DIMS,
+    ("bwd_sm90", torch.bfloat16): SM90_HEAD_DIMS,
+}
+_BWD_SM90_BLOCK = 64  # the bwd_sm90 kernel's query tile: its dQ scratch is T rounded up to it
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry → its argument types: pointers, then ints, then the 9 strides and the stream
 _ARGTYPES = {
@@ -68,6 +94,7 @@ _ARGTYPES = {
     "df_flash_fwd_tf32x3": [_P] * 8 + [_I] * 6 + [_L] * 9 + [_P],
     "df_tf32x3_split": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_P],
     "df_flash_bwd": [_P] * 10 + [_I] * 6 + [_L] * 15 + [_P],
+    "df_flash_bwd_sm90": [_P] * 11 + [_I] * 5 + [_L] * 15 + [_P],
 }
 _fns: dict = {}
 
@@ -81,8 +108,24 @@ def reset_launches() -> None:
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a CUDA call of this dtype and head dim launches."""
+    """The forward kernel a CUDA call of this dtype and head dim launches."""
     return "sm90" if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS else "tf32x3"
+
+
+def bwd_kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel a CUDA call of this dtype and head dim launches:
+    the tensor-core one wherever the forward is ``"sm90"``."""
+    return "bwd_sm90" if kernel_for(dtype, head_dim) == "sm90" else "bwd"
+
+
+def _check_built(kernel: str, dtype: torch.dtype, head_dim: int) -> None:
+    allowed = _BUILT.get((kernel, dtype))
+    if allowed is None:
+        raise TypeError(f"the {kernel} kernel does not take {dtype}")
+    if head_dim not in allowed:
+        raise ValueError(
+            f"head dim {head_dim} not built; the {kernel} kernel takes {allowed} in {dtype}"
+        )
 
 
 def _entry(library: str, symbol: str):
@@ -244,34 +287,38 @@ def _check_layout(q, k, v) -> None:
             raise ValueError(f"{name}'s head dimension must be contiguous (stride 1)")
 
 
+def _aligned_strides(kernel: str, named) -> "list[tuple[int, int, int]]":
+    """The (B, T, H) strides of each (name, [B, T, H, D] tensor) for the
+    ``kernel``'s 16-byte loads (TMA, or vectors of 8 bf16); raises when a
+    base address or a stride is not on 16 bytes."""
+    strides = []
+    for name, x in named:
+        st = _tma_strides(x)
+        size = x.element_size()
+        if x.data_ptr() % _TMA_ALIGN or any(s * size % _TMA_ALIGN for s in st):
+            raise ValueError(
+                f"{name}: the {kernel} kernel's TMA loads need a {_TMA_ALIGN}-byte aligned base"
+                f" address and B/T/H strides, got address {x.data_ptr():#x} and strides"
+                f" {st} of {size}-byte elements"
+            )
+        strides.append(st)
+    return strides
+
+
 def launch_kernel(q, k, v, causal, kernel: "str | None" = None):
     """Launch a kernel on CUDA q, k, v → (O, LSE). ``kernel`` defaults to
     ``kernel_for(dtype, D)``; naming one picks it for a comparison."""
     global LAUNCHES
     b, t, h, d = q.shape
     kernel = kernel or kernel_for(q.dtype, d)
-    allowed = {
-        ("sm90", torch.bfloat16): SM90_HEAD_DIMS,
-        ("tf32x3", torch.float32): HEAD_DIMS,
-        ("tf32x3", torch.bfloat16): (8,),
-    }.get((kernel, q.dtype))
-    if allowed is None:
-        raise TypeError(f"the {kernel} kernel does not take {q.dtype}")
-    if d not in allowed:
-        raise ValueError(
-            f"head dim {d} not built; the {kernel} kernel takes {allowed} in {q.dtype}"
-        )
+    if kernel not in ("sm90", "tf32x3"):
+        raise ValueError(f"{kernel} is not a forward kernel")
+    _check_built(kernel, q.dtype, d)
     _check_layout(q, k, v)
-    strides = [_tma_strides(x) if kernel == "sm90" else x.stride()[:3] for x in (q, k, v)]
     if kernel == "sm90":
-        size = q.element_size()
-        for name, x, st in zip("qkv", (q, k, v), strides):
-            if x.data_ptr() % _TMA_ALIGN or any(s * size % _TMA_ALIGN for s in st):
-                raise ValueError(
-                    f"{name}: the sm90 kernel's TMA loads need a {_TMA_ALIGN}-byte aligned base"
-                    f" address and B/T/H strides, got address {x.data_ptr():#x} and strides"
-                    f" {st} of {size}-byte elements"
-                )
+        strides = _aligned_strides(kernel, zip("qkv", (q, k, v)))
+    else:
+        strides = [x.stride()[:3] for x in (q, k, v)]
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if t == 0 or b * h == 0:
@@ -301,6 +348,41 @@ def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _backward_tiles(q, k, v, o, lse, do, causal, block_k):
+    """The plain backward's key-tile loop: float32 heads-major (Q, dO) [B,
+    H, T, D] and, per tile of ``block_k`` keys, (k0, K_j, P, dS) with
+    δ = rowsum(dO ⊙ O) and P = exp(s·scale − LSE), masked pairs taking the
+    -1e30 sentinel before the exp (so an empty row's LSE sentinel cannot
+    overflow), dS = P ⊙ (dO·V_jᵀ − δ)."""
+    t, d = q.shape[1], q.shape[3]
+    scale = 1.0 / d**0.5
+
+    def heads_major(x):
+        return x.permute(0, 2, 1, 3).float()
+
+    qf, kf, vf, of, dof = map(heads_major, (q, k, v, o, do))
+    bk = min(block_k, _ceil_to(t, 8))
+    delta = (dof * of).sum(-1)  # [B, H, T]
+    q_pos = torch.arange(t, device=q.device)
+
+    def tiles():
+        for k0 in range(0, t, bk):
+            k_j, v_j = kf[:, :, k0 : k0 + bk], vf[:, :, k0 : k0 + bk]
+            k_pos = torch.arange(k0, k0 + k_j.shape[2], device=q.device)
+            arg = scale * (qf @ k_j.transpose(-1, -2)) - lse[..., None]  # [B, H, T, bk]
+            if causal:
+                arg = arg.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
+            p = torch.exp(arg)
+            ds = p * (dof @ v_j.transpose(-1, -2) - delta[..., None])
+            yield k0, k_j, p, ds
+
+    return qf, dof, tiles()
+
+
+def _token_major(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x.permute(0, 2, 1, 3).to(dtype)
+
+
 def flash_backward_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -311,7 +393,7 @@ def flash_backward_reference(
     causal: bool = False,
     block_k: int = DEFAULT_BLOCK_K,
 ) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
-    """Plain PyTorch version of the backward kernel, the reference's
+    """Plain PyTorch version of the backward kernels, the reference's
     ``_blockwise_bwd`` in torch ops: a loop over key tiles of ``block_k``
     in float32, P rebuilt per tile from the saved LSE and never [T, T]
     → (dQ, dK, dV) [B, T, H, D] in the input dtype.
@@ -320,47 +402,61 @@ def flash_backward_reference(
     pairs take the -1e30 sentinel before the exp, so an empty row's LSE
     sentinel cannot overflow), dV_j = Pᵀ·dO, dP = dO·V_jᵀ,
     dS = P ⊙ (dP − δ), dQ += scale·dS·K_j, dK_j = scale·dSᵀ·Q."""
-    b, t, h, d = q.shape
-    scale = 1.0 / d**0.5
-
-    def heads_major(x):
-        return x.permute(0, 2, 1, 3).float()
-
-    qf, kf, vf, of, dof = map(heads_major, (q, k, v, o, do))
-    bk = min(block_k, _ceil_to(t, 8))
-    delta = (dof * of).sum(-1)  # [B, H, T]
-    q_pos = torch.arange(t, device=q.device)
+    scale = 1.0 / q.shape[3] ** 0.5
+    qf, dof, tiles = _backward_tiles(q, k, v, o, lse, do, causal, block_k)
     dq = torch.zeros_like(qf)
-    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
-    for k0 in range(0, t, bk):
-        k_j, v_j = kf[:, :, k0 : k0 + bk], vf[:, :, k0 : k0 + bk]
-        k_pos = torch.arange(k0, k0 + k_j.shape[2], device=q.device)
-        arg = scale * (qf @ k_j.transpose(-1, -2)) - lse[..., None]  # [B, H, T, bk]
-        if causal:
-            arg = arg.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
-        p = torch.exp(arg)
-        dv[:, :, k0 : k0 + bk] = p.transpose(-1, -2) @ dof
-        dp = dof @ v_j.transpose(-1, -2)
-        ds = p * (dp - delta[..., None])
+    dk, dv = torch.empty_like(qf), torch.empty_like(qf)
+    for k0, k_j, p, ds in tiles:
+        n = k_j.shape[2]
+        dv[:, :, k0 : k0 + n] = p.transpose(-1, -2) @ dof
         dq += scale * (ds @ k_j)
-        dk[:, :, k0 : k0 + bk] = scale * (ds.transpose(-1, -2) @ qf)
-
-    def back(x, like):
-        return x.permute(0, 2, 1, 3).to(like.dtype)
-
-    return back(dq, q), back(dk, k), back(dv, v)
+        dk[:, :, k0 : k0 + n] = scale * (ds.transpose(-1, -2) @ qf)
+    return _token_major(dq, q.dtype), _token_major(dk, k.dtype), _token_major(dv, v.dtype)
 
 
-def launch_backward(q, k, v, o, lse, do, causal):
-    """Launch the backward kernel on CUDA tensors → (dQ, dK, dV) in q's
+def bwd_rounding_terms(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    causal: bool = False,
+    block_k: int = DEFAULT_BLOCK_K,
+) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
+    """(scale·|dS|·|K|, scale·|dS|ᵀ·|Q|, Pᵀ·|dO|) [B, T, H, D] float32, the
+    terms of dQ, dK and dV, from the same float32 P and dS as the plain
+    version, on its key-tile loop. Rounding each p or ds to bfloat16 moves it
+    by at most 2⁻⁸ of itself, so a kernel that rounds P and dS before the
+    dV, dK and dQ products moves each gradient by at most 2⁻⁸ times its
+    term."""
+    scale = 1.0 / q.shape[3] ** 0.5
+    qf, dof, tiles = _backward_tiles(q, k, v, o, lse, do, causal, block_k)
+    tq = torch.zeros_like(qf)
+    tk, tv = torch.empty_like(qf), torch.empty_like(qf)
+    q_abs, do_abs = qf.abs(), dof.abs()
+    for k0, k_j, p, ds in tiles:
+        n = k_j.shape[2]
+        ds_abs = ds.abs()
+        tv[:, :, k0 : k0 + n] = p.transpose(-1, -2) @ do_abs
+        tq += scale * (ds_abs @ k_j.abs())
+        tk[:, :, k0 : k0 + n] = scale * (ds_abs.transpose(-1, -2) @ q_abs)
+    return tuple(_token_major(x, torch.float32) for x in (tq, tk, tv))
+
+
+def launch_backward(q, k, v, o, lse, do, causal, kernel: "str | None" = None):
+    """Launch a backward kernel on CUDA tensors → (dQ, dK, dV) in q's
     dtype. q, k, v, O and dO are read through their B/T/H strides (the head
-    dimension contiguous); LSE is a contiguous [B, H, T] float32 tensor."""
+    dimension contiguous); LSE is a contiguous [B, H, T] float32 tensor.
+    ``kernel`` defaults to ``bwd_kernel_for(dtype, D)``; naming one picks it
+    for a comparison. Everything is checked before anything is built or
+    launched."""
     global LAUNCHES
     b, t, h, d = q.shape
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the backward kernel takes float32 or bfloat16, not {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not built; the backward kernel takes {HEAD_DIMS}")
+    kernel = kernel or bwd_kernel_for(q.dtype, d)
+    if kernel not in ("bwd", "bwd_sm90"):
+        raise ValueError(f"{kernel} is not a backward kernel")
+    _check_built(kernel, q.dtype, d)
     _check_layout(q, k, v)
     for name, x in (("o", o), ("do", do)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
@@ -369,30 +465,44 @@ def launch_backward(q, k, v, o, lse, do, causal):
             raise ValueError(f"{name}'s head dimension must be contiguous (stride 1)")
     if lse.shape != (b, h, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous [B, H, T] float32 tensor, got {tuple(lse.shape)}")
+    named = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
+    if kernel == "bwd_sm90":
+        strides = _aligned_strides(kernel, named)
+    else:
+        strides = [x.stride()[:3] for _, x in named]
     if q.device.type != "cuda" or lse.device != q.device:
         raise ValueError(f"the backward kernel runs on cuda tensors, not {q.device}")
     dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
     if t == 0 or b * h == 0:
         return dq, dk, dv
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    err = _entry(_BWD_LIBRARY, "df_flash_bwd")(
-        *(x.data_ptr() for x in (q, k, v, o, do, lse, delta, dq, dk, dv)),
-        b, t, h, d, _DTYPE_CODE[q.dtype], int(bool(causal)),
-        *(st for x in (q, k, v, o, do) for st in x.stride()[:3]),
+    scratch = [delta]
+    if kernel == "bwd_sm90":
+        # dQ's float32 sum over key tiles, zeroed by the launch
+        t_pad = _ceil_to(t, _BWD_SM90_BLOCK)
+        scratch.append(torch.empty((b * h, t_pad, d), dtype=torch.float32, device=q.device))
+    head = [x.data_ptr() for x in (q, k, v, o, do, lse, *scratch, dq, dk, dv)]
+    head += [b, t, h, d] + ([_DTYPE_CODE[q.dtype]] if kernel == "bwd" else [])
+    library = _LIBRARY[kernel]
+    err = _entry(library, f"df_{library}")(
+        *head,
+        int(bool(causal)),
+        *(x for st in strides for x in st),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"{_BWD_LIBRARY} launch failed: error {err}")
+        raise RuntimeError(f"{library} launch failed: error {err}")
     LAUNCHES += 1
-    LAUNCHES_BY["bwd"] += 1
+    LAUNCHES_BY[kernel] += 1
     return dq, dk, dv
 
 
 def flash_backward(q, k, v, o, lse, do, causal=False, block_k=DEFAULT_BLOCK_K):
     """(q, k, v, O, LSE) of a forward and the cotangent dO → (dQ, dK, dV)
     [B, T, H, D] in q's dtype. A CPU tensor goes to the plain version; a
-    CUDA tensor launches the kernel or raises. ``block_k`` is the plain
-    version's tile; the kernel's tiles are fixed at build time."""
+    CUDA tensor launches its backward kernel (``bwd_kernel_for``) or raises.
+    ``block_k`` is the plain version's tile; the kernels' tiles are fixed
+    at build time."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, o, lse, do, causal, block_k)

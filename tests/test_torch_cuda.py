@@ -197,33 +197,51 @@ def test_tf32x3_prepass_matches_its_plain_split_bit_for_bit(cuda, shape, dtype, 
         assert torch.equal(g_.view(torch.int32), w.contiguous().view(torch.int32))
 
 
-# the backward kernel against flash_backward_reference on the same (O, LSE,
+# a backward kernel against flash_backward_reference on the same (O, LSE,
 # dO), per element rtol·|ref| + atol·max|ref| (chip_smoke.BWD_TOL: another
-# float32 summation order; in bfloat16 one rounding step and one more)
+# float32 summation order; in bfloat16 one rounding step and one more);
+# bwd_sm90 rounds P and dS to bfloat16 before its products, which adds at
+# most 2⁻⁸ times ``flash.bwd_rounding_terms``
 BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2**-6, 1e-5)}
 
 
 @pytest.mark.parametrize(
-    "shape,dtype",
-    [((2, 129, 3, 64), torch.float32), ((1, 100, 2, 32), torch.bfloat16)],
+    "shape,dtype,packed,kernel",
+    [
+        ((2, 129, 3, 64), torch.float32, False, "bwd"),
+        ((1, 100, 2, 32), torch.bfloat16, False, "bwd_sm90"),
+        ((1, 77, 2, 16), torch.bfloat16, False, "bwd_sm90"),
+        ((2, 129, 3, 64), torch.bfloat16, False, "bwd_sm90"),
+        ((1, 300, 2, 128), torch.bfloat16, False, "bwd_sm90"),
+        ((2, 150, 4, 64), torch.bfloat16, True, "bwd_sm90"),  # views of one [B, T, 3, H, D]
+        ((2, 100, 4, 8), torch.bfloat16, False, "bwd"),  # flash_bwd's bf16 role
+    ],
 )
-def test_backward_kernel_matches_plain_version(cuda, shape, dtype):
-    """Ragged T, causal: dQ, dK, dV from the kernel and from the plain
-    version on the forward kernel's O and LSE; one ``"bwd"`` launch."""
-    q, k, v = _qkv(shape, dtype, seed=sum(shape))
+def test_backward_kernel_matches_plain_version(cuda, shape, dtype, packed, kernel):
+    """Ragged T, causal: dQ, dK, dV from the kernel of the route and from
+    the plain version on the forward kernel's O and LSE; one launch, counted
+    under that kernel."""
+    assert flash.bwd_kernel_for(dtype, shape[-1]) == kernel
+    if packed:
+        b, t, h, d = shape
+        g = torch.Generator(device="cuda").manual_seed(sum(shape))
+        q, k, v = torch.randn((b, t, 3, h, d), generator=g, device="cuda").to(dtype).unbind(dim=2)
+    else:
+        q, k, v = _qkv(shape, dtype, seed=sum(shape))
     do = _qkv(shape, dtype, seed=sum(shape) + 1)[0]
     with torch.no_grad():
         o, lse = flash.launch_kernel(q, k, v, True)
     before = dict(flash.LAUNCHES_BY)
     got = flash.flash_backward(q, k, v, o, lse, do, causal=True)
     torch.cuda.synchronize()
-    assert flash.LAUNCHES_BY == {**before, "bwd": before["bwd"] + 1}
+    assert flash.LAUNCHES_BY == {**before, kernel: before[kernel] + 1}
     want = flash.flash_backward_reference(q, k, v, o, lse, do, causal=True)
+    terms = flash.bwd_rounding_terms(q, k, v, o, lse, do, True) if kernel == "bwd_sm90" else (0, 0, 0)
     rtol, atol = BWD_TOL[dtype]
-    for g, w in zip(got, want):
+    for g, w, term in zip(got, want, terms):
         assert g.shape == q.shape and g.dtype == dtype
         diff = (g.float() - w.float()).abs()
-        limit = rtol * w.float().abs() + atol * w.float().abs().max()
+        limit = rtol * w.float().abs() + atol * w.float().abs().max() + P_ROUNDING * term
         assert (diff <= limit).all(), (diff / limit).max().item()
 
 
@@ -249,7 +267,7 @@ def test_ulysses_gradient_on_the_card(cuda):
             torch.cuda.synchronize()
             grads.append([x.grad for x in (q, k, v)])
             if not grads[1:]:
-                assert flash.LAUNCHES_BY == {"sm90": 0, "tf32x3": 1, "bwd": 1}
+                assert flash.LAUNCHES_BY == {"sm90": 0, "tf32x3": 1, "bwd": 1, "bwd_sm90": 0}
         for g, w in zip(*grads):
             torch.testing.assert_close(g, w, atol=1e-4 * w.abs().max().item(), rtol=1e-3)
     finally:

@@ -270,8 +270,9 @@ def test_sm90_refuses_unaligned_tma_inputs_before_launching(make):
 
 def test_reset_launches():
     tflash.LAUNCHES_BY["sm90"] += 3
+    tflash.LAUNCHES_BY["bwd_sm90"] += 2
     tflash.reset_launches()
-    assert tflash.LAUNCHES == 0 and tflash.LAUNCHES_BY == {"sm90": 0, "tf32x3": 0, "bwd": 0}
+    assert tflash.LAUNCHES == 0 and tflash.LAUNCHES_BY == {"sm90": 0, "tf32x3": 0, "bwd": 0, "bwd_sm90": 0}
 
 
 @pytest.mark.parametrize(

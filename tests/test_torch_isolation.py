@@ -106,7 +106,7 @@ grad = chip_smoke.encoder_grad_leg(
     "cpu", batch=2, seq=40, cfg=dict(in_dim=2, model_dim=32, num_heads=4, num_layers=2),
     dtype=torch.float32,
 )
-assert grad["launches_by"] == {{"sm90": 0, "tf32x3": 0, "bwd": 0}}, grad
+assert grad["launches_by"] == {{"sm90": 0, "tf32x3": 0, "bwd": 0, "bwd_sm90": 0}}, grad
 assert grad["grad_rel_err"] < 1e-3 and grad["grad_rel_err_qk"] < 1e-3, grad
 if {servers!r}:
     live = chip_smoke.server_leg(

@@ -5,15 +5,16 @@
 
 Phases (any failed check raises and the script exits non-zero):
 
-1. device and build: the card's name and power limit, then the four
-   CUDA sources (both flash forwards and both flash backwards) built with
+1. device and build: the card's name and power limit, then the five
+   CUDA sources (both flash forwards and the three flash backwards) built with
    ``nvcc`` at once (each timed), with
    ``ptxas``'s registers, spills and added wgmma fences per
    instantiation and, where
    ``cuobjdump`` sits beside ``nvcc``, the count of HGMMA (wgmma)
    instructions in the SASS of each tensor-core library (0 fails);
-2. the tf32x3 kernel's pre-pass against its plain split, bit for bit (and
-   timed alone at the encoder's shape); each flash kernel against the
+2. the tf32x3 kernels' pre-passes (the forward's and the backward's)
+   against their plain splits, bit for bit (and timed alone at the
+   encoder's shape); each flash kernel against the
    plain PyTorch version at every checked shape, with max|err| of O and
    LSE and the share of each limit used; at the
    encoder's shape (float32 → tf32x3, bfloat16 → sm90) and at D = 8 in
@@ -21,13 +22,15 @@ Phases (any failed check raises and the script exits non-zero):
    are timed in turns beside the card's bound for the same work, and the
    CUDA kernels SDPA runs are named from a profiler trace; then each
    backward kernel against ``flash_backward_reference`` on the same (O,
-   LSE, dO) at every checked shape it takes (``flash_bwd_sm90``: bfloat16
-   at D in 16, 32, 64, 128, ragged T, packed views; ``flash_bwd``: float32
-   at every head dim and bfloat16 at D = 8), with max|err| of dQ, dK and
-   dV and the share of each limit used, and at the encoder's shape in
-   bfloat16 ``flash_bwd_sm90``, ``flash_bwd`` and SDPA's backward timed in
-   turns, in float32 ``flash_bwd`` and SDPA's backward, each beside the
-   plain version;
+   LSE, dO) at every checked shape of its route (``flash_bwd_sm90``:
+   bfloat16 at D in 16, 32, 64, 128, ragged T, packed views;
+   ``flash_bwd_tf32x3``: float32 at every head dim and bfloat16 at D = 8),
+   with max|err| of dQ, dK and dV and the share of each limit used, and at
+   the encoder's shape in bfloat16 ``flash_bwd_sm90``, ``flash_bwd`` (named:
+   no route takes it) and SDPA's backward timed in turns, in float32
+   ``flash_bwd_tf32x3``, ``flash_bwd`` and SDPA's backward, and at D = 8 in
+   bfloat16 ``flash_bwd_tf32x3`` and SDPA's backward, each beside the plain
+   version;
 3. serve leg at cluster scale: 10,000 hosts × 16 probes through the
    topology engine, one flush on the card, then waves of 256 decisions ×
    15 candidates joined (rtt affinity) and ranked by a [19, 128, 128, 1]
@@ -98,8 +101,8 @@ Phases (any failed check raises and the script exits non-zero):
    ``make_ulysses_attention(..., use_kernel=True)`` over an sp = 1 NCCL
    process group, a seeded loss and ``backward()``, in bfloat16 and in
    float32: each step must launch the forward kernel and the backward
-   kernel of its route (``flash_bwd_sm90`` in bfloat16, ``flash_bwd`` in
-   float32) once per layer and nothing else, every gradient must be finite and
+   kernel of its route (``flash_bwd_sm90`` in bfloat16, ``flash_bwd_tf32x3``
+   in float32) once per layer and nothing else, every gradient must be finite and
    within ``ENCODER_GRAD_TOL`` (``ENCODER_GRAD_QK_TOL`` for wq and wk) of
    the same step with ``local_attention`` under autograd; the step's wall
    and its peak memory are printed beside ``local_attention``'s.
@@ -211,7 +214,8 @@ TF32X3_SHAPES = [
     (1, 1, 2, 64, False, torch.float32, False),  # T = 1
     (2, 300, 4, 64, True, torch.float32, True),  # views of one [B, T, 3, H, D] projection
 ]
-# (B, T, H, D, dtype, packed) whose tf32x3 pre-pass is held bit for bit
+# (B, T, H, D, dtype, packed) whose tf32x3 pre-passes (the forward's and
+# the backward's) are held bit for bit
 PREPASS_SHAPES = [
     (2, 8192, 4, 64, torch.float32, False),
     (2, 300, 4, 64, torch.float32, True),
@@ -237,9 +241,10 @@ KERNEL_NAMES = {
     "tf32x3": "flash_fwd_tf32x3",
     "bwd": "flash_bwd",
     "bwd_sm90": "flash_bwd_sm90",
+    "bwd_tf32x3": "flash_bwd_tf32x3",
 }
 # the libraries whose SASS must hold wgmma (flash_bwd runs on the CUDA cores)
-WGMMA_LIBRARIES = ("flash_fwd_sm90", "flash_fwd_tf32x3", "flash_bwd_sm90")
+WGMMA_LIBRARIES = ("flash_fwd_sm90", "flash_fwd_tf32x3", "flash_bwd_sm90", "flash_bwd_tf32x3")
 # The backward kernel's dQ, dK, dV against flash_backward_reference on the
 # same (q, k, v, O, LSE, dO), per element |g - ref| <= rtol·|ref| +
 # atol·max|ref| as (rtol, atol). float32: both sum up to T products in
@@ -250,10 +255,14 @@ WGMMA_LIBRARIES = ("flash_fwd_sm90", "flash_fwd_tf32x3", "flash_bwd_sm90")
 # to bf16 before the dV, dK and dQ products; that moves each gradient by at
 # most 2^-8 times its term of ``flash.bwd_rounding_terms``, which its limit
 # adds (pinned by a CPU emulation in tests/test_torch_flash_bwd.py).
+# flash_bwd_tf32x3 keeps BWD_TOL as it is: every product in 3xTF32 with P
+# and dS split before theirs (a CPU emulation stays inside it, one TF32
+# product leaves it, in the same file).
 BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2**-6, 1e-5)}
 # (B, T, H, D, causal, dtype, packed q/k/v): every head dim in both types,
 # ragged T, causal or not, views of one packed projection, each through the
-# backward kernel of its route (bf16 at D >= 16 → flash_bwd_sm90); the
+# backward kernel of its route (bf16 at D >= 16 → flash_bwd_sm90, float32
+# and bf16 at D = 8 → flash_bwd_tf32x3); the
 # encoder's shape is checked and timed after these
 BWD_SHAPES = [
     (2, 200, 4, 64, True, torch.float32, False),  # ragged tail
@@ -459,27 +468,35 @@ def shape_name(q, causal=None) -> str:
     )
 
 
-def prepass_phase() -> float:
-    """The tf32x3 pre-pass alone against its plain split, bit for bit, at
-    every shape → its device time at the first (the encoder's), in ms."""
-    prepass_ms = None
+def prepass_phase() -> dict:
+    """The tf32x3 pre-passes alone (the forward's, ``tf32x3_prepass``, and
+    the backward's, ``tf32x3_bwd_prepass``) against their plain splits, bit
+    for bit, at every shape → {kernel: its pre-pass's device time at the
+    first shape (the encoder's), in ms}."""
+    times = {}
     for i, (b, t, h, d, dtype, packed) in enumerate(PREPASS_SHAPES):
         q, k, v = random_qkv(b, t, h, d, dtype, seed=300 + i, packed=packed)
-        with torch.no_grad():
-            got = flash.tf32x3_prepass(q, k, v)
-            torch.cuda.synchronize()
-            want = flash.tf32x3_prepass_reference(q, k, v)
-        same = all(
-            g.shape == w.shape and torch.equal(g.view(torch.int32), w.contiguous().view(torch.int32))
-            for g, w in zip(got, want)
-        )
-        print(f"tf32x3 pre-pass {shape_name(q)}: bit for bit as its plain split: {same}")
-        check(same, f"tf32x3 pre-pass {shape_name(q)} differs from tf32x3_prepass_reference")
-        if prepass_ms is None:
+        do = random_qkv(b, t, h, d, dtype, seed=350 + i)[0]
+        for kernel, run, plain, args in (
+            ("tf32x3", flash.tf32x3_prepass, flash.tf32x3_prepass_reference, (q, k, v)),
+            ("bwd_tf32x3", flash.tf32x3_bwd_prepass, flash.tf32x3_bwd_prepass_reference,
+             (q, k, v, do)),
+        ):
             with torch.no_grad():
-                prepass_ms = cuda_ms(lambda: flash.tf32x3_prepass(q, k, v), 20)
-            print(f"tf32x3 pre-pass {shape_name(q)}: {prepass_ms:.4f} ms")
-    return prepass_ms
+                got = run(*args)
+                torch.cuda.synchronize()
+                want = plain(*args)
+            same = len(got) == len(want) and all(
+                g.shape == w.shape and torch.equal(g.view(torch.int32), w.contiguous().view(torch.int32))
+                for g, w in zip(got, want)
+            )
+            print(f"{kernel} pre-pass {shape_name(q)}: bit for bit as its plain split: {same}")
+            check(same, f"{kernel} pre-pass {shape_name(q)} differs from its plain split")
+            if kernel not in times:
+                with torch.no_grad():
+                    times[kernel] = cuda_ms(lambda: run(*args), 20)
+                print(f"{kernel} pre-pass {shape_name(q)}: {times[kernel]:.4f} ms")
+    return times
 
 
 def flash_case(q, k, v, causal, kernel: str) -> dict:
@@ -661,24 +678,60 @@ def bwd_times(q, k, v, causal, kernels, rounds: int = 3) -> dict:
     return {**{key: statistics.median(ms) for key, ms in times.items()}, "plain_ms": plain}
 
 
+def launch_split(q, k, v, causal, kernel: str) -> dict:
+    """Device ms of each CUDA kernel one backward launch runs, from a
+    profiler trace (a reading aid: {} when the trace shows none)."""
+    o, lse, do = bwd_inputs(q, k, v, causal, seed=8)
+    flash.launch_backward(q, k, v, o, lse, do, causal, kernel=kernel)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flash.launch_backward(q, k, v, o, lse, do, causal, kernel=kernel)
+            torch.cuda.synchronize()
+    except Exception as exc:  # the trace is a reading aid; the times of bwd_times stand
+        print(f"  no trace: {exc}")
+        # untraced, so that a fault of the kernel itself still raises here
+        flash.launch_backward(q, k, v, o, lse, do, causal, kernel=kernel)
+        torch.cuda.synchronize()
+        return {}
+    split: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            found = re.search(r"\w*kernel\b", e.name)
+            name = found.group(0) if found else e.name[:60]
+            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return split
+
+
 def bwd_phase() -> dict:
-    """Each backward kernel at every checked shape of its route, then at the
-    encoder's shape: in bfloat16 ``flash_bwd_sm90`` (its route) and
-    ``flash_bwd`` (named, for the comparison and its D = 8 role) checked and
-    timed in turns with SDPA's backward, in float32 ``flash_bwd`` → {row:
-    its entry of the kernels' table, without ``launches``} for the rows
-    ``bwd_sm90``, ``bwd_bfloat16`` and ``bwd_float32``."""
+    """Each backward kernel at every checked shape of its route, then the
+    timed calls: at the encoder's shape in bfloat16 ``flash_bwd_sm90`` (its
+    route) and ``flash_bwd`` (named, for the comparison), in float32
+    ``flash_bwd_tf32x3`` (its route) and ``flash_bwd`` (named), and at
+    D = 8 in bfloat16 the same two, each checked and timed in turns with
+    SDPA's backward; ``flash_bwd_tf32x3``'s launch split by kernel from a
+    profiler trace → {row: its entry of the kernels' table, without
+    ``launches``} for the rows ``bwd_sm90``, ``bwd_bfloat16``,
+    ``bwd_tf32x3``, ``bwd_float32``, ``bwd_tf32x3_d8_bf16`` and
+    ``bwd_d8_bf16``."""
     for i, (b, t, h, d, causal, dtype, packed) in enumerate(BWD_SHAPES):
         bwd_case(*random_qkv(b, t, h, d, dtype, seed=400 + i, packed=packed), causal, seed=500 + i)
     b, t = ENCODER_BT
     h = ENCODER["num_heads"]
-    shape = (b, t, h, ENCODER["model_dim"] // h)
+    encoder = (b, t, h, ENCODER["model_dim"] // h)
     rows = {}
-    for dtype, kernels in ((torch.bfloat16, ("bwd_sm90", "bwd")), (torch.float32, ("bwd",))):
+    for shape, dtype, kernels in (
+        (encoder, torch.bfloat16, (("bwd_sm90", "bwd_sm90"), ("bwd", "bwd_bfloat16"))),
+        (encoder, torch.float32, (("bwd_tf32x3", "bwd_tf32x3"), ("bwd", "bwd_float32"))),
+        (D8_BF16, torch.bfloat16, (("bwd_tf32x3", "bwd_tf32x3_d8_bf16"), ("bwd", "bwd_d8_bf16"))),
+    ):
         q, k, v = random_qkv(*shape, dtype, seed=9)
-        times = bwd_times(q, k, v, True, kernels)
-        for kern in kernels:
-            row = "bwd_sm90" if kern == "bwd_sm90" else f"bwd_{str(dtype)[6:]}"
+        times = bwd_times(q, k, v, True, [kern for kern, _ in kernels])
+        if kernels[0][0] == "bwd_tf32x3":
+            split = launch_split(q, k, v, True, "bwd_tf32x3")
+            print(f"  {KERNEL_NAMES['bwd_tf32x3']} {shape_name(q, True)}, one launch by kernel: "
+                  + "; ".join(f"{name} {ms:.4f} ms" for name, ms in split.items()))
+        for kern, row in kernels:
             r = rows[row] = {
                 **bwd_case(q, k, v, True, seed=10, kernel=kern),
                 "ms": times[kern],
@@ -689,8 +742,8 @@ def bwd_phase() -> dict:
                 f"{KERNEL_NAMES[kern]} {shape_name(q, True)}: kernel_ms={r['ms']:.4f}"
                 f" plain_ms={r['plain_ms']:.4f} library_ms(sdpa backward)={r['library_ms']:.4f}"
                 f" ({r['ms'] / r['library_ms']:.2f}x) bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
-                f" {10 * shape[3] * b * h * flash_pairs(t, True) / r['ms'] / 1e9:.1f} TFLOP/s"
-                f" (five products), {r['bound_ms'] / r['ms']:.2%} of the bound"
+                f" {10 * shape[3] * shape[0] * shape[2] * flash_pairs(shape[1], True) / r['ms'] / 1e9:.1f}"
+                f" TFLOP/s (five products), {r['bound_ms'] / r['ms']:.2%} of the bound"
             )
     return rows
 
@@ -2452,7 +2505,7 @@ def main() -> int:
         return out
 
     leg("build", build_kernels, attention=True)
-    prepass_ms = leg("prepass", prepass_phase, attention=True)
+    prepass = leg("prepass", prepass_phase, attention=True)
     rows = leg("flash", flash_phase, attention=True)
     bwd_rows = leg("bwd", bwd_phase, attention=True)
 
@@ -2485,7 +2538,8 @@ def main() -> int:
         "encoder": encoders,
         "encoder_grad": grad_legs,
         "tf32x3_d8_bf16": rows["tf32x3_d8_bf16"],
-        "tf32x3_prepass_ms": prepass_ms,
+        "tf32x3_prepass_ms": prepass["tf32x3"],
+        "tf32x3_bwd_prepass_ms": prepass["bwd_tf32x3"],
         "walls_s": walls,
     }))
     kernels = [
@@ -2509,15 +2563,26 @@ def main() -> int:
             **{key: bwd_rows[row][key] for key in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         }
-        # flash_bwd[bfloat16] is flash_bwd's bf16 D = 8 role, timed at the
-        # encoder's shape for the comparison: the path launches it no time
+        # flash_bwd_tf32x3[bfloat16 D=8] is the kernel's bf16 role, which no
+        # path takes (the encoder's head dim is 64); flash_bwd is no route's
+        # kernel since flash_bwd_tf32x3, timed in turns with the kernels that
+        # replaced it: the path launches neither
         for name, kern, leg, row in (
             ("flash_bwd_sm90", "bwd_sm90", "bfloat16", "bwd_sm90"),
+            ("flash_bwd_tf32x3[float32]", "bwd_tf32x3", "float32", "bwd_tf32x3"),
+            ("flash_bwd_tf32x3[bfloat16 D=8]", "bwd_tf32x3", "bfloat16", "bwd_tf32x3_d8_bf16"),
             ("flash_bwd[float32]", "bwd", "float32", "bwd_float32"),
             ("flash_bwd[bfloat16]", "bwd", "bfloat16", "bwd_bfloat16"),
+            ("flash_bwd[bfloat16 D=8]", "bwd", "bfloat16", "bwd_d8_bf16"),
         )
     ]
-    for source in {k["source"] for k in kernels}:
+    head_dim = ENCODER["model_dim"] // ENCODER["num_heads"]
+    on_path = {
+        KERNEL_NAMES[route(dtype, head_dim)]
+        for route in (flash.kernel_for, flash.bwd_kernel_for)
+        for dtype in (torch.bfloat16, torch.float32)
+    }
+    for source in {f"dragonfly2_torch/csrc/{name}.cu" for name in on_path}:
         check(sum(k["launches"] for k in kernels if k["source"] == source) > 0,
               f"{source}: a kernel of the path was never launched")
     print(json.dumps({"kernels": kernels}))

@@ -16,9 +16,9 @@ and batch MLP fits and the GraphSAGE fit (``trainer.training``,
 ``trainer.ingest``, ``trainer.train``) over the binary record format
 (``schema.wire``), uploaded to the manager; and the piece-sequence
 transformer encoder, whose attention runs on hand-written CUDA flash
-kernels (``ops.flash``: ``csrc/flash_fwd_sm90.cu`` for bfloat16,
-``csrc/flash_fwd_tf32x3.cu`` for float32, ``csrc/flash_bwd.cu`` for the
-gradient) and trains through them, alone or under ring and Ulysses
+kernels (``ops.flash``: ``csrc/flash_fwd_sm90.cu`` and
+``csrc/flash_bwd_sm90.cu`` for bfloat16, ``csrc/flash_fwd_tf32x3.cu`` and
+``csrc/flash_bwd_tf32x3.cu`` for float32) and trains through them, alone or under ring and Ulysses
 sequence parallelism over ``torch.distributed`` (``ops.ring``,
 ``ops.ulysses``, ``parallel``); the GNN and GRU serving, seed
 placement and the preheat plane; and the scheduler and trainer servers

@@ -30,6 +30,7 @@ SOURCES = {
     "flash_fwd_tf32x3": "flash_fwd_tf32x3.cu",
     "flash_bwd": "flash_bwd.cu",
     "flash_bwd_sm90": "flash_bwd_sm90.cu",
+    "flash_bwd_tf32x3": "flash_bwd_tf32x3.cu",
 }
 
 NVCC_FLAGS = (

@@ -1,6 +1,6 @@
 """Fused attention: two hand-written CUDA forward kernels (counterparts of
 the Pallas kernel ``_flash_forward`` in the reference's ``ops/flash.py``),
-two hand-written CUDA backward kernels (counterparts of its VJP
+three hand-written CUDA backward kernels (counterparts of its VJP
 ``_blockwise_bwd``), and the plain PyTorch version of each.
 
 ``flash_attention`` / ``flash_attention_with_lse`` take [B, T, H, D] q, k, v
@@ -36,9 +36,19 @@ raises:
   dK and dQ products (``bwd_rounding_terms`` gives the worst case of that),
   and sums dQ across key tiles with float32 atomics, so its bfloat16
   gradients are not bit-reproducible from run to run.
-- ``"bwd"`` (``csrc/flash_bwd.cu``): float32 at every D in ``HEAD_DIMS``
-  and bfloat16 at D = 8 — every product on the CUDA cores in float32,
-  deterministic.
+- ``"bwd_tf32x3"`` (``csrc/flash_bwd_tf32x3.cu``): float32 at every D in
+  ``HEAD_DIMS`` and bfloat16 at D = 8, the calls whose forward is
+  ``"tf32x3"`` — every product in 3xTF32 on the tensor cores (wgmma +
+  TMA), P and dS split in registers, which keeps the float32 limits. A
+  pre-pass in the same launch writes Q, K, V, dO as stored and Q, dO, K
+  transposed as hi/lo planes to scratch that the wrapper allocates
+  (``tf32x3_bwd_prepass_reference`` is its plain version); then a dK/dV
+  kernel and a dQ kernel, so the gradients are deterministic.
+
+``"bwd"`` (``csrc/flash_bwd.cu``, every product on the CUDA cores in
+float32, deterministic; float32 at every D in ``HEAD_DIMS``, bfloat16 at
+every D) is no route's kernel: it is reached only by name,
+``launch_backward(..., kernel="bwd")``, as the yardstick of a comparison.
 
 Gradients come back in the input dtype, accumulated in float32.
 """
@@ -69,13 +79,14 @@ VT_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 # kernel launches since the counters were last reset, in total and by
 # kernel; the plain version never touches them
 LAUNCHES = 0
-LAUNCHES_BY = {"sm90": 0, "tf32x3": 0, "bwd": 0, "bwd_sm90": 0}
+LAUNCHES_BY = {"sm90": 0, "tf32x3": 0, "bwd": 0, "bwd_sm90": 0, "bwd_tf32x3": 0}
 
 _LIBRARY = {
     "sm90": "flash_fwd_sm90",
     "tf32x3": "flash_fwd_tf32x3",
     "bwd": "flash_bwd",
     "bwd_sm90": "flash_bwd_sm90",
+    "bwd_tf32x3": "flash_bwd_tf32x3",
 }
 # (kernel, dtype) → the head dims it is built for
 _BUILT = {
@@ -85,6 +96,8 @@ _BUILT = {
     ("bwd", torch.float32): HEAD_DIMS,
     ("bwd", torch.bfloat16): HEAD_DIMS,
     ("bwd_sm90", torch.bfloat16): SM90_HEAD_DIMS,
+    ("bwd_tf32x3", torch.float32): HEAD_DIMS,
+    ("bwd_tf32x3", torch.bfloat16): (8,),
 }
 _BWD_SM90_BLOCK = 64  # the bwd_sm90 kernel's query tile: its dQ scratch is T rounded up to it
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -95,6 +108,8 @@ _ARGTYPES = {
     "df_tf32x3_split": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_P],
     "df_flash_bwd": [_P] * 10 + [_I] * 6 + [_L] * 15 + [_P],
     "df_flash_bwd_sm90": [_P] * 11 + [_I] * 5 + [_L] * 15 + [_P],
+    "df_flash_bwd_tf32x3": [_P] * 17 + [_I] * 6 + [_L] * 15 + [_P],
+    "df_tf32x3_bwd_split": [_P] * 11 + [_I] * 5 + [_L] * 12 + [_P],
 }
 _fns: dict = {}
 
@@ -114,8 +129,9 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
 
 def bwd_kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernel a CUDA call of this dtype and head dim launches:
-    the tensor-core one wherever the forward is ``"sm90"``."""
-    return "bwd_sm90" if kernel_for(dtype, head_dim) == "sm90" else "bwd"
+    ``"bwd_sm90"`` where the forward is ``"sm90"``, ``"bwd_tf32x3"`` where
+    it is ``"tf32x3"``."""
+    return "bwd_sm90" if kernel_for(dtype, head_dim) == "sm90" else "bwd_tf32x3"
 
 
 def _check_built(kernel: str, dtype: torch.dtype, head_dim: int) -> None:
@@ -208,6 +224,30 @@ def tf32_split(x: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
     return hi, tf32_round(x - hi)
 
 
+def _heads_major(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, H, D] → float32 [B·H, T, D]."""
+    b, t, h, d = x.shape
+    return x.float().permute(0, 2, 1, 3).reshape(b * h, t, d)
+
+
+def _transposed(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, H, D] → float32 [B·H, D, T8]: T8 is T rounded up to 8, the
+    positions of each group of 8 in ``VT_KEY_ORDER``, zeros past T."""
+    t = x.shape[1]
+    t8 = -(-t // 8) * 8
+    order = torch.arange(0, t8, 8, device=x.device)[:, None] + torch.tensor(
+        VT_KEY_ORDER, device=x.device
+    )
+    xf = torch.nn.functional.pad(_heads_major(x), (0, 0, 0, t8 - t))
+    return xf[:, order.reshape(-1)].transpose(1, 2)
+
+
+def _planes(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 x → [P, ...]: (hi, lo) for a float32 input, the exact upcast
+    alone for bfloat16."""
+    return torch.stack(tf32_split(x)) if dtype == torch.float32 else x[None]
+
+
 def tf32x3_prepass_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
@@ -215,31 +255,41 @@ def tf32x3_prepass_reference(
     [P, B·H, T, D], vt [P, B·H, D, T8]): P = 2 planes (hi, lo) for float32
     and 1 (the exact upcast) for bfloat16; T8 is T rounded up to 8, Vᵀ holds
     the keys of each group of 8 in ``VT_KEY_ORDER`` and zeros past T."""
-    b, t, h, d = q.shape
-    t8 = -(-t // 8) * 8
-
-    def heads_major(x):
-        return x.float().permute(0, 2, 1, 3).reshape(b * h, t, d)
-
-    order = torch.arange(0, t8, 8, device=q.device)[:, None] + torch.tensor(
-        VT_KEY_ORDER, device=q.device
+    return (
+        _planes(_heads_major(q), q.dtype),
+        _planes(_heads_major(k), q.dtype),
+        _planes(_transposed(v), q.dtype),
     )
-    vf = torch.nn.functional.pad(heads_major(v), (0, 0, 0, t8 - t))
-    vt = vf[:, order.reshape(-1)].transpose(1, 2)
-
-    def planes(x):
-        return torch.stack(tf32_split(x)) if q.dtype == torch.float32 else x[None]
-
-    return planes(heads_major(q)), planes(heads_major(k)), planes(vt)
 
 
-def _prepass_buffers(q: torch.Tensor):
-    """Uninitialised float32 scratch of the tf32x3 pre-pass → (qs, ks, vt)."""
+def tf32x3_bwd_prepass_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor
+) -> "tuple[torch.Tensor, ...]":
+    """Plain version of the bwd_tf32x3 kernel's pre-pass → float32 (qs, ks,
+    vs, dos [P, B·H, T, D], qt, dot, kt [P, B·H, D, T8]): Q, K, V and dO as
+    stored, then Q, dO and K transposed, as ``tf32x3_prepass_reference``
+    lays out its operands (P = 2 planes for float32, 1 for bfloat16; the
+    positions of each group of 8 in ``VT_KEY_ORDER``, zeros past T). The
+    stored planes are the K-major operands of Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, S =
+    Q·Kᵀ and dP = dO·Vᵀ; the transposed ones the B operands of dK += dSᵀ·Q,
+    dV += Pᵀ·dO and dQ += dS·K."""
+    rows = [_planes(_heads_major(x), q.dtype) for x in (q, k, v, do)]
+    cols = [_planes(_transposed(x), q.dtype) for x in (q, do, k)]
+    return (*rows, *cols)
+
+
+def _prepass_buffers(q: torch.Tensor, rows: int = 2, cols: int = 1):
+    """Uninitialised float32 scratch of a tf32x3 pre-pass: ``rows`` stored
+    [P, B·H, T, D], then ``cols`` transposed [P, B·H, D, T8] — (qs, ks, vt)
+    for the forward, (qs, ks, vs, dos, qt, dot, kt) with 4 and 3 for the
+    backward."""
     b, t, h, d = q.shape
     n = 2 if q.dtype == torch.float32 else 1
     t8 = -(-t // 8) * 8
-    qk = [torch.empty((n, b * h, t, d), dtype=torch.float32, device=q.device) for _ in range(2)]
-    return (*qk, torch.empty((n, b * h, d, t8), dtype=torch.float32, device=q.device))
+    return tuple(
+        torch.empty(shape, dtype=torch.float32, device=q.device)
+        for shape in [(n, b * h, t, d)] * rows + [(n, b * h, d, t8)] * cols
+    )
 
 
 def tf32x3_prepass(
@@ -263,6 +313,32 @@ def tf32x3_prepass(
     )
     if err != 0:
         raise RuntimeError(f"df_tf32x3_split launch failed: error {err}")
+    return bufs
+
+
+def tf32x3_bwd_prepass(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor
+) -> "tuple[torch.Tensor, ...]":
+    """The bwd_tf32x3 kernel's pre-pass alone on CUDA q, k, v, dO (the
+    backward runs it inside its own launch) → (qs, ks, vs, dos, qt, dot, kt)
+    as ``tf32x3_bwd_prepass_reference`` lays them out. For checking it
+    against that plain version; it counts no launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the pre-pass kernel runs on cuda tensors, not {q.device}")
+    _check(q, k, v)
+    _check_layout(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or do.stride(3) != 1:
+        raise ValueError("do must match q's shape, dtype and device, its head dimension contiguous")
+    b, t, h, d = q.shape
+    bufs = _prepass_buffers(q, 4, 3)
+    err = _entry("flash_bwd_tf32x3", "df_tf32x3_bwd_split")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *(x.data_ptr() for x in bufs),
+        b, t, h, d, _DTYPE_CODE[q.dtype],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"df_tf32x3_bwd_split launch failed: error {err}")
     return bufs
 
 
@@ -454,7 +530,7 @@ def launch_backward(q, k, v, o, lse, do, causal, kernel: "str | None" = None):
     global LAUNCHES
     b, t, h, d = q.shape
     kernel = kernel or bwd_kernel_for(q.dtype, d)
-    if kernel not in ("bwd", "bwd_sm90"):
+    if kernel not in ("bwd", "bwd_sm90", "bwd_tf32x3"):
         raise ValueError(f"{kernel} is not a backward kernel")
     _check_built(kernel, q.dtype, d)
     _check_layout(q, k, v)
@@ -481,8 +557,12 @@ def launch_backward(q, k, v, o, lse, do, causal, kernel: "str | None" = None):
         # dQ's float32 sum over key tiles, zeroed by the launch
         t_pad = _ceil_to(t, _BWD_SM90_BLOCK)
         scratch.append(torch.empty((b * h, t_pad, d), dtype=torch.float32, device=q.device))
+    elif kernel == "bwd_tf32x3":
+        # the pre-pass's planes; the caching allocator hands them out again
+        # only to work queued behind this launch on the stream
+        scratch += _prepass_buffers(q, 4, 3)
     head = [x.data_ptr() for x in (q, k, v, o, do, lse, *scratch, dq, dk, dv)]
-    head += [b, t, h, d] + ([_DTYPE_CODE[q.dtype]] if kernel == "bwd" else [])
+    head += [b, t, h, d] + ([] if kernel == "bwd_sm90" else [_DTYPE_CODE[q.dtype]])
     library = _LIBRARY[kernel]
     err = _entry(library, f"df_{library}")(
         *head,

@@ -1,7 +1,7 @@
 """The port on an NVIDIA card: both CUDA flash kernels against their plain
-PyTorch version (strided inputs, alignment checks, the tf32x3 pre-pass bit
+PyTorch version (strided inputs, alignment checks, the tf32x3 pre-passes bit
 for bit and per-kernel launch counting included), the flash backward
-kernel against its plain version and Ulysses training through both over
+kernels of each route against their plain version and Ulysses training through both over
 an sp = 1 NCCL group, and the serving and
 topology planes on the card against the same port on the CPU, one wave
 of the scheduler's ``ml`` decision path on the card, the trainer's
@@ -197,6 +197,36 @@ def test_tf32x3_prepass_matches_its_plain_split_bit_for_bit(cuda, shape, dtype, 
         assert torch.equal(g_.view(torch.int32), w.contiguous().view(torch.int32))
 
 
+@pytest.mark.parametrize(
+    "shape,dtype,packed",
+    [
+        ((2, 129, 3, 64), torch.float32, False),
+        ((1, 333, 2, 128), torch.float32, False),
+        ((2, 100, 4, 32), torch.float32, True),
+        ((1, 333, 2, 8), torch.bfloat16, False),
+    ],
+)
+def test_tf32x3_bwd_prepass_matches_its_plain_split_bit_for_bit(cuda, shape, dtype, packed):
+    """The backward's pre-pass: Q, K, V, dO as stored and Q, dO, K
+    transposed, hi/lo planes (ragged T, a packed view, bf16's one plane)."""
+    g = torch.Generator(device="cuda").manual_seed(sum(shape) + 1)
+    if packed:
+        b, t, h, d = shape
+        q, k, v, do = torch.randn((b, t, 4, h, d), generator=g, device="cuda").to(dtype).unbind(dim=2)
+    else:
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(4))
+    before = dict(flash.LAUNCHES_BY)
+    with torch.no_grad():
+        got = flash.tf32x3_bwd_prepass(q, k, v, do)
+        torch.cuda.synchronize()
+        want = flash.tf32x3_bwd_prepass_reference(q, k, v, do)
+    assert flash.LAUNCHES_BY == before  # a check, not a backward
+    assert len(got) == len(want) == 7
+    for g_, w in zip(got, want):
+        assert g_.shape == w.shape
+        assert torch.equal(g_.view(torch.int32), w.contiguous().view(torch.int32))
+
+
 # a backward kernel against flash_backward_reference on the same (O, LSE,
 # dO), per element rtol·|ref| + atol·max|ref| (chip_smoke.BWD_TOL: another
 # float32 summation order; in bfloat16 one rounding step and one more);
@@ -208,13 +238,16 @@ BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2**-6, 1e-5)}
 @pytest.mark.parametrize(
     "shape,dtype,packed,kernel",
     [
-        ((2, 129, 3, 64), torch.float32, False, "bwd"),
+        ((2, 129, 3, 64), torch.float32, False, "bwd_tf32x3"),
+        ((1, 70, 2, 16), torch.float32, False, "bwd_tf32x3"),
+        ((1, 96, 8, 128), torch.float32, False, "bwd_tf32x3"),
+        ((2, 150, 4, 32), torch.float32, True, "bwd_tf32x3"),  # views of one [B, T, 3, H, D]
         ((1, 100, 2, 32), torch.bfloat16, False, "bwd_sm90"),
         ((1, 77, 2, 16), torch.bfloat16, False, "bwd_sm90"),
         ((2, 129, 3, 64), torch.bfloat16, False, "bwd_sm90"),
         ((1, 300, 2, 128), torch.bfloat16, False, "bwd_sm90"),
         ((2, 150, 4, 64), torch.bfloat16, True, "bwd_sm90"),  # views of one [B, T, 3, H, D]
-        ((2, 100, 4, 8), torch.bfloat16, False, "bwd"),  # flash_bwd's bf16 role
+        ((2, 100, 4, 8), torch.bfloat16, False, "bwd_tf32x3"),  # its bf16 role
     ],
 )
 def test_backward_kernel_matches_plain_version(cuda, shape, dtype, packed, kernel):
@@ -267,7 +300,9 @@ def test_ulysses_gradient_on_the_card(cuda):
             torch.cuda.synchronize()
             grads.append([x.grad for x in (q, k, v)])
             if not grads[1:]:
-                assert flash.LAUNCHES_BY == {"sm90": 0, "tf32x3": 1, "bwd": 1, "bwd_sm90": 0}
+                assert flash.LAUNCHES_BY == {
+                    "sm90": 0, "tf32x3": 1, "bwd": 0, "bwd_sm90": 0, "bwd_tf32x3": 1
+                }
         for g, w in zip(*grads):
             torch.testing.assert_close(g, w, atol=1e-4 * w.abs().max().item(), rtol=1e-3)
     finally:

@@ -272,7 +272,9 @@ def test_reset_launches():
     tflash.LAUNCHES_BY["sm90"] += 3
     tflash.LAUNCHES_BY["bwd_sm90"] += 2
     tflash.reset_launches()
-    assert tflash.LAUNCHES == 0 and tflash.LAUNCHES_BY == {"sm90": 0, "tf32x3": 0, "bwd": 0, "bwd_sm90": 0}
+    assert tflash.LAUNCHES == 0 and tflash.LAUNCHES_BY == {
+        "sm90": 0, "tf32x3": 0, "bwd": 0, "bwd_sm90": 0, "bwd_tf32x3": 0
+    }
 
 
 @pytest.mark.parametrize(

@@ -156,7 +156,9 @@ def test_plain_backward_counts_no_launch():
     q, k, v, g = _arrays((1, 32, 2, 16), seed=4)
     tflash.reset_launches()
     _port_grads(q, k, v, g, True)
-    assert tflash.LAUNCHES == 0 and tflash.LAUNCHES_BY == {"sm90": 0, "tf32x3": 0, "bwd": 0, "bwd_sm90": 0}
+    assert tflash.LAUNCHES == 0 and tflash.LAUNCHES_BY == {
+        "sm90": 0, "tf32x3": 0, "bwd": 0, "bwd_sm90": 0, "bwd_tf32x3": 0
+    }
 
 
 # --- the kernel's contract, checked before anything is built or launched ---
@@ -314,11 +316,13 @@ def test_bwd_rounding_terms_match_the_whole_score_matrix(causal, block_k):
 @pytest.mark.parametrize("d", tflash.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernel_is_chosen_by_dtype_and_head_dim(dtype, d):
-    """bf16 at the sm90 forward's head dims takes the tensor-core backward;
-    float32 everywhere and bf16 at D = 8 stay on flash_bwd.cu."""
-    want = "bwd_sm90" if dtype == torch.bfloat16 and d != 8 else "bwd"
+    """bf16 at the sm90 forward's head dims takes the bf16 tensor-core
+    backward; float32 everywhere and bf16 at D = 8 take the 3xTF32 one,
+    exactly where the forward is tf32x3. flash_bwd.cu is no route's."""
+    want = "bwd_sm90" if dtype == torch.bfloat16 and d != 8 else "bwd_tf32x3"
     assert tflash.bwd_kernel_for(dtype, d) == want
     assert (want == "bwd_sm90") == (tflash.kernel_for(dtype, d) == "sm90")
+    assert (want == "bwd_tf32x3") == (tflash.kernel_for(dtype, d) == "tf32x3")
 
 
 @pytest.mark.parametrize("operand", [0, 3, 5], ids=["q", "o", "do"])
@@ -391,3 +395,202 @@ def test_rounding_p_and_ds_leaves_the_encoder_gradient_gap(monkeypatch):
     assert abs(gap - gap_plain) < 0.01, (gap, gap_plain)
     assert gap < chip_smoke.ENCODER_GRAD_QK_TOL[torch.bfloat16]
     assert legs["bwd_sm90"]["grad_rel_err"] < chip_smoke.ENCODER_GRAD_TOL[torch.bfloat16]
+
+
+# --- the 3xTF32 backward (bwd_tf32x3): its limit, its layout, its refusals ---
+
+# chip_smoke.BWD_TOL as (rtol, atol), unchanged for this kernel
+_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2**-6, 1e-5)}
+# the kernel's tiles per head dim: (dK/dV query tile, dQ key tile); the
+# dK/dV kernel's key tile is 64 and its dQ kernel's rows are whole here
+_TF32X3_TILES = {8: (64, 64), 16: (64, 64), 32: (64, 64), 64: (32, 32), 128: (16, 16)}
+
+
+def _tf32x3_bwd_emulation(q, k, v, o, lse, do, causal, products=3):
+    """The bwd_tf32x3 kernel's arithmetic in plain torch, each product as
+    ``test_torch_flash._products`` multiplies (three TF32 products, or one
+    of the TF32 roundings; bfloat16 operands have no lo part). The dK/dV
+    kernel: 64-key tiles over query tiles, Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ,
+    P = exp2(s·scale·log2 e − LSE·log2 e), dS = P (dP − δ), both float32,
+    then dV += Pᵀ·dO and dK += dSᵀ·Q with P and dS split before their
+    products, each tile's product added to a float32 sum. The dQ kernel:
+    key tiles, S and dP again, dQ += dS·K the same way → (dQ, dK, dV) in
+    q's dtype."""
+    from test_torch_flash import _products
+
+    t, d = q.shape[1], q.shape[3]
+    mq, bn = _TF32X3_TILES[d]
+    scale = 1.0 / d**0.5
+    qf, kf, vf, of, dof = (x.permute(0, 2, 1, 3).float() for x in (q, k, v, o, do))
+    delta = (dof * of).sum(-1)
+    lse2 = torch.where(lse > -5e29, lse * _LOG2E, torch.full_like(lse, float("inf")))
+    pos = torch.arange(t)
+
+    def p_and_ds(s, dp, query, key, lse_rows, delta_rows):
+        p = torch.exp2(s * (scale * _LOG2E) - lse_rows)
+        if causal:
+            p = p.masked_fill(key > query, 0.0)
+        return p, p * (dp - delta_rows)
+
+    dk, dv = torch.zeros_like(qf), torch.zeros_like(qf)
+    for k0 in range(0, t, 64):
+        k_j, v_j = kf[:, :, k0 : k0 + 64], vf[:, :, k0 : k0 + 64]
+        keys = pos[k0 : k0 + 64, None]
+        for q0 in range((k0 // mq) * mq if causal else 0, t, mq):
+            q_i, do_i = qf[:, :, q0 : q0 + mq], dof[:, :, q0 : q0 + mq]
+            pt, dst = p_and_ds(
+                _products(k_j, q_i.transpose(-1, -2), products),
+                _products(v_j, do_i.transpose(-1, -2), products),
+                pos[None, q0 : q0 + mq], keys,
+                lse2[..., None, q0 : q0 + mq], delta[..., None, q0 : q0 + mq],
+            )
+            dv[:, :, k0 : k0 + 64] += _products(pt, do_i, products)
+            dk[:, :, k0 : k0 + 64] += _products(dst, q_i, products)
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, t, bn):
+        k_j, v_j = kf[:, :, k0 : k0 + bn], vf[:, :, k0 : k0 + bn]
+        _, ds = p_and_ds(
+            _products(qf, k_j.transpose(-1, -2), products),
+            _products(dof, v_j.transpose(-1, -2), products),
+            pos[:, None], pos[None, k0 : k0 + bn], lse2[..., None], delta[..., None],
+        )
+        dq += _products(ds, k_j, products)
+    return tuple(x.permute(0, 2, 1, 3).to(q.dtype) for x in (scale * dq, scale * dk, dv))
+
+
+def _tf32x3_backward_case(shape, dtype, causal, seed):
+    q, k, v, do = (torch.from_numpy(x).to(dtype) for x in _arrays(shape, seed))
+    o, lse = tflash.flash_attention_reference(q, k, v, causal)
+    return q, k, v, o, lse, do
+
+
+def _bwd_shares(got, want):
+    """Per gradient, the worst share of BWD_TOL (<= 1 passes)."""
+    rtol, atol = _BWD_TOL[want[0].dtype]
+    return [
+        ((g.float() - w.float()).abs() / (rtol * w.float().abs() + atol * w.float().abs().max()))
+        .max()
+        .item()
+        for g, w in zip(got, want)
+    ]
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 8)], ids=["f32-d64", "bf16-d8"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_three_tf32_products_keep_bwd_tol(causal, dtype, d):
+    """The emulated bwd_tf32x3 kernel against the plain version on the same
+    (O, LSE, dO): inside the unchanged BWD_TOL for dQ, dK and dV."""
+    case = _tf32x3_backward_case((1, 1024, 2, d), dtype, causal, seed=41 + causal)
+    want = tflash.flash_backward_reference(*case, causal)
+    got = _tf32x3_bwd_emulation(*case, causal)
+    for name, share in zip(("dq", "dk", "dv"), _bwd_shares(got, want)):
+        assert share <= 1.0, (name, share)  # f32 0.019–0.061, bf16 0.24–0.44 here
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 8)], ids=["f32-d64", "bf16-d8"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_one_tf32_product_leaves_bwd_tol(causal, dtype, d):
+    """The split is needed and not slack: with one TF32 product (bf16: P
+    and dS rounded to TF32 before theirs) the same emulation leaves
+    BWD_TOL."""
+    case = _tf32x3_backward_case((1, 1024, 2, d), dtype, causal, seed=41 + causal)
+    want = tflash.flash_backward_reference(*case, causal)
+    got = _tf32x3_bwd_emulation(*case, causal, products=1)
+    assert max(_bwd_shares(got, want)) > 1.0  # f32 39–55×, bf16 3.8–4.8× here
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tf32x3_bwd_prepass_reference_layout(dtype):
+    """Ragged T = 13 on views of one packed [B, T, 4, H, D] projection: the
+    stored planes sum back to each operand (hi + lo within 2⁻²³, bf16 its
+    exact upcast), the transposed planes hold Q, dO and K with the
+    positions of each group of 8 in VT_KEY_ORDER and zeros past T, and the
+    forward's pre-pass is the same split of Q and K."""
+    b, t, h, d = 2, 13, 3, 8
+    rng = np.random.default_rng(6)
+    packed = torch.from_numpy(rng.standard_normal((b, t, 4, h, d)).astype(np.float32)).to(dtype)
+    q, k, v, do = packed.unbind(dim=2)
+    assert not q.is_contiguous()
+    planes = tflash.tf32x3_bwd_prepass_reference(q, k, v, do)
+    n = 2 if dtype == torch.float32 else 1
+    assert len(planes) == 7 and all(x.dtype == torch.float32 for x in planes)
+    rows, cols = planes[:4], planes[4:]
+    for x, got in zip((q, k, v, do), rows):
+        assert got.shape == (n, b * h, t, d)
+        want = x.float().permute(0, 2, 1, 3).reshape(b * h, t, d)
+        if dtype == torch.bfloat16:
+            assert torch.equal(got[0], want)
+        else:
+            assert ((got[0] + got[1] - want).abs() <= 2.0**-23 * want.abs()).all()
+            assert torch.equal(got[0], tflash.tf32_round(want))
+    order = list(tflash.VT_KEY_ORDER)
+    for x, got in zip((q, do, k), cols):
+        assert got.shape == (n, b * h, d, 16)
+        full = got.sum(0)
+        heads = x.float().permute(0, 2, 1, 3).reshape(b * h, t, d)
+        for g in range(2):
+            for slot, key in enumerate(8 * g + c for c in order):
+                if key < t:
+                    torch.testing.assert_close(
+                        full[:, :, 8 * g + slot], heads[:, key], atol=0, rtol=2.0**-22
+                    )
+                else:  # positions 13..15 lie past T, in slots 14, 11, 15
+                    assert (full[:, :, 8 * g + slot] == 0).all()
+    fwd = tflash.tf32x3_prepass_reference(q, k, v)
+    assert torch.equal(fwd[0], rows[0]) and torch.equal(fwd[1], rows[1])
+
+
+def test_bwd_transposed_planes_let_the_accumulator_stand_as_it_lies():
+    """dV += Pᵀ·dO as the kernel runs it: the Pᵀ accumulator (keys as rows,
+    queries as columns) becomes the tf32 A fragment as it lies (register r
+    of a thread reads accumulator register ((r & 1) << 1) + (r >> 1), so
+    fragment position c holds query VT_KEY_ORDER[c]), against dOᵀ from the
+    pre-pass. The same holds for dSᵀ against Qᵀ and dS against Kᵀ."""
+    t8, d = 24, 16
+    rng = np.random.default_rng(8)
+    pt = torch.from_numpy(rng.random((64, t8), dtype=np.float32))  # [keys, queries]
+    frag = torch.empty_like(pt)  # Pᵀ as the A fragments hold it, by position
+    for t in range(4):
+        for r in range(4):
+            src = ((r & 1) << 1) + (r >> 1)
+            query, pos = 2 * t + (src & 1), t + 4 * (r >> 1)
+            frag[:, pos::8] = pt[:, query::8]
+    do = torch.from_numpy(rng.standard_normal((1, t8 - 3, 1, d)).astype(np.float32))
+    planes = tflash.tf32x3_bwd_prepass_reference(do, do, do, do)
+    dot = planes[5]  # dOᵀ
+    assert dot.shape == (2, 1, d, t8)
+    want = pt[:, : t8 - 3] @ do[0, :, 0]
+    torch.testing.assert_close(frag @ (dot[0, 0] + dot[1, 0]).T, want, atol=1e-5, rtol=1e-5)
+    assert not torch.allclose(pt @ (dot[0, 0] + dot[1, 0]).T, want, atol=1e-2)
+
+
+@pytest.mark.parametrize(
+    "dtype,d,kernel,error",
+    [
+        (torch.float16, 16, "bwd_tf32x3", TypeError),  # not built
+        (torch.float32, 24, "bwd_tf32x3", ValueError),  # no head dim 24
+        (torch.bfloat16, 64, "bwd_tf32x3", ValueError),  # bf16 at D = 8 only
+        (torch.float32, 64, "tf32x3", ValueError),  # a forward kernel
+    ],
+)
+def test_bwd_tf32x3_refuses_what_it_does_not_take(dtype, d, kernel, error):
+    """Named to the kernel: raises before anything is built or launched."""
+    before = dict(tflash.LAUNCHES_BY)
+    with pytest.raises(error):
+        tflash.launch_backward(*_cpu_operands(dtype, d), causal=True, kernel=kernel)
+    assert tflash.LAUNCHES_BY == before
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 8)])
+def test_bwd_tf32x3_refuses_a_cpu_tensor(dtype, d):
+    """A CPU tensor named to the kernel, or routed to it, passes every
+    check of its arguments and stops at the device check: the launcher
+    never takes the plain path."""
+    before = dict(tflash.LAUNCHES_BY)
+    for kernel in ("bwd_tf32x3", None):
+        with pytest.raises(ValueError, match="cuda"):
+            tflash.launch_backward(*_cpu_operands(dtype, d), causal=True, kernel=kernel)
+    q, k, v, _, _, do = _cpu_operands(dtype, d)
+    with pytest.raises(ValueError, match="cuda"):
+        tflash.tf32x3_bwd_prepass(q, k, v, do)
+    assert tflash.LAUNCHES_BY == before

@@ -65,7 +65,24 @@ Phases (any failed check raises and the script exits non-zero):
    after the warm-up wave, scores as on the CPU); a reduced streamed fit
    and a reduced GRU fit are held against the CPU's (``FIT_TOL``,
    ``GRU_FIT_TOL``), and ~20 superbatches are traced for the device's
-   idle share;
+   idle share. The round runs with a ``checkpoint_dir``: the GNN fit
+   snapshots each of its 60 epochs (timed), and no snapshot directory
+   may be left after the round;
+5a. resume phase: the crash drill of the fits — ``train_gnn`` on the
+   serve leg's probe graph and ``train_mlp`` at [19, 128, 128, 1] on the
+   trainer leg's pairs, 4 epochs each, in two spawned processes on the
+   card with a ``checkpoint_dir`` and ``DF_FAULTS=trainer.fit_step=abort#2``:
+   each must die by SIGKILL, the newest snapshot restored onto the card
+   must equal what the child saved bit for bit, and the fit resumed here
+   runs 2 epochs and lands on an uninterrupted card run (MLP within 1e-6;
+   GNN within two uninterrupted runs' difference, 1e-6 where that is 0);
+5b. federation phase: the trainer leg's upload group as 4 scheduler
+   hosts' shards (3 binary, 1 CSV) in trainer storage;
+   ``Training.federated_round`` on the card sends exactly one
+   ``CreateModel`` (``federated_model_id_v1()``, hostname
+   ``federated``), whose params must be ``fedavg_trees`` of the per-host
+   fits refit here (within 1e-6 relative) and whose holdout mse must
+   beat the mean predictor's;
 6. preheat leg: a ``DemandWindow`` at its defaults (1,024 tasks × 32
    buckets of 10 s) with 8 rising series among flat ones; one
    ``PreheatPlanner`` sweep fits the GRU demand forecaster inline on the
@@ -90,7 +107,15 @@ Phases (any failed check raises and the script exits non-zero):
    bad-node detection. Every decision must be a legal parent set or a
    legitimate back-to-source, none may drop below the serving rung after
    the warm-up, each order is ``rank_order`` of its card scores, and every
-   served call is rescored on the CPU (MLP within 2e-2, GNN within 5e-2);
+   served call is rescored on the CPU (MLP within 2e-2, GNN within 5e-2).
+   Both servers run as shipped with a manager: telemetry to the stand-in
+   every 15 s and /metrics on a port of their own; after the last
+   decision each pushes once more and must have pushed at least
+   ⌊leg s / 15⌋ − 1 times with no failure, the counters the leg counted
+   itself must read alike in the stand-in, both expositions (text and
+   OpenMetrics, every line parsed) and the leg's count, /healthz must
+   answer 200 with every service ``ok`` and each /debug endpoint 200 with
+   JSON; ``build_payload`` ms, payload bytes and scrape ms are printed;
 8. encoder leg at full width: the piece-sequence transformer (model_dim
    256, 4 heads, 4 layers) on B = 2, T = 8192 with flash attention, against
    the plain ``local_attention``: once in bfloat16, which must launch
@@ -114,6 +139,9 @@ and prints no result. Weights and data are random, made from seeds.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import io
 import json
 import random
 import re
@@ -306,6 +334,11 @@ GNN_SCORE_TOL = 5e-2
 UPLOAD_FILES, FILE_MIB, UPLOAD_CHUNK = 11, 100, 128 << 20
 TRAINER_IP, TRAINER_HOST = "10.0.0.2", "scheduler-0"
 TRAINER_WORK = Path(__file__).resolve().parent / "build" / "trainer_leg"
+# the server leg's phase 1 before the servers pushed telemetry and served
+# /metrics, and the trainer leg's round before the GNN took snapshots
+# (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+SERVER_BEFORE_TELEMETRY = {"decisions_per_s": 84.6, "decide_ms_p50": 596.7, "decide_ms_p99": 1229.5}
+TRAINER_ROUND_BEFORE_SNAPSHOTS_S = 29.1
 # a streamed fit on the card (bfloat16 matmul inputs) against the same fit
 # on the CPU (float32): each step's loss and the holdout mse, relative
 FIT_TOL = 5e-2  # twice what bf16 inputs emulated on the CPU may move them (tests/test_torch_ingest.py)
@@ -872,16 +905,20 @@ class _Model:
 
 
 class _Manager:
-    """In-process stand-in for the manager's model registry and job queue:
-    ``CreateModel`` stores a model as the next version of its id, active
-    at once (the manager's activation step is an operator's),
-    ``ListModels`` lists each id at its newest version, ``GetModelWeights``
-    returns a stored model's npz bytes and ``CreateJob`` keeps the job's
-    request. Called in-process it answers with plain records; with
-    ``pb2`` (the manager's generated module) it answers with its messages,
-    and ``served`` puts it behind a gRPC server — with the scheduler
-    registration, keepalive and job-lease RPCs the scheduler server calls —
-    on the port's own ``glue.serve``."""
+    """In-process stand-in for the manager's model registry, job queue and
+    telemetry plane: ``CreateModel`` stores a model as the next version of
+    its id, active at once (the manager's activation step is an
+    operator's), ``ListModels`` lists each id at its newest version,
+    ``GetModelWeights`` returns a stored model's npz bytes, ``CreateJob``
+    keeps the job's request and ``ReportTelemetry`` keeps the newest
+    cumulative value of each series a reporter pushed, as the manager's
+    telemetry plane folds them (a new reporter or epoch starts afresh and
+    is acked ``registered``). Called in-process it answers with plain
+    records; with ``pb2`` (the manager's generated module) it answers with
+    its messages, and ``served`` puts it behind a gRPC server — with the
+    scheduler registration, keepalive and job-lease RPCs the scheduler
+    server calls, and the telemetry service — on the port's own
+    ``glue.serve``."""
 
     def __init__(self, pb2=None):
         self.created = {}  # model_id → its newest CreateModel request
@@ -889,7 +926,11 @@ class _Manager:
         self.stamps = {}  # model_id → creation order of its newest version
         self.jobs = []  # the CreateJob requests, in order
         self.calls = {}  # RPC name → times called
+        # (service, instance) → {"epoch", "seq", "counters", "gauges",
+        # "hists", "sections", "bytes": payload size of each report}
+        self.telemetry = {}
         self.pb2 = pb2
+        self.telemetry_pb2 = None
         self._seq = 0  # creation order: a newer upload is the newer activation
         self._lock = threading.Lock()
 
@@ -962,15 +1003,37 @@ class _Manager:
         self._called("UpdateJobResult")
         return self.pb2.Job(id=request.id, state=request.state)
 
+    def ReportTelemetry(self, request, context=None):
+        self._called("ReportTelemetry")
+        payload = json.loads(request.payload_json)
+        with self._lock:
+            key = (request.service, request.instance)
+            state = self.telemetry.get(key)
+            registered = state is None or state["epoch"] != request.epoch
+            if registered:
+                state = self.telemetry[key] = {"epoch": request.epoch, "seq": 0, "counters": {},
+                                               "gauges": {}, "hists": {}, "sections": {}, "bytes": []}
+            if request.seq > state["seq"]:  # a redelivered report changes nothing
+                state["seq"] = request.seq
+                for kind in ("counters", "gauges", "hists"):
+                    state[kind].update(payload.get(kind, {}))
+                state["sections"].update({k: v for k, v in payload.items()
+                                          if k not in ("counters", "gauges", "hists", "full")})
+            state["bytes"].append(len(request.payload_json))
+            seq = state["seq"]
+        return self.telemetry_pb2.TelemetryAck(registered=registered, last_seq=seq)
+
     def served(self):
         """This stand-in behind a gRPC server on the port's ``glue.serve``
-        → (server, "127.0.0.1:<port>"). The manager RPCs it does not answer
-        abort with UNIMPLEMENTED."""
+        → (server, "127.0.0.1:<port>"), answering the manager's RPCs and
+        ``ReportTelemetry``. The manager RPCs it does not answer abort with
+        UNIMPLEMENTED."""
         import grpc
 
         from dragonfly2_torch.rpc import glue, protos
 
         self.pb2 = protos.load("manager_pb2")
+        self.telemetry_pb2 = protos.load("telemetry_pb2")
         stand_in = self
 
         class _Service:
@@ -984,7 +1047,7 @@ class _Manager:
 
                 return unimplemented
 
-        server, port = glue.serve({glue.MANAGER_SERVICE: _Service()})
+        server, port = glue.serve({glue.MANAGER_SERVICE: _Service(), glue.TELEMETRY_SERVICE: _Service()})
         return server, f"127.0.0.1:{port}"
 
 
@@ -1431,6 +1494,9 @@ def trainer_leg(
             yield from chunks("train_gnn_binary", topo_path.read_bytes())
 
         manager = manager if manager is not None else _Manager()
+        # fit snapshots every epoch, as a trainer run with a checkpoint_dir
+        # takes them (the streamed MLP fit and the GRU fit take none)
+        snapshots = TRAINER_WORK / "snapshots"
         # as dragonfly2_tpu/trainer/server.py:86-113 builds it from the
         # server's defaults, plus the GRU's one cut
         config = TrainingConfig(
@@ -1446,7 +1512,7 @@ def trainer_leg(
             streaming_workers=1,
             auto_mesh=True,
             profile_dir="",
-            checkpoint_dir="",
+            checkpoint_dir=str(snapshots),
             streaming_threshold_bytes=streaming_threshold_bytes,
             gru_max_sequences=gru_max_sequences,
         )
@@ -1457,9 +1523,15 @@ def trainer_leg(
                      for m in ("mlp", "gnn", "gru")}
         since = time.time_ns()
         t0 = time.perf_counter()
-        service.Train(requests(), None)
-        sync(device)
+        with recorded_snapshots() as saves:
+            service.Train(requests(), None)
+            sync(device)
         round_s = time.perf_counter() - t0
+        gnn_saves = [ms for d, _, ms in saves if d.name.startswith("gnn-")]
+        check(len(gnn_saves) == gnn_epochs and len(saves) == gnn_epochs,
+              f"the round took {len(saves)} snapshots, {len(gnn_saves)} of the GNN fit ({gnn_epochs} epochs)")
+        check(not snapshots.exists() or not any(snapshots.iterdir()),
+              f"snapshot directories are left after the round: {sorted(snapshots.iterdir())}")
         events = [e for e in flight.snapshot(["trainer"])["trainer"] if e["ts_ns"] >= since]
         rounds = [e for e in events if e["type"] == "trainer.round"]
         check(len(rounds) == 1 and rounds[0]["ok"], f"the training round failed: {rounds}")
@@ -1495,6 +1567,8 @@ def trainer_leg(
         mlp_ev, gnn_ev, gru_ev = mlp_up.evaluation, gnn_up.evaluation, gru_up.evaluation
         out = {
             "round_s": round_s,
+            "snapshots": {"count": len(gnn_saves), "ms_mean": float(np.mean(gnn_saves)),
+                          "ms_max": max(gnn_saves), "ms_total": float(np.sum(gnn_saves))},
             "download_mib": files * reps * len(group) / 2**20,
             "mlp": {
                 "fit_wall_s": fit_walls["mlp"], "records": split["records"],
@@ -1520,6 +1594,13 @@ def trainer_leg(
             },
         }
         m, g, q = out["mlp"], out["gnn"], out["gru"]
+        sn = out["snapshots"]
+        print(
+            f"trainer[{device}]: round_s={round_s:.1f} with the GNN's snapshots (before snapshots:"
+            f" {TRAINER_ROUND_BEFORE_SNAPSHOTS_S} s, NVIDIA H100 80GB HBM3, 700.00 W); {sn['count']} GNN"
+            f" snapshots, {sn['ms_mean']:.2f} ms an epoch (max {sn['ms_max']:.2f}, {sn['ms_total']:.1f} ms in"
+            f" all); every snapshot directory gone after the round"
+        )
         print(
             f"trainer[{device}]: Train stream → fits → CreateModel in {round_s:.1f}s;"
             f" mlp: fit_wall_s={m['fit_wall_s']:.2f} (stream wall {m['wall_s']:.2f}s)"
@@ -1632,6 +1713,308 @@ def gru_card_vs_cpu(group_seqs, n: int, fit: FitConfig, seed: int) -> dict:
     check(loss_err <= GRU_FIT_TOL and mse_err <= GRU_FIT_TOL, "the card's GRU fit differs from the CPU's")
     return {"steps": steps, "loss_rel_err": loss_err, "mse_rel_err": mse_err, "wall_s": wall,
             "ms_per_step": wall / steps * 1e3}
+
+
+@contextlib.contextmanager
+def recorded_snapshots(on_save=None):
+    """Every ``FitCheckpointer`` a fit opens inside the block records its
+    saves → the list of (directory, epoch, ms a save took: the copy to the
+    host and the write); ``on_save(epoch, state)`` runs after each save."""
+    from dragonfly2_torch.trainer import checkpoint
+
+    base = checkpoint.FitCheckpointer
+    saves = []
+
+    class Recording(base):
+        def save(self, epoch, state):
+            t0 = time.perf_counter()
+            super().save(epoch, state)
+            saves.append((self._dir, epoch, (time.perf_counter() - t0) * 1e3))
+            if on_save is not None:
+                on_save(epoch, state)
+
+    checkpoint.FitCheckpointer = Recording
+    try:
+        yield saves
+    finally:
+        checkpoint.FitCheckpointer = base
+
+
+def state_digest(tree) -> str:
+    """sha256 over a fit state's tensors (dtype, shape, bytes, on the host)
+    and scalars, keys in sorted order: two states with one digest are equal
+    bit for bit."""
+    h = hashlib.sha256()
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                h.update(str(k).encode())
+                walk(node[k])
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        elif isinstance(node, torch.Tensor):
+            t = node.detach().to("cpu").contiguous()
+            h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+            h.update(t.view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(repr(node).encode())
+
+    walk(tree)
+    return h.hexdigest()
+
+
+def max_abs_diff(a: torch.nn.Module, b: torch.nn.Module) -> float:
+    """max over the parameters of max|a - b|."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return max(float((sa[k].float() - sb[k].float()).abs().max()) for k in sa)
+
+
+RESUME_WORK = Path(__file__).resolve().parent / "build" / "resume"
+RESUME_FAULTS = "trainer.fit_step=abort#2"  # SIGKILL as epoch 2 starts
+
+
+def _resume_fit(kind: str, data, directory, config: dict, device):
+    """One of the resume phase's fits: ``train_gnn`` on a probe graph or
+    ``train_mlp`` on (features, labels), with snapshots under
+    ``directory`` when one is given."""
+    from dragonfly2_torch.trainer.train import train_gnn, train_mlp
+
+    cfg = (GNNFitConfig if kind == "gnn" else FitConfig)(
+        **config, checkpoint_dir=str(directory) if directory else None
+    )
+    if kind == "gnn":
+        return train_gnn(data, config=cfg, device=device)
+    return train_mlp(*data, config=cfg, device=device)
+
+
+def _resume_child(conn, kind, data, directory, config, device, threads):
+    """A spawned process's fit under ``RESUME_FAULTS`` (armed from its
+    environment at import), on the parent's count of intra-op threads (a
+    CPU fit's sums follow it): each save's epoch and state digest go to
+    ``conn`` before the fault kills the process."""
+    torch.set_num_threads(threads)
+    with recorded_snapshots(on_save=lambda epoch, state: conn.send((epoch, state_digest(state)))):
+        _resume_fit(kind, data, directory, config, device)
+    conn.send(("survived", None))
+
+
+def resume_phase(device, hosts=10_000, probes=16, epochs=4, group_records=2000, mlp_batch=256, seed=0) -> dict:
+    """The crash drill of the trainer's fits on ``device``: a spawned
+    process runs each fit with a ``checkpoint_dir`` under
+    ``DF_FAULTS=trainer.fit_step=abort#2`` — ``train_gnn`` at
+    ``GNNFitConfig``'s width on the serve leg's probe graph (``hosts`` ×
+    ``probes``) and ``train_mlp`` at ``MLP_DIMS`` on the trainer leg's
+    pairs (``group_records`` seeded download records), ``epochs`` each —
+    and must die by SIGKILL as epoch 2 starts. The newest snapshot,
+    restored onto the device, must equal what the child saved bit for bit;
+    the fit resumed here must run the last 2 epochs only, clear its
+    snapshots and land on an uninterrupted run's parameters: the MLP
+    within 1e-6 (``params_equal``), the GNN within the difference of two
+    uninterrupted runs (1e-6 where they agree exactly)."""
+    import multiprocessing as mp
+    import os
+    import signal
+
+    from dragonfly2_torch.trainer.checkpoint import FitCheckpointer, params_equal
+
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    shutil.rmtree(RESUME_WORK, ignore_errors=True)
+    RESUME_WORK.mkdir(parents=True)
+    children = {}
+    try:
+        ids, _, peers, rtts = probe_graph(hosts, probes, rng)
+        topo = RESUME_WORK / "topology.dfb"
+        topo.write_bytes(encode_blocks(wire.encode_topology_block, topology_records(ids, peers, rtts, rng)))
+        graph = build_probe_graph(wire.read_columns(topo), max_degree=TrainingConfig.gnn_max_degree)
+        group = RESUME_WORK / "group.dfb"
+        group.write_bytes(encode_blocks(wire.encode_train_block, synth.make_download_records(group_records, seed=seed)))
+        pairs = wire.read_train_pairs(group)
+        fits = {
+            "gnn": (graph, dict(epochs=epochs, seed=seed)),
+            "mlp": ((pairs.features, pairs.labels),
+                    dict(hidden_dims=tuple(MLP_DIMS[1:-1]), batch_size=mlp_batch, epochs=epochs, seed=seed)),
+        }
+        dirs = {kind: RESUME_WORK / f"{kind}-snapshots" for kind in fits}
+        ctx = mp.get_context("spawn")
+        armed = os.environ.get("DF_FAULTS")
+        os.environ["DF_FAULTS"] = RESUME_FAULTS  # the children read it at import
+        t0 = time.perf_counter()
+        try:
+            for kind, (data, config) in fits.items():
+                recv, send = ctx.Pipe(duplex=False)
+                proc = ctx.Process(target=_resume_child, args=(send, kind, data, dirs[kind], config, str(device),
+                                                                 torch.get_num_threads()))
+                proc.start()
+                send.close()
+                children[kind] = (proc, recv)
+        finally:
+            if armed is None:
+                del os.environ["DF_FAULTS"]
+            else:
+                os.environ["DF_FAULTS"] = armed
+        saved = {}
+        for kind, (proc, recv) in children.items():
+            saved[kind] = {}
+            try:
+                while True:
+                    epoch, digest = recv.recv()
+                    saved[kind][epoch] = digest
+            except EOFError:
+                pass
+            proc.join(600)
+            check(proc.exitcode == -signal.SIGKILL,
+                  f"resume: the {kind} fit's process ended with {proc.exitcode}, not by SIGKILL")
+        child_s = time.perf_counter() - t0
+        out = {"child_s": child_s, "epochs": epochs, "edges": len(graph.edge_src), "pairs": len(pairs.labels)}
+        for kind, (data, config) in fits.items():
+            check(sorted(saved[kind]) == [0, 1], f"resume: the {kind} child saved epochs {sorted(saved[kind])}")
+            ckpt = FitCheckpointer(dirs[kind])
+            check(ckpt.latest_epoch() == 1, f"resume: the {kind} snapshots end at epoch {ckpt.latest_epoch()}")
+            t0 = time.perf_counter()
+            epoch, state = ckpt.restore_latest(device)
+            sync(device)
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            check(all(t.device.type == device.type for t in state["params"].values()),
+                  f"resume: the {kind} snapshot was not restored onto the device")
+            check(state_digest(state) == saved[kind][1],
+                  f"resume: the restored {kind} snapshot differs from what the child saved")
+            t0 = time.perf_counter()
+            resumed = _resume_fit(kind, data, dirs[kind], config, device)
+            sync(device)
+            resume_s = time.perf_counter() - t0
+            check(len(resumed.history) == epochs - 2, f"resume: the {kind} fit ran {len(resumed.history)} epochs")
+            check(not dirs[kind].exists(), f"resume: the {kind} fit left its snapshots behind")
+            full = _resume_fit(kind, data, None, config, device)
+            diff = max_abs_diff(resumed.params, full.params)
+            st = {"restore_ms": restore_ms, "resume_s": resume_s, "resumed_epochs": len(resumed.history),
+                  "max_abs_diff": diff}
+            if kind == "mlp":
+                limit = 1e-6
+                ok = params_equal(full.params, resumed.params, atol=limit)
+                note = ""
+            else:
+                # the gather's backward may accumulate in another order run
+                # to run on the card: two uninterrupted runs set the limit
+                again = _resume_fit(kind, data, None, config, device)
+                st["run_to_run_diff"] = max_abs_diff(again.params, full.params)
+                limit = st["run_to_run_diff"] or 1e-6
+                ok = diff <= limit
+                note = f"; two uninterrupted runs differ by {st['run_to_run_diff']:.3g}"
+            st["limit"] = limit
+            print(
+                f"resume[{device}]: {kind}: SIGKILLed after the snapshots of epochs 0 and 1; epoch {epoch}"
+                f" restored onto {device.type} in {restore_ms:.1f} ms, bit for bit what the child saved;"
+                f" {len(resumed.history)} epochs resumed in {resume_s:.2f}s; max|resumed - uninterrupted|"
+                f"={diff:.3g} (limit {limit:.3g}{note})"
+            )
+            check(ok, f"resume: the resumed {kind} fit differs from an uninterrupted one by {diff:.3g}")
+            out[kind] = st
+        print(f"resume[{device}]: the two spawned children ran until killed in {child_s:.1f}s")
+        return out
+    finally:
+        for proc, recv in children.values():
+            if proc.is_alive():
+                proc.kill()
+            proc.join(60)
+            recv.close()
+        shutil.rmtree(RESUME_WORK, ignore_errors=True)
+
+
+FEDERATION_WORK = Path(__file__).resolve().parent / "build" / "federation"
+# download records of the trainer leg's upload group per scheduler host,
+# and the form it uploaded them in
+FEDERATION_SHARDS = ((800, "binary"), (600, "binary"), (400, "binary"), (200, "csv"))
+FEDERATION_TOL = 1e-6
+
+
+def federation_phase(device, group_records=2000, shards=FEDERATION_SHARDS, batch=128, epochs=3, seed=0) -> dict:
+    """One FedAvg round on ``device``: the trainer leg's upload group
+    (``group_records`` seeded download records) split into ``shards``, one
+    scheduler host each, in trainer storage as that host uploaded it
+    (train blocks or CSV); ``Training.federated_round`` fits each shard,
+    merges the fits and sends ``CreateModel`` to a manager stand-in. That
+    upload must be the round's only one, under ``federated_model_id_v1()``
+    with hostname ``federated``; its params must be within
+    ``FEDERATION_TOL`` (relative to each leaf's largest) of
+    ``fedavg_trees`` over the per-host fits recomputed here, each weighted
+    by its training pairs; its holdout mse must beat the mean
+    predictor's on the same holdout."""
+    from dragonfly2_torch.parallel.fedavg import fedavg_trees
+    from dragonfly2_torch.schema.columnar import write_csv
+    from dragonfly2_torch.trainer import federation
+    from dragonfly2_torch.trainer.train import train_mlp
+    from dragonfly2_torch.utils.idgen import federated_model_id_v1, host_id_v2
+
+    device = torch.device(device)
+    check(sum(n for n, _ in shards) <= group_records, "the shards hold more records than the group")
+    shutil.rmtree(FEDERATION_WORK, ignore_errors=True)
+    FEDERATION_WORK.mkdir(parents=True)
+    try:
+        recs = synth.make_download_records(group_records, seed=seed)
+        storage = TrainerStorage(FEDERATION_WORK / "storage")
+        at, hosts = 0, []
+        for k, (n, form) in enumerate(shards):
+            host_id = host_id_v2(f"10.0.1.{k}", f"scheduler-{k}")
+            shard = recs[at : at + n]
+            at += n
+            if form == "csv":
+                path = FEDERATION_WORK / f"shard-{k}.csv"
+                write_csv(path, shard)
+                storage.append_download(host_id, path.read_bytes())
+            else:
+                storage.append_download_blocks(host_id, encode_blocks(wire.encode_train_block, shard))
+            hosts.append(host_id)
+        manager = _Manager()
+        cfg = FitConfig(hidden_dims=tuple(MLP_DIMS[1:-1]), batch_size=batch, epochs=epochs, seed=seed)
+        training = Training(storage, ManagerUploader(manager, PlainRequests()),
+                            TrainingConfig(mlp=cfg, auto_mesh=False), device=device)
+        t0 = time.perf_counter()
+        metrics = training.federated_round()
+        sync(device)
+        round_s = time.perf_counter() - t0
+        check(manager.calls == {"CreateModel": 1} and list(manager.created) == [federated_model_id_v1()],
+              f"federation: the round sent {manager.calls} for {list(manager.created)}")
+        up = manager.created[federated_model_id_v1()]
+        check((up.type, up.hostname) == ("mlp", "federated"), f"federation: uploaded {up.type} as {up.hostname}")
+
+        # the per-host fits again, as federated_fit_mlp splits each shard
+        t0 = time.perf_counter()
+        fits, weights, eval_y, examples = [], [], [], {}
+        for host_id in sorted(hosts):
+            pairs = federation._host_pairs(storage, host_id)
+            n = pairs.features.shape[0]
+            perm = np.random.default_rng(cfg.seed).permutation(n)
+            n_eval = max(1, int(n * 0.1))
+            ev, tr = perm[:n_eval], perm[n_eval:]
+            fits.append(train_mlp(pairs.features[tr], pairs.labels[tr], config=cfg, device=device).params.state_dict())
+            weights.append(float(len(tr)))
+            eval_y.append(pairs.labels[ev])
+            examples[host_id] = len(tr)
+        merged = fedavg_trees(fits, weights)
+        check_s = time.perf_counter() - t0
+        got = {k.replace("/", "."): v for k, v in np.load(io.BytesIO(up.weights)).items()}
+        check(got.keys() == merged.keys(), "federation: the upload holds other parameters than the merge")
+        err = max(float(np.abs(got[k] - merged[k].cpu().numpy()).max()
+                        / max(float(merged[k].abs().max()), 1e-30)) for k in merged)
+        mean = mean_mse(np.concatenate(eval_y))
+        out = {"round_s": round_s, "check_s": check_s, "hosts": len(hosts), "examples": examples,
+               "merge_rel_err": err, "mse": metrics["mse"], "mae": metrics["mae"], "mean_predictor_mse": mean}
+        print(
+            f"federation[{device}]: {len(hosts)} hosts ({', '.join(f'{n} records {f}' for n, f in shards)}) →"
+            f" {sum(examples.values())} training pairs, one CreateModel {up.model_id[:12]}… as"
+            f" '{up.hostname}' in {round_s:.2f}s; merged params vs fedavg_trees of the per-host fits refit"
+            f" ({check_s:.2f}s): max rel err {err:.3g} (tol {FEDERATION_TOL:g}); holdout mse"
+            f" {metrics['mse']:.5f} (mean predictor {mean:.5f})"
+        )
+        check(err <= FEDERATION_TOL, "federation: the merged upload is not fedavg_trees of the per-host fits")
+        check(np.isfinite(metrics["mse"]) and metrics["mse"] < mean,
+              "federation: the merged model does not beat the mean predictor on its holdout")
+        return out
+    finally:
+        shutil.rmtree(FEDERATION_WORK, ignore_errors=True)
 
 
 def demand_window(tasks: int, hot: int, now: float, rng: np.random.Generator, **window_kw):
@@ -1986,6 +2369,85 @@ class _Daemons:
                 proc.join()
 
 
+# a sample line of the text exposition or of OpenMetrics (an exemplar
+# after a histogram bucket's value in the latter)
+_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)(?: # \{[^}]*\} \S+ \S+)?$')
+_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="([^"]*)"')
+OPENMETRICS = "application/openmetrics-text; version=1.0.0"
+
+
+def http_get(url: str, accept: "str | None" = None) -> "tuple[int, str, bytes, float]":
+    """GET ``url`` → (status, content type, body, ms)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, headers={"Accept": accept} if accept else {})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        body = resp.read()
+        return resp.status, resp.headers.get("Content-Type", ""), body, (time.perf_counter() - t0) * 1e3
+
+
+def parse_exposition(text: str, openmetrics: bool) -> dict:
+    """Every line of a /metrics body → {series: value}, the series keyed as
+    the telemetry snapshot keys them (``name{a=b}``); a line that is no
+    HELP, TYPE or sample line fails, and so does OpenMetrics without its
+    closing ``# EOF``."""
+    lines = text.rstrip("\n").split("\n")
+    if openmetrics:
+        check(lines[-1] == "# EOF", "the OpenMetrics exposition does not end with # EOF")
+        lines = lines[:-1]
+    out = {}
+    for line in lines:
+        if line.startswith(("# HELP ", "# TYPE ")):
+            continue
+        m = _SAMPLE.match(line)
+        check(m is not None, f"an exposition line does not parse: {line!r}")
+        labels = ",".join(f"{k}={v}" for k, v in _LABEL.findall(m.group(2) or ""))
+        out[m.group(1) + (f"{{{labels}}}" if labels else "")] = float(m.group(3))
+    return out
+
+
+def scrape_checks(name: str, metrics_addr: str, standin: dict, own: dict, before: dict) -> dict:
+    """One server's scrape port: /metrics in the text format and in
+    OpenMetrics (every line parses), /healthz (200, every service ``ok``),
+    each /debug endpoint (200, JSON); then each counter of ``own`` (series
+    → what the leg itself counted since ``before``) must read the same in
+    the manager stand-in's newest push (``standin``), in the scrape, and
+    ``before`` + the leg's count. → scrape ms and series counts."""
+    base = f"http://{metrics_addr}"
+    status, ctype, body, text_ms = http_get(base + "/metrics")
+    check(status == 200 and ctype.startswith("text/plain"), f"{name}: /metrics answered {status} {ctype}")
+    text = parse_exposition(body.decode(), openmetrics=False)
+    status, ctype, body, om_ms = http_get(base + "/metrics", accept=OPENMETRICS)
+    check(status == 200 and ctype.startswith("application/openmetrics-text"),
+          f"{name}: /metrics with OpenMetrics asked for answered {status} {ctype}")
+    om = parse_exposition(body.decode(), openmetrics=True)
+    om_bytes = len(body)
+    status, _, body, health_ms = http_get(base + "/healthz")
+    health = json.loads(body)
+    check(status == 200 and health["status"] == "ok" and health["services"]
+          and all(v == "ok" for v in health["services"].values()), f"{name}: /healthz {status} {health}")
+    for path in ("/debug/ring", "/debug/prof", "/debug/flows", "/debug/swarm", "/debug/faults"):
+        status, ctype, body, _ = http_get(base + path)
+        check(status == 200 and ctype == "application/json", f"{name}: {path} answered {status} {ctype}")
+        json.loads(body)
+    for series, n in own.items():
+        want = before.get(series, 0.0) + n
+        got = (standin["counters"].get(series), text.get(series), om.get(series))
+        check(got == (want, want, want),
+              f"{name}: {series} is {got} (manager stand-in, text scrape, OpenMetrics scrape), not {want}")
+    pushed = {k: v for kind in ("counters", "gauges") for k, v in standin[kind].items()}
+    agree = sum(text.get(k) == v for k, v in pushed.items())
+    print(
+        f"server: {name} scrape: /metrics {text_ms:.2f} ms ({len(text)} series, {om_bytes} B OpenMetrics in"
+        f" {om_ms:.2f} ms), /healthz {health_ms:.2f} ms; {len(own)} counters the leg counted agree in the"
+        f" push, both scrapes and the leg; {agree} of the {len(pushed)} pushed counters and gauges read"
+        f" the same in the scrape"
+    )
+    return {"scrape_ms": text_ms, "scrape_om_ms": om_ms, "healthz_ms": health_ms, "series": len(text),
+            "pushed_series": len(pushed), "pushed_agree": agree}
+
+
 def server_leg(
     device, hosts=10_000, probes=16, tasks=40, peers=256, concurrency=64,
     phase2=256, probe_rounds=3, gnn_epochs=60, mlp_batch=512, seed=0,
@@ -2012,10 +2474,17 @@ def server_leg(
     the child's task registered before its answer — or a legitimate
     back-to-source) and so is the server's side (rung ``serving`` after
     warm-up, order = ``rank_order`` of its card scores), and every served
-    call is rescored on the CPU. The server process's cyclic collections
-    during traffic are timed (``gc.callbacks``), not changed."""
+    call is rescored on the CPU. Both servers run as shipped with a
+    manager: each pushes telemetry every 15 s (``telemetry_interval``'s
+    default) and serves /metrics on a port of its own; after the last
+    decision each reporter pushes once more, and its pushes, the stand-in's
+    values, both expositions, /healthz and the /debug endpoints are checked
+    (``scrape_checks``). The server process's cyclic collections during
+    traffic are timed (``gc.callbacks``), not changed."""
     import gc
     import inspect
+
+    from dragonfly2_torch.utils.telemetry import registry_snapshot
 
     from dragonfly2_torch.rpc import glue
     from dragonfly2_torch.scheduler import server as sched_server
@@ -2059,18 +2528,20 @@ def server_leg(
         mgr_server, mgr_addr = manager.served()
         seed_blob = serialize_params(init_mlp(torch.Generator().manual_seed(seed), MLP_DIMS))
         manager.CreateModel(manager.pb2.CreateModelRequest(model_id="mlp-seeded", type="mlp", weights=seed_blob))
+        before = registry_snapshot()["counters"]
         trainer = TrainerServer(TrainerServerConfig(
             data_dir=str(SERVER_WORK / "trainer"), manager_address=mgr_addr, device=str(device),
-            telemetry_interval=0, synchronous=False, gnn_epochs=gnn_epochs, mlp_batch_size=mlp_batch,
+            metrics_port=0, synchronous=False, gnn_epochs=gnn_epochs, mlp_batch_size=mlp_batch,
         ))
         trainer_addr = trainer.serve()
+        served_at = {"trainer": time.perf_counter()}
         # the refresher and job worker poll only when asked here, and the
         # probe deltas flush once after each round: the reference's config
         # fields, set for a timed run
         cfg = SchedulerServerConfig(
             data_dir=str(SERVER_WORK / "scheduler"), hostname=SERVER_HOST, advertise_ip=SERVER_IP,
             manager_address=mgr_addr, trainer_address=trainer_addr, algorithm="ml", device=str(device),
-            telemetry_interval=0, model_refresh_interval=3600.0, job_poll_interval=3600.0,
+            metrics_port=0, model_refresh_interval=3600.0, job_poll_interval=3600.0,
             topology_flush_threshold=hosts * probes + 1,
         )
         # the server builds its evaluator and scoring service from these names
@@ -2084,6 +2555,27 @@ def server_leg(
         check(isinstance(evaluator, _ServerRecordingEvaluator) and isinstance(service, _ServerRecordingService),
               "the server did not build the recording evaluator and service")
         addr = srv.serve()
+        served_at["scheduler"] = time.perf_counter()
+        reporters = {"scheduler": srv.telemetry_reporter, "trainer": trainer.telemetry_reporter}
+        # each push: (time.monotonic() at its start, build_payload ms, whole push ms)
+        pushes = {name: [] for name in reporters}
+        for name, rep in reporters.items():
+            check(rep is not None and rep.interval == 15.0, f"the {name} server runs no reporter at 15 s")
+            building = []
+
+            def timed_build(build=rep.build_payload, sink=building):
+                t0 = time.perf_counter()
+                got = build()
+                sink.append((time.perf_counter() - t0) * 1e3)
+                return got
+
+            def timed_push(push=rep.push_once, log=pushes[name], built=building):
+                t0, m0 = time.perf_counter(), time.monotonic()
+                ok = push()
+                log.append((m0, built.pop() if built else float("nan"), (time.perf_counter() - t0) * 1e3))
+                return ok
+
+            rep.build_payload, rep.push_once = timed_build, timed_push
         out = {"daemon_procs": procs}
         check(srv.model_refresher.loaded_version == ("mlp-seeded", 1), "the seeded MLP is not installed")
         check(service.model_kind() == "mlp", "the seeded MLP does not hold the serving slot")
@@ -2179,10 +2671,14 @@ def server_leg(
                       f"{name}: {pid}'s order is not its ranking")
                 served += 1
             if demoted:
+                near = [(round(m0, 3), round(b, 1), round(ms, 1)) for m0, b, ms in pushes["scheduler"]
+                        if any(t - 3.0 <= m0 <= t for t, _ in service.errors)]
                 print(f"{name}: {len(demoted)} decisions demoted below the serving rung, e.g."
                       f" {demoted[:5]}; the service raised: {service.errors[:5]}; the server's"
                       f" collections so far (generation: count, longest wall ms, total wall ms,"
-                      f" longest thread ms): {pauses}")
+                      f" longest thread ms): {pauses}; the scheduler's telemetry pushes started"
+                      f" within 3 s before a serving timeout (monotonic s, build ms, push ms): {near}"
+                      f" of {len(pushes['scheduler'])}")
             check(not demoted, f"{name}: {len(demoted)} decisions demoted after the warm-up")
             return walls, served
 
@@ -2291,6 +2787,56 @@ def server_leg(
         out["phase2"]["warmup_decide_ms_max"] = max(decide_ms(p) for p in done2[:warm2])
         check(service.model_kind() == "gnn", "phase 2 was not served by the GNN")
         check(len(evaluator._gru_verdicts) > 0, "is_bad_node never took the GRU branch")
+        before1 = SERVER_BEFORE_TELEMETRY
+        print(
+            f"server[{device}] phase 1 beside the same leg before telemetry and /metrics (NVIDIA H100 80GB"
+            f" HBM3, 700.00 W): {out['phase1']['decisions_per_s']:.1f}/s ({before1['decisions_per_s']}/s);"
+            f" decide_ms p50 {out['phase1']['decide_ms_p50']:.1f} ({before1['decide_ms_p50']}),"
+            f" p99 {out['phase1']['decide_ms_p99']:.1f} ({before1['decide_ms_p99']})"
+        )
+
+        # telemetry: one last push from each reporter after the last
+        # decision, then the pushes, the stand-in and the scrape ports
+        n_peers = len(seeds) + len(children) + len(later)
+        own = {
+            "scheduler": {
+                "dragonfly_scheduler_announce_peer_total{event=register_peer}": n_peers,
+                "dragonfly_scheduler_announce_peer_total{event=download_peer_finished}": n_peers,
+                "dragonfly_scheduler_sync_probes_total{kind=probe_started}": hosts,
+                "dragonfly_scheduler_sync_probes_total{kind=probe_finished}": hosts * probe_rounds,
+            },
+            "trainer": {"dragonfly_trainer_train_total": 1},
+        }
+        servers = {"scheduler": srv, "trainer": trainer}
+        out["telemetry"] = {}
+        for name, rep in reporters.items():
+            check(rep.push_once(), f"the {name} server's last push failed")
+            leg_s = time.perf_counter() - served_at[name]
+            standin = manager.telemetry[(name, rep.instance)]
+            floor = max(int(leg_s // rep.interval) - 1, 0)
+            check(rep.failures == 0 and rep.pushes >= floor,
+                  f"the {name} server pushed {rep.pushes} times with {rep.failures} failures in {leg_s:.1f}s"
+                  f" (at least {floor} wanted, none failed)")
+            sizes = standin["bytes"]
+            build_ms, push_ms = [b for _, b, _ in pushes[name]], [ms for _, _, ms in pushes[name]]
+            st = {
+                "pushes": rep.pushes, "failures": rep.failures, "leg_s": leg_s, "min_pushes": floor,
+                "build_payload_ms_p50": float(np.percentile(build_ms, 50)),
+                "build_payload_ms_max": max(build_ms),
+                "push_ms_p50": float(np.percentile(push_ms, 50)), "push_ms_max": max(push_ms),
+                "payload_bytes_p50": float(np.percentile(sizes, 50)), "payload_bytes_max": max(sizes),
+                "payload_bytes_total": sum(sizes),
+            }
+            print(
+                f"server[{device}]: {name} telemetry: {rep.pushes} pushes ({rep.failures} failed) in"
+                f" {leg_s:.1f}s at {rep.interval:g} s (at least {floor} wanted); build_payload ms"
+                f" p50={st['build_payload_ms_p50']:.3f} max={st['build_payload_ms_max']:.3f}, a whole push"
+                f" p50={st['push_ms_p50']:.3f} max={st['push_ms_max']:.3f} ms; payload bytes"
+                f" p50={st['payload_bytes_p50']:.0f} max={st['payload_bytes_max']} total"
+                f" {st['payload_bytes_total']}"
+            )
+            st.update(scrape_checks(name, servers[name].metrics_addr, standin, own[name], before))
+            out["telemetry"][name] = st
 
         # every served call rescored on the CPU
         cpu = {"seeded": MLPScorer(deserialize_params_auto(seed_blob), device="cpu"),
@@ -2516,6 +3062,9 @@ def main() -> int:
     # upload at 1 file of 100 MiB (11 before the server leg) and its GRU
     # at the newest 10,000 sequences (40,000)
     trainer = leg("trainer", trainer_leg, "cuda", manager=manager, files=1, gru_max_sequences=10_000)
+    # the crash drill cuts the GNN fit to 4 epochs (60 in the round)
+    resume = leg("resume", resume_phase, "cuda")
+    federation = leg("federation", federation_phase, "cuda")
     preheat = leg("preheat", preheat_leg, "cuda", manager)
     server = leg("server", server_leg, "cuda")
     encoders = {
@@ -2533,6 +3082,8 @@ def main() -> int:
         "serve": serve,
         "scheduler": scheduler,
         "trainer": trainer,
+        "resume": resume,
+        "federation": federation,
         "preheat": preheat,
         "server": server,
         "encoder": encoders,
@@ -2586,6 +3137,9 @@ def main() -> int:
         check(sum(k["launches"] for k in kernels if k["source"] == source) > 0,
               f"{source}: a kernel of the path was never launched")
     print(json.dumps({"kernels": kernels}))
+    # again at the end: the card's line leads the output, which the
+    # compilers' reports make long
+    print(smi)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -124,13 +124,3 @@ def check_ported(cfg) -> None:
             "fleet membership and swarm replication are not ported"
             " (ROADMAP queue A item 5h): leave fleet_enabled False"
         )
-    if cfg.manager_address and cfg.telemetry_interval > 0:
-        raise NotImplementedError(
-            "the telemetry reporter is not ported (ROADMAP queue A item 5f):"
-            " set telemetry_interval=0 when a manager is configured"
-        )
-    if cfg.metrics_port >= 0:
-        raise NotImplementedError(
-            "the metrics exposition endpoint is not ported (ROADMAP queue A"
-            " item 5e): leave metrics_port at -1"
-        )

@@ -6,12 +6,13 @@ gRPC server, with the Serve/Stop lifecycle in the reference's order.
 
 The topology engine, the scorers the refresher installs and the preheat
 forecaster run on ``device`` (``"cuda"`` by default; a machine without a
-card raises unless ``"cpu"`` is asked for). Left out of the port, each
-raising ``NotImplementedError`` when a config asks for it: fleet
-membership and swarm replication (``fleet_enabled``), the telemetry
-reporter (``telemetry_interval > 0`` with a manager — the reference's
-default is 15 s, so set it to 0), the metrics exposition endpoint
-(``metrics_port >= 0``) (ROADMAP queue A).
+card raises unless ``"cpu"`` is asked for). With a manager the server
+pushes its series to the manager's ``ReportTelemetry`` every
+``telemetry_interval`` seconds (``utils/telemetry.py``), and with
+``metrics_port >= 0`` it serves ``/metrics``, ``/healthz`` and
+``/debug/*`` (``utils/metrics.MetricsServer``). Left out of the port:
+fleet membership and swarm replication (``fleet_enabled`` raises
+``NotImplementedError``; ROADMAP queue A item 5h).
 """
 
 from __future__ import annotations
@@ -95,9 +96,8 @@ class SchedulerServerConfig:
     preheat_horizon: int = 3
     preheat_budget: int = 4
     preheat_max_tasks: int = 1024
-    # cluster telemetry push cadence (the manager's ReportTelemetry);
-    # <= 0 disables the reporter. The reporter is not ported: with a
-    # manager configured anything above 0 raises
+    # cluster telemetry push cadence (utils/telemetry.py → the manager's
+    # ReportTelemetry; docs/telemetry.md); <= 0 disables the reporter
     telemetry_interval: float = 15.0
     # record sink rotation
     storage_max_size: int = 100 * 1024 * 1024
@@ -151,7 +151,7 @@ class SchedulerServerConfig:
     # address other fleet members/daemons reach this scheduler at;
     # 0 = advertise_ip:<bound port>
     advertise_port: int = 0
-    # Prometheus /metrics endpoint: -1 = disabled (not ported: >= 0 raises)
+    # Prometheus /metrics endpoint (upstream :8000): -1 = disabled
     metrics_port: int = -1
     # df_plugin_*.py modules loaded at startup (upstream internal/dfplugin)
     plugin_dir: str = ""
@@ -442,6 +442,9 @@ class SchedulerServer:
 
         self._grpc = None
         self.port: int | None = None
+        self.telemetry_reporter = None
+        self._metrics = None
+        self.metrics_addr = ""
 
     # ------------------------------------------------------------------
     def serve(self) -> str:
@@ -497,6 +500,25 @@ class SchedulerServer:
                 logger.warning("topology engine kv hydration failed", exc_info=True)
         if self.manager_client is not None:
             self._register_with_manager()
+        if self._manager_channel is not None and cfg.telemetry_interval > 0:
+            # cluster telemetry: periodic registry snapshot + live swarm
+            # table to the manager, riding the channel just dialed
+            from dragonfly2_torch.utils.telemetry import TelemetryReporter
+
+            self.telemetry_reporter = TelemetryReporter(
+                glue.ServiceClient(self._manager_channel, glue.TELEMETRY_SERVICE),
+                service="scheduler",
+                instance=f"{cfg.advertise_ip}:{cfg.advertise_port or self.port}",
+                shard=f"{cfg.advertise_ip}:{cfg.advertise_port or self.port}",
+                prefixes=(
+                    "dragonfly_scheduler_",
+                    "dragonfly_fleet_",
+                    "dragonfly_swarm_",
+                ),
+                interval=cfg.telemetry_interval,
+                collect_sections=self._telemetry_sections,
+            )
+            self.telemetry_reporter.start()
         self.announcer.serve()
         if self.scoring_service is not None:
             # the serving thread must be consuming BEFORE the refresher's
@@ -519,6 +541,15 @@ class SchedulerServer:
         from dragonfly2_torch.utils.metrics import set_build_info
 
         set_build_info("scheduler")
+        if cfg.metrics_port >= 0:
+            from dragonfly2_torch.scheduler import metrics  # noqa: F401
+            from dragonfly2_torch.utils.metrics import MetricsServer, default_registry
+
+            self._metrics = MetricsServer(default_registry, host=cfg.metrics_host, port=cfg.metrics_port)
+            # liveness on the scrape port (/healthz): the gRPC plane up
+            self._metrics.register_health("scheduler", lambda: self._grpc is not None)
+            self.metrics_addr = self._metrics.start()
+            logger.info("scheduler metrics on %s", self.metrics_addr)
         # the set-up heap (modules, models, the engine hydrated from the
         # KV) leaves the collector's walk at once, after one full
         # collection
@@ -526,6 +557,31 @@ class SchedulerServer:
         gc.freeze()
         logger.info("scheduler gRPC on %s", addr)
         return addr
+
+    def _telemetry_sections(self) -> dict:
+        """The scheduler's structured telemetry sections: the live
+        per-task swarm table and the shard-wide observatory rollup
+        (both from scheduler/swarm — the same ledger /debug/swarm and
+        the flight probe read) plus identity/endpoints. Gauges are
+        refreshed first so the pushed registry snapshot is as current
+        as the table."""
+        from dragonfly2_torch.scheduler import metrics as _M
+        from dragonfly2_torch.scheduler import swarm as _swarm
+        from dragonfly2_torch.version import __version__
+
+        _M.refresh_resource_gauges(self.resource)
+        sections = {
+            "swarms": _swarm.telemetry_section(),
+            "build": {"service": "scheduler", "version": __version__},
+            "endpoints": {
+                "rpc": f"{self.cfg.advertise_ip}:{self.cfg.advertise_port or self.port}",
+                "metrics": self.metrics_addr,
+            },
+        }
+        rollup = _swarm.telemetry_rollup()
+        if rollup:
+            sections["swarm_rollup"] = rollup
+        return sections
 
     def _register_with_manager(self) -> None:
         """Register with the manager before serving traffic (upstream
@@ -553,6 +609,10 @@ class SchedulerServer:
     def stop(self) -> None:
         # upstream Stop order scheduler.go:368: dynconfig → resource →
         # storage → gc → announcer → clients → graceful grpc stop
+        if self._metrics is not None:
+            self._metrics.stop()
+        if self.telemetry_reporter is not None:
+            self.telemetry_reporter.stop()
         if self.preheat_planner is not None:
             # before the job worker (reverse of start): no sweep may
             # submit into a worker already torn down

@@ -3,7 +3,7 @@
 # hold with no Prometheus touch (series flush lazily at sync time).
 """Swarm observatory: live per-task swarm DAG introspection (counterpart
 of the reference's ``scheduler/swarm.py``, without its replication
-surface and telemetry rows, which serve parts not ported).
+surface, which serves fleet failover: ROADMAP queue A item 5h).
 
 The scheduler's whole job is maintaining the swarm graph — which peer
 feeds which, how deep the tree runs, how much of each task the swarm
@@ -521,6 +521,37 @@ def telemetry_rollup() -> dict:
         }
     _emit(events)
     return out
+
+
+def telemetry_section(max_tasks: int = 256, max_stragglers: int = 5) -> list:
+    """Per-task rows for the scheduler's ``swarms`` telemetry section
+    (the shape the manager merges fleet-wide and dfstat renders)."""
+    now = time.monotonic()
+    rows = []
+    with _lock:
+        events = _detect_locked(now)
+        for tid, tv in list(_tasks.items())[:max_tasks]:
+            live = seeders = 0
+            straggler_ids = []
+            for pid, pv in tv.peers.items():
+                if pv.state != "Leave":
+                    live += 1
+                if pv.seed or pv.state == "Succeeded":
+                    seeders += 1
+                if pv.straggler or pv.stuck:
+                    straggler_ids.append(pid)
+            rows.append(
+                {
+                    "task_id": tid,
+                    "peers": live,
+                    "seeders": seeders,
+                    "done_pieces": tv.max_done,
+                    "total_pieces": tv.total_pieces,
+                    "stragglers": straggler_ids[:max_stragglers],
+                }
+            )
+    _emit(events)
+    return rows
 
 
 # -- lazy series flush ---------------------------------------------------

@@ -12,7 +12,8 @@ RTT inference (unprobed pairs): L landmark hosts (highest fresh degree)
 keep min-plus distances ``D`` [node_cap, L] to every host, which stays on
 the device; est_rtt(a, b) = min over landmarks of d(a,l) + d(l,b). Direct
 fresh edges win over inference. The k-hop aggregate comes to the host once
-per flush. Counts live in ``stats()``.
+per flush. Counts live in ``stats()`` and in the ``dragonfly_topology_*``
+series (``topology/metrics.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from dragonfly2_torch.device import resolve_device
 from dragonfly2_torch.schema import records as R
+from dragonfly2_torch.topology import metrics as TM
 from dragonfly2_torch.topology.csr import NS_PER_MS, AdjacencyStore
 from dragonfly2_torch.topology.delta import DeltaQueue, EdgeDelta
 from dragonfly2_torch.topology.kernels import INF_MS, TorchKernels
@@ -71,6 +73,7 @@ class TopologyEngine:
         self._khop_rtt: np.ndarray | None = None  # [node_cap] log-ms, host
         self._landmark_idx: np.ndarray | None = None
         self._flush_count = 0
+        self._dropped_seen = 0
         self._last_flush_at = 0.0
         # bumped on every out-of-flush store mutation (adopt, delete_host):
         # a flush whose build predates the bump rebuilds
@@ -91,6 +94,7 @@ class TopologyEngine:
         self.deltas.put(
             EdgeDelta(src, dest, rtt_ns, created_at if created_at is not None else self.clock())
         )
+        TM.DELTA_QUEUE_GAUGE.set(len(self.deltas))
         if len(self.deltas) >= self.cfg.flush_threshold:
             self.flush()
 
@@ -122,11 +126,12 @@ class TopologyEngine:
         flushes). Kernel work runs outside the query lock."""
         now = self.clock() if now is None else now
         with self._flush_lock:
+            t0 = time.perf_counter()
             batch = self.deltas.drain()
             with self._lock:
                 for d in batch:
                     self.store.apply_probe(d.src, d.dest, d.rtt_ns, d.created_at)
-                self.store.purge_stale(now, self.cfg.max_age_s)
+                purged = self.store.purge_stale(now, self.cfg.max_age_s)
                 arr = self._build_arrays(now)
                 built_version = self._store_version
             computed = self._run_kernels(arr)
@@ -138,6 +143,15 @@ class TopologyEngine:
                     self._refresh(now)
                 self._flush_count += 1
                 self._last_flush_at = now
+            if purged:
+                TM.STALE_PURGED_TOTAL.inc(purged)
+            TM.FLUSH_TOTAL.inc()
+            TM.FLUSH_LATENCY.observe(time.perf_counter() - t0)
+            TM.DELTA_QUEUE_GAUGE.set(len(self.deltas))
+            dropped = self.deltas.dropped
+            if dropped > self._dropped_seen:
+                TM.DELTA_DROPPED_TOTAL.inc(dropped - self._dropped_seen)
+                self._dropped_seen = dropped
             return len(batch)
 
     def _refresh(self, now: float) -> None:
@@ -228,6 +242,8 @@ class TopologyEngine:
         self._D = computed["D"]
         self._landmark_idx = arr["landmark_idx"][: arr["num_landmarks"]].copy()
         self._cache.clear()
+        TM.EDGE_GAUGE.set(self.store.num_edges)
+        TM.HOST_GAUGE.set(len(self.store.index))
 
     # ------------------------------------------------------------------
     # queries
@@ -247,6 +263,7 @@ class TopologyEngine:
             key = (src, dest)
             if key in self._cache:
                 self._cache_hits += 1
+                TM.QUERY_TOTAL.labels("cache").inc()
                 self._note_latency(t0)
                 out, source = self._cache[key]
                 return self._intify(out), source
@@ -262,16 +279,20 @@ class TopologyEngine:
         s = self.store.index.get(src)
         d = self.store.index.get(dest)
         if s is None or d is None:
+            TM.QUERY_TOTAL.labels("unknown").inc()
             return None, "none"
         edge = self.store.edges.get((s, d)) or self.store.edges.get((d, s))
         if edge is not None:
+            TM.QUERY_TOTAL.labels("direct").inc()
             return float(edge[0]), "direct"
         if self._D is None:
             return None, "none"
         idx = torch.tensor([s, d], dtype=torch.int64, device=self.device)
         est_ms = float(self.kernels.est_from_landmarks(self._D, idx[:1], idx[1:])[0])
         if est_ms >= INF_MS / 2:
+            TM.QUERY_TOTAL.labels("no_path").inc()
             return None, "none"
+        TM.QUERY_TOTAL.labels("inferred").inc()
         return est_ms * NS_PER_MS, "inferred"
 
     @staticmethod
@@ -442,6 +463,7 @@ class TopologyEngine:
         with self._lock:
             total = self._cache_hits + self._cache_misses
             hit_rate = self._cache_hits / total if total else 0.0
+            TM.INFERENCE_CACHE_HIT_RATE.set(hit_rate)
             return {
                 "backend": self.kernels.backend,
                 "device": str(self.device),

@@ -1,0 +1,37 @@
+"""Topology-engine Prometheus series (counterpart of the reference's
+``topology/metrics.py``; lands in the shared
+default_registry next to the scheduler's, so one /metrics endpoint
+carries both)."""
+
+from dragonfly2_torch.utils.metrics import default_registry as _r
+
+EDGE_GAUGE = _r.gauge(
+    "topology_edges", "Edges resident in the device adjacency"
+)
+HOST_GAUGE = _r.gauge(
+    "topology_hosts", "Hosts interned in the device adjacency"
+)
+DELTA_QUEUE_GAUGE = _r.gauge(
+    "topology_delta_queue_depth", "Probe deltas waiting for the next flush"
+)
+DELTA_DROPPED_TOTAL = _r.counter(
+    "topology_delta_dropped_total", "Deltas dropped by the queue cap"
+)
+FLUSH_TOTAL = _r.counter(
+    "topology_flush_total", "Delta flushes applied to the device adjacency"
+)
+FLUSH_LATENCY = _r.histogram(
+    "topology_flush_seconds",
+    "Delta flush latency (drain + CSR build + device refresh)",
+    buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, float("inf")),
+)
+QUERY_TOTAL = _r.counter(
+    "topology_query_total", "est_rtt queries", ("source",)
+)
+INFERENCE_CACHE_HIT_RATE = _r.gauge(
+    "topology_inference_cache_hit_rate",
+    "Fraction of est_rtt queries served from the inference cache",
+)
+STALE_PURGED_TOTAL = _r.counter(
+    "topology_stale_edges_purged_total", "Edges dropped by staleness decay"
+)

@@ -3,12 +3,12 @@
 client + storage + training core + gRPC server, Serve/Stop lifecycle.
 
 The fits run on ``device`` (``"cuda"`` by default; a machine without a
-card raises unless ``"cpu"`` is asked for). Left out of the port, each
-raising ``NotImplementedError`` when a config asks for it: the telemetry
-reporter (``telemetry_interval > 0`` with a manager — the reference's
-default is 15 s, so set it to 0), the metrics exposition endpoint
-(``metrics_port >= 0``) and fit snapshots (``checkpoint_dir``, raised by
-``Training``) (ROADMAP queue A).
+card raises unless ``"cpu"`` is asked for). With a manager the server
+pushes its ``dragonfly_trainer_*`` series to the manager's
+``ReportTelemetry`` every ``telemetry_interval`` seconds; with
+``metrics_port >= 0`` it serves ``/metrics``, ``/healthz`` and
+``/debug/*``; with a ``checkpoint_dir`` the MLP and GNN fits snapshot
+every epoch and a restarted round resumes them.
 """
 
 from __future__ import annotations
@@ -56,15 +56,15 @@ class TrainerServerConfig:
     auto_mesh: bool = True
     # torch.profiler trace per round ("" = off)
     profile_dir: str = ""
-    # per-(model, host) fit snapshots; not ported: non-empty raises
+    # per-(model, host) fit snapshots: a crashed fit resumes from its
+    # newest epoch ("" = off)
     checkpoint_dir: str = ""
     # run fits inline with the Train RPC (tests/debug) instead of async
     synchronous: bool = False
-    # Prometheus /metrics endpoint: -1 = disabled (not ported: >= 0 raises)
+    # Prometheus /metrics endpoint (upstream :8000): -1 = disabled
     metrics_port: int = -1
     metrics_host: str = "127.0.0.1"
-    # cluster telemetry push cadence; <= 0 disables. The reporter is not
-    # ported: with a manager configured anything above 0 raises
+    # cluster telemetry push cadence (utils/telemetry.py); <= 0 disables
     telemetry_interval: float = 15.0
     # gRPC TLS: PEM file paths; tls_client_ca_file enforces mTLS
     tls_cert_file: str = ""
@@ -126,6 +126,9 @@ class TrainerServer:
             self.storage, self.training, synchronous=config.synchronous
         )
         self._grpc = None
+        self.telemetry_reporter = None
+        self._metrics = None
+        self.metrics_addr = ""
 
     def serve(self) -> str:
         # flight recorder: stall/crash dumps + the Diagnose snapshot RPC
@@ -150,10 +153,44 @@ class TrainerServer:
         from dragonfly2_torch.utils.metrics import set_build_info
 
         set_build_info("trainer")
+        if self._manager_channel is not None and self.cfg.telemetry_interval > 0:
+            # cluster telemetry: ingest throughput + fit freshness to the
+            # manager over the channel already dialed for CreateModel
+            from dragonfly2_torch.utils.telemetry import TelemetryReporter
+            from dragonfly2_torch.version import __version__
+
+            def sections():
+                return {
+                    "build": {"service": "trainer", "version": __version__},
+                    "endpoints": {"rpc": addr, "metrics": self.metrics_addr},
+                }
+
+            self.telemetry_reporter = TelemetryReporter(
+                glue.ServiceClient(self._manager_channel, glue.TELEMETRY_SERVICE),
+                service="trainer",
+                instance=addr,
+                prefixes=("dragonfly_trainer_",),
+                interval=self.cfg.telemetry_interval,
+                collect_sections=sections,
+            )
+            self.telemetry_reporter.start()
+        if self.cfg.metrics_port >= 0:
+            from dragonfly2_torch.trainer import metrics  # noqa: F401
+            from dragonfly2_torch.utils.metrics import MetricsServer, default_registry
+
+            self._metrics = MetricsServer(default_registry, host=self.cfg.metrics_host, port=self.cfg.metrics_port)
+            # liveness on the scrape port (/healthz): the gRPC plane up
+            self._metrics.register_health("trainer", lambda: self._grpc is not None)
+            self.metrics_addr = self._metrics.start()
+            logger.info("trainer metrics on %s", self.metrics_addr)
         logger.info("trainer gRPC on %s", addr)
         return addr
 
     def stop(self) -> None:
+        if self.telemetry_reporter is not None:
+            self.telemetry_reporter.stop()
+        if self._metrics is not None:
+            self._metrics.stop()
         if self._grpc is not None:
             self._grpc.stop(grace=2).wait(5)
         if self._manager_channel is not None:

@@ -13,7 +13,14 @@ the GRU computes in float32 everywhere.
 JAX's random init cannot be reproduced here, so ``FitConfig.init``
 takes an initial parameter tree in the reference's layout (numpy); the
 output-bias warm start is applied on top of it, as on a fresh init.
-Fit snapshots (``checkpoint_dir``) are not ported yet and raise.
+
+With ``checkpoint_dir`` set, the MLP and GNN fits snapshot (module state,
+``AdamW`` state, epoch) after every epoch through
+``trainer.checkpoint.FitCheckpointer`` and resume from the newest
+snapshot; each epoch's shuffle is seeded by (seed, epoch), so a resumed
+fit replays the uninterrupted one's schedule. A successful fit deletes
+its snapshots. The GRU fit takes none, as in the reference (its shuffle
+runs one generator across epochs).
 """
 
 from __future__ import annotations
@@ -31,8 +38,8 @@ from dragonfly2_torch.models import mlp as mlp_mod
 from dragonfly2_torch.utils import faults
 from dragonfly2_torch.weights import graphsage_from_numpy, gru_from_numpy, mlp_from_numpy
 
-# fault point: fires once per fit epoch — a ``delay`` rule models a
-# stalling device link, an ``abort`` rule a crash mid-fit
+# fault point: fires once per MLP and GNN fit epoch — a ``delay`` rule
+# models a stalling device link, an ``abort`` rule a crash mid-fit
 FP_FIT_STEP = faults.point("trainer.fit_step")
 
 
@@ -46,9 +53,10 @@ class FitConfig:
     warmup_fraction: float = 0.1
     eval_fraction: float = 0.1
     seed: int = 0
-    # elastic restart (the reference's orbax snapshots): not ported yet,
-    # a non-empty dir raises NotImplementedError
+    # elastic restart: snapshot every ``checkpoint_every`` epochs into
+    # this directory and resume from the newest (trainer/checkpoint.py)
     checkpoint_dir: str | None = None
+    checkpoint_every: int = 1
     # initial parameter tree in the reference's layout (numpy), before
     # the output-bias warm start; None draws one from ``seed``
     init: Any = None
@@ -128,6 +136,18 @@ class AdamW:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
+    def state_dict(self) -> dict:
+        """The optimizer's state (optax's ``ScaleByAdamState``): the
+        moments and the update count."""
+        return {"mu": self.mu, "nu": self.nu, "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a ``state_dict`` into this optimizer's tensors in place."""
+        for mine, saved in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
+            mine.copy_(saved)
+        self.count = int(state["count"])
+
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
@@ -200,12 +220,44 @@ def make_epoch_fn(loss_fn: Callable[[Any, tuple], torch.Tensor], optimizer: Adam
     return epoch
 
 
-def _refuse_checkpoint(cfg: FitConfig) -> None:
-    if cfg.checkpoint_dir:
-        raise NotImplementedError(
-            "fit snapshots (the reference's orbax FitCheckpointer) are not ported"
-            " yet: ROADMAP queue A item 8"
-        )
+def _open_checkpoint(cfg: FitConfig):
+    """→ (FitCheckpointer | None, start_epoch). Epoch ``k`` snapshots are
+    taken *after* epoch k runs, so resume starts at latest+1."""
+    if not cfg.checkpoint_dir:
+        return None, 0
+    from dragonfly2_torch.trainer.checkpoint import FitCheckpointer
+
+    ckpt = FitCheckpointer(cfg.checkpoint_dir)
+    latest = ckpt.latest_epoch()
+    return ckpt, (latest + 1 if latest is not None else 0)
+
+
+def _resume(ckpt, start_epoch: int, model: torch.nn.Module, optimizer: AdamW) -> None:
+    """Load the newest snapshot, on the fit's device, into ``model`` and
+    ``optimizer`` in place (the optimizer keeps its parameter list)."""
+    if ckpt is None or start_epoch == 0:
+        return
+    restored = ckpt.restore_latest(_device_of(model))
+    if restored is not None:
+        _, state = restored
+        model.load_state_dict(state["params"])
+        optimizer.load_state_dict(state["opt_state"])
+
+
+def _fit_state(model: torch.nn.Module, optimizer: AdamW) -> dict:
+    return {"params": model.state_dict(), "opt_state": optimizer.state_dict()}
+
+
+def _maybe_save_tree(ckpt, cfg: FitConfig, epoch: int, state) -> None:
+    if ckpt is not None and (epoch + 1) % max(cfg.checkpoint_every, 1) == 0:
+        ckpt.save(epoch, state)
+
+
+def _finish_checkpoint(ckpt) -> None:
+    """Successful completion: drop the run's snapshots (the next round
+    must train fresh, not resume into zero epochs)."""
+    if ckpt is not None:
+        ckpt.clear()
 
 
 def _device_of(module: torch.nn.Module) -> torch.device:
@@ -227,7 +279,6 @@ def train_mlp(
     Evaluation metrics are MSE/MAE on the held-out split, what the
     manager stores with an MLP upload."""
     cfg = config or FitConfig()
-    _refuse_checkpoint(cfg)
     dev = resolve_device(device)
     n, f = features.shape
     train_idx, eval_idx = _split_eval(n, cfg.eval_fraction, cfg.seed)
@@ -251,16 +302,21 @@ def train_mlp(
         return torch.mean((pred - y) ** 2)
 
     epoch_fn = make_epoch_fn(loss_fn, optimizer)
+    ckpt, start_epoch = _open_checkpoint(cfg)
+    _resume(ckpt, start_epoch, mlp, optimizer)
     history: list[float] = []
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         FP_FIT_STEP()
+        # per-epoch rng: a resumed run replays the exact shuffle schedule
         rng = np.random.default_rng(cfg.seed + 1 + epoch)
         order = train_idx[rng.permutation(len(train_idx))][:used]
         xb = torch.from_numpy(features[order].reshape(steps, batch, f)).to(dev)
         yb = torch.from_numpy(labels[order].reshape(steps, batch)).to(dev)
         history.append(float(epoch_fn(mlp, (xb, yb))))
+        _maybe_save_tree(ckpt, cfg, epoch, _fit_state(mlp, optimizer))
 
     metrics = evaluate_mlp(mlp, features[eval_idx], labels[eval_idx]) if len(eval_idx) else {}
+    _finish_checkpoint(ckpt)
     return FitResult(params=mlp, metrics=metrics, history=history)
 
 
@@ -318,7 +374,6 @@ def train_gnn(graph, config: GNNFitConfig | None = None, device="cuda") -> FitRe
     binary task "edge is faster than the median RTT" — the tuple the
     manager stores with a GNN upload."""
     cfg = config or GNNFitConfig()
-    _refuse_checkpoint(cfg)
     dev = resolve_device(device)
     e = len(graph.edge_src)
     train_idx, eval_idx = _split_eval(e, cfg.eval_fraction, cfg.seed)
@@ -334,18 +389,25 @@ def train_gnn(graph, config: GNNFitConfig | None = None, device="cuda") -> FitRe
         return torch.mean((pred - y) ** 2)
 
     epoch_fn = make_epoch_fn(loss_fn, optimizer)
+    ckpt, start_epoch = _open_checkpoint(cfg)
+    _resume(ckpt, start_epoch, model, optimizer)
     history: list[float] = []
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
+        # the reference's GNN loop has no fault point; the port's fires it
+        # as the MLP's does, so the crash drill reaches the longest fit
+        FP_FIT_STEP()
         rng = np.random.default_rng(cfg.seed + 1 + epoch)
         order = train_idx[rng.permutation(len(train_idx))][:used]
         sb = torch.from_numpy(graph.edge_src[order].reshape(steps, batch)).to(dev)
         db = torch.from_numpy(graph.edge_dst[order].reshape(steps, batch)).to(dev)
         yb = torch.from_numpy(graph.edge_rtt_log_ms[order].reshape(steps, batch)).to(dev)
         history.append(float(epoch_fn(model, (sb, db, yb))))
+        _maybe_save_tree(ckpt, cfg, epoch, _fit_state(model, optimizer))
 
     metrics: dict[str, float] = {}
     if len(eval_idx):
         metrics = evaluate_gnn(model, graph, eval_idx)
+    _finish_checkpoint(ckpt)
     return FitResult(params=model, metrics=metrics, history=history)
 
 
@@ -399,14 +461,14 @@ def train_gru(
 ) -> FitResult:
     """Fit the next-piece-cost predictor over piece history sequences.
     Evaluation metrics are MSE/MAE on the held-out split. A data-parallel
-    ``mesh`` is not ported yet and raises."""
+    ``mesh`` is not ported yet and raises. ``checkpoint_dir`` takes no
+    snapshot here, as in the reference (ROADMAP §C)."""
     if mesh is not None:
         raise NotImplementedError(
             "the data-parallel fit mesh is not ported yet (ROADMAP queue A item 11):"
             " pass mesh=None"
         )
     cfg = config or FitConfig(hidden_dims=(64,), batch_size=256, epochs=5)
-    _refuse_checkpoint(cfg)
     dev = resolve_device(device)
     n, t, f = sequences.shape
     train_idx, eval_idx = _split_eval(n, cfg.eval_fraction, cfg.seed)

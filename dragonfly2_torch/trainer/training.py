@@ -11,10 +11,16 @@ failed fit never poisons serving: models upload as inactive and the
 manager's activation step gates rollout; a failed GRU leg never gates
 the round's ``ok``.
 
+With ``checkpoint_dir`` set, each (model, host) fit snapshots every
+epoch under ``<checkpoint_dir>/<model>-<host_id>`` and a restarted round
+resumes it. ``federated_round`` fits every uploading host's shard on its
+own, merges the fits by example-weighted FedAvg and uploads one global
+MLP (``trainer/federation.py``).
+
 Not ported yet: the data-parallel mesh (an explicit mesh, or
 ``auto_mesh`` on a host with more than one card, raises: ROADMAP queue A
-item 11), fit snapshots (item 8) and the native C++ CSV decoder — CSV
-payloads take the reference's own numpy fallback.
+item 11) and the native C++ CSV decoder (item 5d) — CSV payloads take the
+reference's own numpy fallback.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import contextlib
 import itertools
 import os
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Protocol
 
 import numpy as np
@@ -125,7 +131,8 @@ class TrainingConfig:
     auto_mesh: bool = True
     # torch.profiler trace per round ("" = off): <profile_dir>/<host_id>.json
     profile_dir: str = ""
-    # fit snapshots per (model, host); not ported yet: non-empty raises
+    # elastic restart: per-(model, host) fit snapshots under this
+    # directory, resumed after a crash and cleared on success ("" = off)
     checkpoint_dir: str = ""
 
 
@@ -162,11 +169,6 @@ class Training:
                 "the data-parallel fit mesh is not ported yet (ROADMAP queue A"
                 " item 11): pass mesh=None, and auto_mesh=False on a host with"
                 " more than one card"
-            )
-        if self.config.checkpoint_dir:
-            raise NotImplementedError(
-                "fit snapshots are not ported yet (ROADMAP queue A item 8):"
-                " leave TrainingConfig.checkpoint_dir empty"
             )
 
     def train(self, ip: str, hostname: str) -> TrainingOutcome:
@@ -346,7 +348,12 @@ class Training:
             )
         if pairs.features.shape[0] == 0:
             raise BelowMinRecords("no trainable (download, parent) pairs")
-        result = train_mlp(pairs.features, pairs.labels, config=self.config.mlp, device=self.device)
+        result = train_mlp(
+            pairs.features,
+            pairs.labels,
+            config=self._fit_config(self.config.mlp, "mlp", host_id),
+            device=self.device,
+        )
         if self.manager_client is not None:
             self.manager_client.create_model(
                 model_id=mlp_model_id_v1(ip, hostname),
@@ -360,6 +367,18 @@ class Training:
             # commit only after a fully successful round (incl. upload)
             self.storage.commit_download_offset(host_id, boundary, binary=binary)
         return result.metrics
+
+    def _fit_config(self, cfg, model: str, host_id: str):
+        """Stamp the per-(model, host) checkpoint dir onto a fit config
+        when elastic restart is enabled — the fit loop then snapshots
+        every epoch and resumes from the newest snapshot after a crash
+        (trainer/checkpoint.py; cleared on successful completion)."""
+        if not self.config.checkpoint_dir:
+            return cfg
+        return replace(
+            cfg,
+            checkpoint_dir=os.path.join(self.config.checkpoint_dir, f"{model}-{host_id}"),
+        )
 
     def _pending_bytes(self, host_id: str, binary: bool) -> int:
         path = (
@@ -492,7 +511,9 @@ class Training:
                 f"{graph.num_records} network topology records for host {host_id}"
                 f" < min {self.config.min_topology_records}"
             )
-        result = train_gnn(graph, config=self.config.gnn, device=self.device)
+        result = train_gnn(
+            graph, config=self._fit_config(self.config.gnn, "gnn", host_id), device=self.device
+        )
         if self.manager_client is not None:
             self.manager_client.create_model(
                 model_id=gnn_model_id_v1(ip, hostname),
@@ -556,7 +577,7 @@ class Training:
             seqs.sequences,
             seqs.labels,
             lengths=seqs.lengths,
-            config=self.config.gru_config,
+            config=self._fit_config(self.config.gru_config, "gru", host_id),
             device=self.device,
         )
         if self.manager_client is not None:
@@ -565,6 +586,31 @@ class Training:
                 model_type="gru",
                 ip=ip,
                 hostname=hostname,
+                params=result.params,
+                evaluation=result.metrics,
+            )
+        return result.metrics
+
+    # -- federated round over every uploading host's shard ----------------
+    def federated_round(self, config: FitConfig | None = None) -> "dict[str, float]":
+        """Fit every host shard independently, FedAvg-merge, upload ONE
+        global model (trainer/federation.py). Returns the merged model's
+        cross-shard holdout metrics."""
+        from dragonfly2_torch.trainer.federation import federated_fit_mlp
+        from dragonfly2_torch.utils.idgen import federated_model_id_v1
+
+        host_ids = self.storage.host_ids()
+        if not host_ids:
+            raise ValueError("no host shards in trainer storage")
+        result = federated_fit_mlp(
+            self.storage, host_ids, config=config or self.config.mlp, device=self.device
+        )
+        if self.manager_client is not None:
+            self.manager_client.create_model(
+                model_id=federated_model_id_v1(),
+                model_type="mlp",
+                ip="",
+                hostname="federated",
                 params=result.params,
                 evaluation=result.metrics,
             )

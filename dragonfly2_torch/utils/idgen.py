@@ -95,3 +95,8 @@ def mlp_model_id_v1(ip: str, hostname: str) -> str:
 
 def gru_model_id_v1(ip: str, hostname: str) -> str:
     return sha256_from_strings(ip, hostname, "gru")
+
+
+def federated_model_id_v1(cluster: str = "global") -> str:
+    """One merged model per federation scope (all uploading hosts)."""
+    return sha256_from_strings("federated", cluster, "mlp")

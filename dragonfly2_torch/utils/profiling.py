@@ -603,3 +603,28 @@ def _dump_section() -> dict:
 
 
 flight.register_dump_augment(_dump_section)
+
+
+def telemetry_section(top_k: int = 5, window_s: float = 60.0) -> dict:
+    """The reporter-side summary pushed to the manager: top-K hot
+    stacks over the last minute plus per-phase totals/shares. Empty
+    when nothing profiled (quiet process, sampler off)."""
+    out: dict = {}
+    folded = _profiler.folded(window_s) if _profiler.samples else {}
+    if folded:
+        top = sorted(folded.items(), key=lambda kv: kv[1], reverse=True)[:top_k]
+        out["hot"] = [
+            {"stack": ";".join((role,) + tup), "samples": n}
+            for (role, tup), n in top
+        ]
+    phases = ledger_snapshot()
+    if phases:
+        out["phases"] = {
+            name: {
+                "count": s["count"],
+                "total_s": s["total_s"],
+                "share": s["share"],
+            }
+            for name, s in phases.items()
+        }
+    return out

@@ -1,0 +1,316 @@
+"""Cluster telemetry: the reporter half of the manager-aggregated
+telemetry plane (counterpart of the reference's ``utils/telemetry.py``;
+docs/telemetry.md).
+
+Every service process periodically snapshots its metrics registry
+(utils/metrics) and pushes the snapshot to the manager over a
+``ReportTelemetry`` RPC riding the manager channel the process already
+holds for KeepAlive/dynconfig. The wire protocol is built for lossy
+delivery:
+
+- values are CUMULATIVE, not deltas — the manager derives window deltas
+  against the last value it stored, so a report redelivered after a
+  lost ack folds to zero instead of double counting;
+- after the first push only series whose value changed ride the payload
+  (the compact form); the manager's ack carries ``registered=True``
+  whenever it holds no prior state for this reporter (fresh manager,
+  manager restart, reporter epoch change), which makes the next push a
+  FULL snapshot again so the new baseline covers every series;
+- a reporter restart changes ``epoch``; the manager re-baselines rather
+  than seeing counters run backwards.
+
+Telemetry aggregate FIELD names (what the manager derives and dfstat
+renders) are declared through :data:`TFIELDS` so the dfanalyze metrics
+pass can lint them like metric series: ``<scope>.<what>`` with scope in
+:data:`TELEMETRY_SCOPES`, no duplicates.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+
+from dragonfly2_torch.utils import dflog, profiling
+from dragonfly2_torch.utils.metrics import (
+    Counter,
+    Gauge,
+    Histogram,
+    Registry,
+    default_registry,
+)
+
+logger = dflog.get("telemetry")
+
+DEFAULT_INTERVAL_S = 15.0
+
+
+# -- telemetry field census (linted by hack/dfanalyze metrics pass) -----
+
+TELEMETRY_SCOPES = ("cluster", "swarm", "shard", "trainer", "daemon", "slo")
+
+
+class _TelemetryFields:
+    """Registry of the aggregate field names the manager computes; the
+    declaration call (``TFIELDS.tfield("shard.schedule_ops_per_s")``)
+    is the lintable registration site, exactly like ``faults.point`` and
+    ``flight.event_type``."""
+
+    def __init__(self):
+        self.names: dict[str, str] = {}  # name -> short form
+
+    def tfield(self, name: str) -> str:
+        scope, _, what = name.partition(".")
+        if scope not in TELEMETRY_SCOPES or not what:
+            raise ValueError(
+                f"telemetry field {name!r} must be <scope>.<what> with scope"
+                f" in {TELEMETRY_SCOPES}"
+            )
+        if name in self.names:
+            raise ValueError(f"duplicate telemetry field {name!r}")
+        self.names[name] = what
+        return what
+
+
+TFIELDS = _TelemetryFields()
+
+# the cluster-wide rollup dfstat's header line renders
+F_CLUSTER_SCHEDULE_OPS = TFIELDS.tfield("cluster.schedule_ops_per_s")
+F_CLUSTER_PEERS = TFIELDS.tfield("cluster.peers")
+F_CLUSTER_TASKS = TFIELDS.tfield("cluster.tasks")
+# per-task-swarm aggregates (scheduler "swarms" section, merged)
+F_SWARM_PEERS = TFIELDS.tfield("swarm.peers")
+F_SWARM_SEEDERS = TFIELDS.tfield("swarm.seeders")
+F_SWARM_DONE_PIECES = TFIELDS.tfield("swarm.done_pieces")
+F_SWARM_TOTAL_PIECES = TFIELDS.tfield("swarm.total_pieces")
+F_SWARM_STRAGGLERS = TFIELDS.tfield("swarm.stragglers")
+# per-scheduler-shard rates
+F_SHARD_SCHEDULE_OPS = TFIELDS.tfield("shard.schedule_ops_per_s")
+F_SHARD_DECISION_P99 = TFIELDS.tfield("shard.decision_p99_ms")
+F_SHARD_ANNOUNCE_OPS = TFIELDS.tfield("shard.announce_ops_per_s")
+F_SHARD_PEERS = TFIELDS.tfield("shard.peers")
+F_SHARD_TASKS = TFIELDS.tfield("shard.tasks")
+# per-shard swarm-observatory rollup (scheduler/swarm telemetry_rollup,
+# folded by the manager so one dfstat shows swarm health per shard)
+F_SHARD_SWARM_TASKS = TFIELDS.tfield("shard.swarm_tasks")
+F_SHARD_SWARM_PEERS = TFIELDS.tfield("shard.swarm_peers")
+F_SHARD_SWARM_DEPTHS = TFIELDS.tfield("shard.swarm_depth_hist")
+F_SHARD_SWARM_STRAGGLERS = TFIELDS.tfield("shard.swarm_stragglers")
+# per-trainer ingest/fit view
+F_TRAINER_INGEST_RECORDS = TFIELDS.tfield("trainer.ingest_records_per_s")
+F_TRAINER_DATASET_BYTES = TFIELDS.tfield("trainer.dataset_bytes_per_s")
+F_TRAINER_FIT_FRESHNESS = TFIELDS.tfield("trainer.fit_freshness_s")
+# per-daemon data-plane view
+F_DAEMON_PIECE_BYTES = TFIELDS.tfield("daemon.piece_bytes_per_s")
+F_DAEMON_BACK_TO_SOURCE = TFIELDS.tfield("daemon.back_to_source_per_s")
+# flow-ledger rollups (utils/flows: byte provenance x traffic plane)
+F_DAEMON_FLOW_BYTES = TFIELDS.tfield("daemon.flow_bytes_per_s")
+F_DAEMON_FLOW_P2P_BYTES = TFIELDS.tfield("daemon.flow_p2p_bytes_per_s")
+F_DAEMON_FLOW_ORIGIN_BYTES = TFIELDS.tfield("daemon.flow_origin_bytes_per_s")
+F_CLUSTER_FLOW_BYTES = TFIELDS.tfield("cluster.flow_bytes_per_s")
+F_CLUSTER_P2P_EFFICIENCY = TFIELDS.tfield("cluster.p2p_efficiency")
+# SLO engine outputs (manager/telemetry.py)
+F_SLO_BURN_FAST = TFIELDS.tfield("slo.burn_rate_fast")
+F_SLO_BURN_SLOW = TFIELDS.tfield("slo.burn_rate_slow")
+F_SLO_BREACHED = TFIELDS.tfield("slo.breached")
+
+
+# -- registry snapshot ---------------------------------------------------
+
+
+def _series_key(name: str, label_names, label_values) -> str:
+    if not label_names:
+        return name
+    pairs = ",".join(f"{n}={v}" for n, v in zip(label_names, label_values))
+    return f"{name}{{{pairs}}}"
+
+
+def registry_snapshot(
+    registry: "Registry | None" = None, prefixes: "tuple[str, ...]" = ()
+) -> dict:
+    """Cumulative snapshot of a metrics registry, keyed like the text
+    exposition (``name{a=b}``). ``prefixes`` narrows to the service's
+    own series — in-process multi-service assemblies (tests, all-in-one
+    deploys) share one default registry, and each reporter must not
+    claim its siblings' series."""
+    registry = registry or default_registry
+    registry.sync()  # lazily-synced series (flow ledger) flush first
+    with registry._lock:
+        metrics = list(registry._metrics.values())
+    counters: dict[str, float] = {}
+    gauges: dict[str, float] = {}
+    hists: dict[str, dict] = {}
+    for m in metrics:
+        if prefixes and not m.name.startswith(prefixes):
+            continue
+        if isinstance(m, Counter):
+            for key, child in m._snapshot():
+                counters[_series_key(m.name, m.label_names, key)] = child.value
+        elif isinstance(m, Gauge):
+            for key, child in m._snapshot():
+                gauges[_series_key(m.name, m.label_names, key)] = child.value
+        elif isinstance(m, Histogram):
+            for key, child in m._snapshot():
+                with child._lock:
+                    counts = list(child.counts)
+                    total, count = child.total, child.count
+                hists[_series_key(m.name, m.label_names, key)] = {
+                    "buckets": {
+                        ("+Inf" if b == float("inf") else repr(b)): c
+                        for b, c in zip(child.buckets, counts)
+                    },
+                    "sum": total,
+                    "count": count,
+                }
+    return {"counters": counters, "gauges": gauges, "hists": hists}
+
+
+def changed_only(cur: dict, prev: dict) -> dict:
+    """The compact push form: series whose cumulative value moved since
+    the last acked snapshot (gauges: since last PUSHED value). Values
+    stay cumulative — compactness comes from omission, idempotence from
+    the manager doing the subtraction."""
+    out = {"counters": {}, "gauges": {}, "hists": {}}
+    for kind in ("counters", "gauges"):
+        last = prev.get(kind, {})
+        for k, v in cur[kind].items():
+            if last.get(k) != v:
+                out[kind][k] = v
+    last_h = prev.get("hists", {})
+    for k, h in cur["hists"].items():
+        if last_h.get(k, {}).get("count") != h["count"]:
+            out["hists"][k] = h
+    return out
+
+
+# -- the reporter --------------------------------------------------------
+
+
+class TelemetryReporter:
+    """Background pusher: one per service process holding a manager
+    channel. ``collect_sections`` is a zero-arg callable returning the
+    service's structured sections (swarms, endpoints, …) merged into the
+    payload next to the metric snapshot; failures there are logged and
+    the metric half still ships."""
+
+    def __init__(
+        self,
+        client,  # glue.ServiceClient for TELEMETRY_SERVICE (or compatible)
+        service: str,
+        instance: str,
+        shard: str = "",
+        prefixes: "tuple[str, ...]" = (),
+        interval: float = DEFAULT_INTERVAL_S,
+        collect_sections=None,
+        registry: "Registry | None" = None,
+    ):
+        self.client = client
+        self.service = service
+        self.instance = instance
+        self.shard = shard
+        self.prefixes = tuple(prefixes)
+        self.interval = interval
+        self.collect_sections = collect_sections
+        self.registry = registry or default_registry
+        # epoch: one per reporter lifetime — a restarted process must
+        # re-baseline on the manager, never continue the old counters
+        self.epoch = f"{os.getpid():x}-{time.time_ns():x}"
+        self.seq = 0
+        self.pushes = 0
+        self.failures = 0
+        self._prev: dict = {}  # last ACKED cumulative snapshot
+        self._full_next = True  # first push (and after re-registration)
+        self._stop = threading.Event()
+        self._thread: "threading.Thread | None" = None
+
+    # the payload builder is also what chip_smoke.server_leg times per
+    # push: the share of the server's interpreter a push takes
+    def build_payload(self) -> tuple[dict, dict]:
+        """(payload, full_cumulative_snapshot) for one push."""
+        cur = registry_snapshot(self.registry, self.prefixes)
+        payload = dict(cur) if self._full_next else changed_only(cur, self._prev)
+        payload["full"] = self._full_next
+        if self.collect_sections is not None:
+            try:
+                sections = self.collect_sections() or {}
+            except Exception as e:
+                logger.warning("telemetry section collection failed: %s", e)
+                sections = {}
+            payload.update(sections)
+        try:
+            # dfprof summary: top-K hot stacks over the last minute +
+            # phase totals/shares — the manager folds unknown sections
+            # generically, so this rides every reporter for free. Empty
+            # (quiet process, sampler off) → omitted.
+            prof = profiling.telemetry_section()
+            if prof:
+                payload["prof"] = prof
+        except Exception as e:
+            logger.debug("telemetry prof section failed: %s", e)
+        try:
+            # flow ledger: per-plane byte-provenance rollup (utils/flows)
+            # — same generic-section ride as prof; quiet processes (no
+            # bytes ever accounted) omit it
+            from dragonfly2_torch.utils import flows
+
+            fl = flows.telemetry_section()
+            if fl:
+                payload["flows"] = fl
+        except Exception as e:
+            logger.debug("telemetry flows section failed: %s", e)
+        return payload, cur
+
+    def push_once(self) -> bool:
+        from dragonfly2_torch.rpc import protos
+
+        telemetry_pb2 = protos.load("telemetry_pb2")
+
+        payload, cur = self.build_payload()
+        self.seq += 1
+        try:
+            ack = self.client.ReportTelemetry(
+                telemetry_pb2.TelemetryReport(
+                    service=self.service,
+                    instance=self.instance,
+                    shard=self.shard,
+                    epoch=self.epoch,
+                    seq=self.seq,
+                    interval_s=self.interval,
+                    payload_json=json.dumps(payload, default=str),
+                ),
+                timeout=10,
+            )
+        except Exception as e:
+            # keep _prev: the next push's changed-set covers this
+            # interval too (cumulative values make the retry harmless)
+            self.failures += 1
+            logger.debug("telemetry push failed: %s", e)
+            return False
+        self.pushes += 1
+        self._prev = cur
+        # the manager just (re)registered us: its baseline came from
+        # THIS payload, which may have been changed-only — send a full
+        # snapshot next so every series gets a baseline
+        self._full_next = bool(ack.registered) and not payload.get("full")
+        return True
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(
+            target=self._loop, name=f"telemetry-{self.service}", daemon=True
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=1.0)
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.push_once()
+            except Exception:
+                logger.exception("telemetry push loop failed")

@@ -239,12 +239,27 @@ def test_train_gru_without_lengths_uses_every_step():
     np.testing.assert_allclose(got.history, want.history, rtol=1e-5)
 
 
-@pytest.mark.parametrize("what,item", [("mesh", "item 11"), ("checkpoint", "item 8")])
+@pytest.mark.parametrize("what,item", [("mesh", "item 11")])
 def test_train_gru_parts_not_ported_yet_raise(what, item, tmp_path):
     x, lengths = _sequences(20)
-    kw = dict(mesh=object()) if what == "mesh" else dict(config=t_train.FitConfig(checkpoint_dir=str(tmp_path)))
     with pytest.raises(NotImplementedError, match=item):
-        t_train.train_gru(x, x[:, 0, 0], lengths=lengths, device="cpu", **kw)
+        t_train.train_gru(x, x[:, 0, 0], lengths=lengths, device="cpu", mesh=object())
+
+
+def test_train_gru_with_checkpoint_dir_matches_reference_and_writes_nothing(tmp_path):
+    """The reference's GRU fit takes no snapshot even with a
+    ``checkpoint_dir`` (its shuffle runs one generator across epochs), and
+    neither does the port's: the same fit as without one, no file written."""
+    seqs = _piece_sequences()
+    cfg = dict(hidden_dims=(8,), batch_size=32, epochs=3, seed=0)
+    j_dir, t_dir = tmp_path / "jax", tmp_path / "torch"
+    want = j_train.train_gru(seqs.sequences, seqs.labels, lengths=seqs.lengths,
+                             config=j_train.FitConfig(checkpoint_dir=str(j_dir), **cfg))
+    got = t_train.train_gru(seqs.sequences, seqs.labels, lengths=seqs.lengths,
+                            config=t_train.FitConfig(init=_init(0, hidden=8), checkpoint_dir=str(t_dir), **cfg),
+                            device="cpu")
+    np.testing.assert_allclose(got.history, want.history, rtol=1e-5)
+    assert not t_dir.exists() and not j_dir.exists()
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ runs the five legs of ``chip_smoke.py`` and its encoder-gradient leg
 trainer leg feeds its Train stream through plain messages and uploads
 through plain requests; the preheat leg's job goes out through a plain
 request), then the server leg, whose scheduler and trainer servers talk
-gRPC; the other also refuses gRPC and protobuf, imports only
+gRPC, push telemetry and serve /metrics, then the resume phase's crash
+drill (two spawned fits SIGKILLed by a fault rule) and the federation
+phase; the other also refuses gRPC and protobuf, imports only
 ``chip_smoke`` and runs the five legs again, never the servers."""
 
 import ast
@@ -115,6 +117,13 @@ if {servers!r}:
     )
     assert live["edges"] == 2048 and live["phase1"]["decisions"] == 512, live
     assert live["phase2"]["decisions"] == 16 and live["phase2"]["served"] > 0, live
+    assert set(live["telemetry"]) == {{"scheduler", "trainer"}}, live
+    drill = chip_smoke.resume_phase("cpu", hosts=64, probes=8, group_records=200, mlp_batch=64)
+    assert drill["gnn"]["resumed_epochs"] == drill["mlp"]["resumed_epochs"] == 2, drill
+    fed = chip_smoke.federation_phase(
+        "cpu", group_records=200, shards=((80, "binary"), (60, "binary"), (40, "binary"), (20, "csv")), batch=32,
+    )
+    assert fed["hosts"] == 4 and fed["merge_rel_err"] <= 1e-6, fed
 else:
     assert not any(n.startswith("dragonfly2_torch.scheduler.server") for n in sys.modules)
 loaded = sorted(
@@ -145,8 +154,9 @@ def _run_child(blocked, every_module: bool) -> int:
 
 def test_port_runs_with_jax_and_reference_blocked():
     # every module of the port was imported (92 with the scheduler and
-    # trainer servers, 96 with the sequence-parallel plane)
-    assert _run_child(BLOCKED, every_module=True) >= 96
+    # trainer servers, 96 with the sequence-parallel plane, 101 with the
+    # telemetry plane and federation)
+    assert _run_child(BLOCKED, every_module=True) >= 101
 
 
 def test_chip_smoke_runs_without_grpc_or_protobuf():

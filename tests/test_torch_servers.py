@@ -12,13 +12,20 @@ over gRPC.
   ``CreateModel`` (MLP, GNN, GRU) in the manager; once activated there,
   the port's refresher installs the new versions and the next decision is
   served by the GNN.
-- Every config field the port leaves out raises ``NotImplementedError``
-  naming its ROADMAP item, and the binaries' ``build`` read configs."""
+- Both servers start at their defaults with a manager (telemetry every
+  15 s, pushed to the reference's telemetry plane), serve /metrics and
+  /healthz on a scrape port, and the trainer stamps its fits' snapshot
+  directory; fleet membership, which the port leaves out, raises
+  ``NotImplementedError`` naming its ROADMAP item; the binaries' ``build``
+  read configs."""
 
 import gc
+import json
 import queue
 import random
 import time
+import urllib.request
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,6 +43,7 @@ from dragonfly2_tpu.manager.database import Database
 from dragonfly2_tpu.manager.models_registry import ModelRegistry
 from dragonfly2_tpu.manager.objectstorage import FSObjectStorage
 from dragonfly2_tpu.manager.service import ManagerService
+from dragonfly2_tpu.manager.telemetry import TelemetryPlane, TelemetryService
 from dragonfly2_tpu.rpc import glue as j_glue
 from dragonfly2_tpu.scheduler import server as j_server
 from dragonfly2_tpu.utils import profiling as j_profiling
@@ -240,29 +248,90 @@ def test_announcer_round_lands_three_models_and_the_refresher_installs_them(mana
 
 @pytest.mark.parametrize("field,value,item", [
     ("fleet_enabled", True, "5h"),
-    ("metrics_port", 0, "5e"),
-    ("telemetry_interval", 15.0, "5f"),
 ])
 def test_left_out_scheduler_fields_raise(field, value, item, tmp_path):
-    cfg = t_server.SchedulerServerConfig(data_dir=str(tmp_path), device="cpu", manager_address="127.0.0.1:1",
-                                         telemetry_interval=0)
+    cfg = t_server.SchedulerServerConfig(data_dir=str(tmp_path), device="cpu", manager_address="127.0.0.1:1")
     setattr(cfg, field, value)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         t_server.SchedulerServer(cfg)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("metrics_port", 0, "5e"),
-    ("telemetry_interval", 15.0, "5f"),
-    ("checkpoint_dir", "ckpt", "8"),
-])
-def test_left_out_trainer_fields_raise(field, value, item, tmp_path):
-    cfg = t_trainer_server.TrainerServerConfig(data_dir=str(tmp_path), device="cpu", telemetry_interval=0)
-    if field == "telemetry_interval":
-        cfg.manager_address = "127.0.0.1:1"
-    setattr(cfg, field, value)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        t_trainer_server.TrainerServer(cfg)
+@pytest.fixture
+def shipped_manager(tmp_path):
+    """The reference's manager as a deployment runs it: its model registry
+    and its telemetry plane over gRPC."""
+    db = Database(tmp_path / "manager.db")
+    registry = ModelRegistry(db, FSObjectStorage(tmp_path / "objects"))
+    plane = TelemetryPlane(slos=[])
+    server, port = j_glue.serve({
+        j_glue.MANAGER_SERVICE: ManagerService(db, registry),
+        j_glue.TELEMETRY_SERVICE: TelemetryService(plane),
+    })
+    yield f"127.0.0.1:{port}", plane
+    server.stop(0)
+    db.close()
+
+
+def _get(address, path, accept=None):
+    req = urllib.request.Request(f"http://{address}{path}", headers={"Accept": accept} if accept else {})
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        return resp.status, resp.headers.get("Content-Type"), resp.read().decode()
+
+
+def _check_option(srv, service, option, plane):
+    """The option a shipped config turns on works on the started server."""
+    if option == "metrics_port":
+        status, ctype, body = _get(srv.metrics_addr, "/metrics")
+        assert status == 200 and ctype == "text/plain; version=0.0.4"
+        assert f'dragonfly_build_info{{service="{service}",' in body
+        status, ctype, body = _get(srv.metrics_addr, "/metrics", accept="application/openmetrics-text")
+        assert status == 200 and ctype.startswith("application/openmetrics-text") and body.endswith("# EOF\n")
+        status, _, body = _get(srv.metrics_addr, "/healthz")
+        assert status == 200 and json.loads(body)["services"] == {service: "ok"}
+    elif option == "telemetry_interval":
+        rep = srv.telemetry_reporter
+        assert rep is not None and rep.interval == 15.0 and rep._thread.is_alive()
+        assert rep.push_once() and rep.failures == 0
+        folded = plane._reporters[(service, rep.instance)]
+        assert folded.sections["build"]["service"] == service
+        assert folded.sections["endpoints"]["metrics"] == srv.metrics_addr
+        assert folded.last_seq == rep.seq and folded.epoch == rep.epoch
+    else:  # checkpoint_dir: the round's fits snapshot under it, per model and host
+        cfg = srv.training.config
+        stamped = srv.training._fit_config(cfg.gnn, "gnn", "h")
+        assert stamped.checkpoint_dir == str(Path(cfg.checkpoint_dir) / "gnn-h")
+
+
+@pytest.mark.parametrize("option", ["metrics_port", "telemetry_interval"])
+def test_shipped_scheduler_options_serve(option, shipped_manager, tmp_path):
+    """A scheduler at its defaults (telemetry every 15 s) with a manager
+    and a scrape port starts and serves."""
+    addr, plane = shipped_manager
+    cfg = t_server.SchedulerServerConfig(data_dir=str(tmp_path / "s"), device="cpu", manager_address=addr,
+                                         metrics_port=0, model_refresh_interval=3600.0, job_poll_interval=3600.0)
+    assert cfg.telemetry_interval == 15.0
+    srv = t_server.SchedulerServer(cfg)
+    srv.serve()
+    try:
+        _check_option(srv, "scheduler", option, plane)
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("option", ["metrics_port", "telemetry_interval", "checkpoint_dir"])
+def test_shipped_trainer_options_serve(option, shipped_manager, tmp_path):
+    """A trainer at its defaults with a manager, a scrape port and a
+    snapshot directory starts and serves."""
+    addr, plane = shipped_manager
+    cfg = t_trainer_server.TrainerServerConfig(data_dir=str(tmp_path / "t"), device="cpu", manager_address=addr,
+                                               metrics_port=0, checkpoint_dir=str(tmp_path / "snapshots"))
+    assert cfg.telemetry_interval == 15.0
+    srv = t_trainer_server.TrainerServer(cfg)
+    srv.serve()
+    try:
+        _check_option(srv, "trainer", option, plane)
+    finally:
+        srv.stop()
 
 
 def test_servers_default_to_the_card(tmp_path):

@@ -162,13 +162,32 @@ def test_evaluate_mlp_matches_reference():
 
 
 @pytest.mark.parametrize("fit", ["mlp", "gnn"])
-def test_checkpoint_dir_is_not_ported_yet(fit, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        if fit == "mlp":
-            x, y = _pairs(20)
-            t_train.train_mlp(x, y, t_train.FitConfig(checkpoint_dir=str(tmp_path)), device="cpu")
-        else:
-            t_train.train_gnn(_graph()[0], t_train.GNNFitConfig(checkpoint_dir=str(tmp_path)), device="cpu")
+def test_fit_with_checkpoint_dir_matches_reference(fit, tmp_path):
+    """Both packages' fits with a ``checkpoint_dir`` (a snapshot every
+    epoch) from one init, at the limits of the parity tests above; each
+    clears its snapshots on success (the port its whole directory)."""
+    j_dir, t_dir = tmp_path / "jax", tmp_path / "torch"
+    if fit == "mlp":
+        x, y = _pairs()
+        cfg = dict(hidden_dims=(16,), batch_size=64, epochs=3, seed=3)
+        want = j_train.train_mlp(x, y, config=j_train.FitConfig(checkpoint_dir=str(j_dir), **cfg))
+        init = _numpy(j_mlp.init_mlp(jax.random.PRNGKey(3), [x.shape[1], 16, 1]))
+        got = t_train.train_mlp(x, y, config=t_train.FitConfig(init=init, checkpoint_dir=str(t_dir), **cfg),
+                                device="cpu")
+        rtol, limit = 1e-5, 2e-5
+    else:
+        tg, jg = _graph(300, 40, 8, 2)
+        cfg = dict(hidden_dims=(16, 16), batch_size=64, epochs=3, seed=0)
+        want = j_train.train_gnn(jg, config=j_train.GNNFitConfig(checkpoint_dir=str(j_dir), **cfg))
+        init = _gnn_init(jg, j_train.GNNFitConfig(**cfg))
+        got = t_train.train_gnn(tg, config=t_train.GNNFitConfig(init=init, checkpoint_dir=str(t_dir), **cfg),
+                                device="cpu")
+        rtol, limit = 5e-5, 2e-3
+    np.testing.assert_allclose(got.history, want.history, rtol=rtol)
+    assert len(got.history) == 3
+    assert _max_rel(module_tree(got.params), _numpy(want.params)) <= limit
+    assert not t_dir.exists()
+    assert not any(p.is_file() for p in j_dir.rglob("*"))
 
 
 @pytest.mark.parametrize("n", [1, 9, 100, 101])

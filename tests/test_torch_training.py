@@ -268,9 +268,8 @@ def test_uploaded_npz_scores_alike_in_both_scorers(tmp_path):
         # leg landed: only a mesh still raises
         (dict(), object(), "item 11"),
         (dict(gru=False), object(), "item 11"),
-        (dict(gru=False, checkpoint_dir="snapshots"), None, "item 8"),
     ],
-    ids=["gru", "mesh", "checkpoint"],
+    ids=["gru", "mesh"],
 )
 def test_legs_not_ported_yet_raise(tmp_path, config, mesh, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -279,7 +278,34 @@ def test_legs_not_ported_yet_raise(tmp_path, config, mesh, item):
         )
 
 
-def test_training_defaults_to_the_card(tmp_path):
+def test_checkpoint_dir_round_matches_reference(tmp_path):
+    """A round with ``checkpoint_dir`` in both packages: each batch fit
+    snapshots every epoch under ``<dir>/<model>-<host_id>`` and clears its
+    snapshots on success; the uploads match as without snapshots."""
+    msgs, topology = _data(tmp_path, "binary")
+    got_cfg, want_cfg = _configs(False, topology)
+    want_cfg.checkpoint_dir = str(tmp_path / "jax-snapshots")
+    got_cfg.checkpoint_dir = str(tmp_path / "torch-snapshots")
+    j_storage, t_storage = JStorage(tmp_path / "jax"), TStorage(tmp_path / "torch")
+    uploads, stub = _Uploads(), _Stub()
+    training = t_training.Training(t_storage, ManagerUploader(stub, ProtoRequests()), got_cfg, device="cpu")
+    stamped = training._fit_config(got_cfg.mlp, "mlp", "h")
+    assert stamped.checkpoint_dir == str(tmp_path / "torch-snapshots" / "mlp-h")
+    assert stamped.init is got_cfg.mlp.init and got_cfg.mlp.checkpoint_dir is None
+    t_service.TrainerService(t_storage, training, synchronous=True).Train(iter(msgs), None)
+    j_service.TrainerService(j_storage, j_training.Training(j_storage, uploads, want_cfg),
+                             synchronous=True).Train(iter(msgs), None)
+    want = {m["type"]: m for m in uploads.models}
+    got = {r.type: r for r in stub.requests}
+    assert got.keys() == want.keys() == {"mlp", "gnn"}
+    for kind, limit in (("mlp", 2e-5), ("gnn", 2e-3)):
+        assert _max_rel(deserialize_params_auto(got[kind].weights), want[kind]["params"]) <= limit, kind
+    snapshots = tmp_path / "torch-snapshots"
+    assert not snapshots.exists() or not any(snapshots.iterdir())
+    assert not any(p.is_file() for p in (tmp_path / "jax-snapshots").rglob("*"))
+
+
+def testrainingdefaults_to_the_card(tmp_path):
     config = t_training.TrainingConfig(gru=False)
     if torch.cuda.is_available():
         assert t_training.Training(TStorage(tmp_path), config=config).device.type == "cuda"

@@ -1,0 +1,1135 @@
+// Native ingestion hot path: fused CSV decode + feature extraction (the
+// port's own copy of the reference's native decoder, built with g++ at
+// first use by schema/native.py into build/torch_native/).
+//
+// The trainer's ingestion edge is a 128MiB-chunk gRPC upload into CSV
+// files (upstream trainer/storage/storage.go:44-148); the ingest north star
+// (1B download records in <10min ⇒ ~1.7M rec/s sustained) makes the Python
+// csv/numpy decode the bottleneck. This library streams the trainer's
+// concatenated-CSV dataset files and emits training tensors directly:
+//
+//  - DfPairs: download records → (download,parent) pair features [M,19]
+//    (kFeatureDim below — kept in lockstep with features.MLP_FEATURE_DIM
+//    by the df_feature_dim ABI handshake) + log-cost labels, byte-identical
+//    semantics to schema/features.extract_pair_features (the Python
+//    fallback).
+//  - DfTopo: networktopology records → interned host nodes + probe edge
+//    list, matching schema/features.build_probe_graph's interning and
+//    last-write-wins edge semantics.
+//
+// CSV dialect: RFC4180 quotes (python csv.writer). Embedded header lines
+// (every upload round re-sends one, trainer service demux) are detected by
+// first-column == first header column and re-resolve the column mapping,
+// so schema drift between scheduler versions is tolerated per-chunk.
+//
+// C ABI only — bound from Python via ctypes (schema/native.py).
+
+#include <cmath>
+#include <cstddef>  // offsetof — do not rely on <immintrin.h> pulling it in
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <type_traits>
+#include <unordered_map>
+#include <vector>
+
+#if defined(__AVX2__) || defined(__F16C__)
+#include <immintrin.h>
+#endif
+
+namespace {
+
+constexpr int kMaxParents = 20;     // schema/records.py MAX_PARENTS
+constexpr int kMaxPieces = 10;      // MAX_PIECES_PER_PARENT
+constexpr int kMaxDestHosts = 5;    // MAX_DEST_HOSTS
+constexpr int kFeatureDim = 19;     // features.MLP_FEATURE_DIM
+constexpr int kMaxLocationDepth = 5;
+constexpr double kNsPerMs = 1e6;
+
+// ---------------------------------------------------------------------------
+// CSV line splitter (RFC4180: quoted fields, "" escapes). Fields are
+// returned as string_views into a scratch buffer owned by the caller; the
+// unquote path rewrites in place.
+// ---------------------------------------------------------------------------
+
+struct FieldRef {
+  const char* data;
+  size_t len;
+  std::string view() const { return std::string(data, len); }
+  bool empty() const { return len == 0; }
+  bool eq(const char* s) const {
+    size_t n = strlen(s);
+    return len == n && memcmp(data, s, n) == 0;
+  }
+};
+
+// Splits one line (excluding trailing \n / \r\n) into fields. `scratch`
+// backs unescaped quoted fields. Returns false on malformed quoting.
+bool split_csv_line(const char* line, size_t len, std::vector<FieldRef>& out,
+                    std::string& scratch) {
+  out.clear();
+  scratch.clear();
+  // Reserve so scratch never reallocates mid-parse (FieldRefs point into it).
+  scratch.reserve(len + 1);
+  size_t i = 0;
+  while (true) {
+    if (i < len && line[i] == '"') {
+      // quoted field → unescape into scratch
+      size_t start = scratch.size();
+      ++i;
+      while (i < len) {
+        if (line[i] == '"') {
+          if (i + 1 < len && line[i + 1] == '"') {
+            scratch.push_back('"');
+            i += 2;
+          } else {
+            ++i;
+            break;
+          }
+        } else {
+          scratch.push_back(line[i++]);
+        }
+      }
+      out.push_back({scratch.data() + start, scratch.size() - start});
+      if (i < len) {
+        if (line[i] != ',') return false;
+        ++i;
+        continue;
+      }
+      break;
+    }
+    size_t start = i;
+    while (i < len && line[i] != ',') ++i;
+    out.push_back({line + start, i - start});
+    if (i < len) {
+      ++i;  // skip comma
+      continue;
+    }
+    break;
+  }
+  return true;
+}
+
+double to_num_slow(const char* p, size_t n) {
+  char buf[64];
+  size_t m = n < sizeof(buf) - 1 ? n : sizeof(buf) - 1;
+  memcpy(buf, p, m);
+  buf[m] = '\0';
+  return strtod(buf, nullptr);
+}
+
+// SWAR digit-run helpers (the classic 8-digits-per-multiply technique —
+// same per-digit arithmetic as the scalar loop, so results stay
+// bit-identical to the numpy fallback's float()):
+//   parse8: 8 ASCII digits → their base-10 value
+static inline uint32_t parse8(uint64_t v) {
+  v = (v & 0x0F0F0F0F0F0F0F0Full) * 2561 >> 8;
+  v = (v & 0x00FF00FF00FF00FFull) * 6553601 >> 16;
+  return uint32_t((v & 0x0000FFFF0000FFFFull) * 42949672960001ull >> 32);
+}
+// Leading digit-byte count of an 8-byte window (little-endian: byte 0 is
+// the first character), 0..8.
+static inline size_t digit_run_len8(uint64_t v) {
+  const uint64_t t =
+      ((v & 0xF0F0F0F0F0F0F0F0ull) |
+       (((v + 0x0606060606060606ull) & 0xF0F0F0F0F0F0F0F0ull) >> 4)) ^
+      0x3333333333333333ull;
+  return t ? size_t(__builtin_ctzll(t)) >> 3 : 8;
+}
+
+// Extend acc by the digit run starting at p, stopping at the first
+// non-digit; returns the run length. 8-byte loads stay within [p, p+len)
+// — len is the field remainder, so no read ever crosses the feed
+// buffer's end. Per-digit arithmetic is identical to the scalar
+// original, so results are bit-equal.
+static inline size_t parse_run(const char* p, size_t len, uint64_t& acc) {
+  size_t i = 0;
+  while (i + 8 <= len) {
+    uint64_t v;
+    memcpy(&v, p + i, 8);
+    const size_t k = digit_run_len8(v);
+    if (k == 8) {
+      acc = acc * 100000000ull + parse8(v);
+      i += 8;
+      continue;
+    }
+    for (size_t j = 0; j < k; ++j)
+      acc = acc * 10 + (unsigned(p[i + j]) - '0');
+    return i + k;
+  }
+  for (; i < len; ++i) {
+    const unsigned d = unsigned(p[i]) - '0';
+    if (d > 9) break;
+    acc = acc * 10 + d;
+  }
+  return i;
+}
+
+// Fast decimal parse for the hot path: [-]digits[.digits]; anything else
+// (exponents, >18 digits on either side of the dot, inf/nan) falls back
+// to strtod. CSV numbers here are host stats (long float reprs) and ns
+// costs (10-13 digit ints), so the fast path covers ~all fields — with
+// no libc calls. The accumulation order (integer build-up, then one
+// double add+divide) matches the scalar original exactly — parity with
+// the Python fallback. (Divergence note: >18 fractional digits now go
+// to strtod — correctly rounded, like Python's float() — where the old
+// loop truncated; double reprs carry ≤17 digits, so self-produced files
+// never hit this.)
+double parse_num(const char* p, size_t n) {
+  if (n == 0) return 0.0;
+  static const double kPow10[] = {1.0,    1e1,  1e2,  1e3,  1e4,  1e5,  1e6,
+                                  1e7,    1e8,  1e9,  1e10, 1e11, 1e12, 1e13,
+                                  1e14,   1e15, 1e16, 1e17, 1e18};
+  const size_t s = (p[0] == '-') ? 1 : 0;
+  const bool neg = s != 0;
+  uint64_t ip = 0;
+  const size_t li = parse_run(p + s, n - s, ip);  // integer-part digits
+  // li > 18: ip may have wrapped, but it is never used — strtod takes over
+  if (li == 0 || li > 18) return to_num_slow(p, n);
+  const size_t dot = s + li;
+  if (dot == n) return neg ? -double(ip) : double(ip);
+  if (p[dot] != '.') return to_num_slow(p, n);
+  uint64_t fp = 0;
+  const size_t lf = parse_run(p + dot + 1, n - dot - 1, fp);
+  if (dot + 1 + lf != n || lf > 18) return to_num_slow(p, n);
+  const double v = double(ip) + double(fp) / kPow10[lf];
+  return neg ? -v : v;
+}
+
+double to_num(const FieldRef& f) { return parse_num(f.data, f.len); }
+
+// Shared leading "|"-separated path depth / kMaxLocationDepth
+// (features.location_affinity). Operates on line views — no allocation.
+double location_affinity(const char* pa, size_t na, const char* pb, size_t nb) {
+  if (na == 0 || nb == 0) return 0.0;
+  int depth = 0;
+  size_t ia = 0, ib = 0;
+  for (int d = 0; d < kMaxLocationDepth; ++d) {
+    if (ia > na || ib > nb) break;
+    const char* ca =
+        static_cast<const char*>(memchr(pa + ia, '|', na - ia));
+    const char* cb =
+        static_cast<const char*>(memchr(pb + ib, '|', nb - ib));
+    size_t la = (ca ? size_t(ca - pa) : na) - ia;
+    size_t lb = (cb ? size_t(cb - pb) : nb) - ib;
+    if (la != lb || memcmp(pa + ia, pb + ib, la) != 0) break;
+    ++depth;
+    if (!ca || !cb) break;
+    ia = size_t(ca - pa) + 1;
+    ib = size_t(cb - pb) + 1;
+  }
+  return double(depth) / kMaxLocationDepth;
+}
+
+// ---------------------------------------------------------------------------
+// Streaming record feeder: buffers partial records across feed() chunks.
+// A newline inside an RFC4180 quoted field is data, not a record break, so
+// quote parity is tracked across chunks (csv.writer quotes any field
+// containing the quote char, so parity toggling on every '"' is exact for
+// writer-produced files).
+// ---------------------------------------------------------------------------
+
+// Bounded carry: a legitimate record is tens of KB; a multi-megabyte
+// carry means corrupt input (an unterminated quote swallowing the rest
+// of the stream). Discard it, reset quote parity, resync at the next
+// newline — corruption costs a bounded window, not the whole file.
+constexpr size_t kMaxCarry = 8 * 1024 * 1024;
+
+template <typename RowFn, typename DiscardFn>
+void feed_lines(std::string& carry, bool& in_quotes, const char* buf, long len,
+                RowFn&& on_line, DiscardFn&& on_discard) {
+  long pos = 0;
+  // Lazy quote tracking: quotes are rare (csv.writer only quotes fields
+  // containing separators/quotes), so instead of scanning every line for
+  // '"' we keep a cursor to the NEXT quote at-or-after `pos`. Lines that
+  // end before it need no parity work and no per-line quote memchr —
+  // the common case is then two byte passes total ('\n' here, ',' in the
+  // row scanner) instead of four.
+  long next_quote = -1;  // -1: unknown; len: none remaining
+  auto quote_at_or_after = [&](long p) -> long {
+    if (next_quote < p) {
+      const char* qp =
+          static_cast<const char*>(memchr(buf + p, '"', size_t(len - p)));
+      next_quote = qp ? long(qp - buf) : len;
+    }
+    return next_quote;
+  };
+  while (pos < len) {
+    const char* nl =
+        static_cast<const char*>(memchr(buf + pos, '\n', size_t(len - pos)));
+    long end = nl ? long(nl - buf) : len;
+    // quote parity over [pos, end): all segment quotes precede the
+    // newline, so parity-after tells whether the newline is data
+    long q = quote_at_or_after(pos);
+    bool has_quote = q < end;
+    while (q < end) {
+      in_quotes = !in_quotes;
+      const char* qp = static_cast<const char*>(
+          memchr(buf + q + 1, '"', size_t(len - q - 1)));
+      next_quote = qp ? long(qp - buf) : len;
+      q = next_quote;
+    }
+    if (!nl) {  // chunk ends mid-record
+      carry.append(buf + pos, size_t(len - pos));
+      if (carry.size() > kMaxCarry) {
+        carry.clear();
+        in_quotes = false;
+        on_discard();
+      }
+      return;
+    }
+    if (in_quotes) {  // newline inside a quoted field is data
+      carry.append(buf + pos, size_t(end - pos + 1));
+      if (carry.size() > kMaxCarry) {
+        carry.clear();
+        in_quotes = false;
+        on_discard();
+      }
+      pos = end + 1;
+      continue;
+    }
+    if (!carry.empty()) {
+      carry.append(buf + pos, size_t(end - pos));
+      size_t L = carry.size();
+      if (L && carry[L - 1] == '\r') --L;
+      on_line(carry.data(), L, true);  // conservative: carry may hold quotes
+      carry.clear();
+    } else {
+      size_t L = size_t(end - pos);
+      if (L && buf[end - 1] == '\r') --L;
+      on_line(buf + pos, L, has_quote);
+    }
+    pos = end + 1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Download-record pair decoder
+// ---------------------------------------------------------------------------
+
+// Dispatch ops: one tiny op per hot column, with the destination encoded
+// as a byte offset into the per-parent (or child) scratch struct resolved
+// at header time. OP_NUM covers ~90% of hot fields, so the dispatch
+// branch is effectively free; the old 27-way kind switch cost ~45
+// cycles/field in calls + branch misses.
+enum Op : uint8_t {
+  OP_IGNORE = 0,
+  OP_NUM,           // parse_num → double at offset
+  OP_FLAG_TRUE,     // non-empty field → bool true at offset (parent id)
+  OP_EQ_SUCCEEDED,  // bool at offset = (field == "Succeeded")
+  OP_NE_NORMAL,     // bool at offset = (field != "normal")
+  OP_STR,           // StrRef at offset → view into the current line
+};
+
+// 0xff in `parent` selects the child/task scratch as the offset base.
+constexpr uint8_t kChildBase = 0xff;
+
+struct ColAction {
+  uint8_t op = OP_IGNORE;
+  uint8_t parent = kChildBase;
+  uint16_t offset = 0;
+};
+
+// View into the line being scanned (or the unquote scratch). Valid only
+// until the next line — emit_row consumes it within the same on_line
+// call, so no copy is ever needed (the old std::string assigns were two
+// allocations per populated parent per row). No default initializers:
+// keeps the scratch structs trivial so reset() is one memset (every
+// member is zeroed there or fully written before any read).
+struct StrRef {
+  const char* data;
+  uint32_t len;
+  bool empty() const { return len == 0; }
+};
+
+// POD scratch: reset is one memset. Field order groups the doubles first
+// so offsetof stays simple; StrRef/null resets to empty via zeroing.
+struct ParentScratch {
+  double fin, upload_count, upload_failed, cul, cuc;
+  double cpu, mem, tcp, utcp, disk;
+  double cpu_proc, mem_avail, mem_total, inodes;
+  double piece_cost[kMaxPieces];
+  StrRef idc, loc;
+  bool has_id, succeeded, is_seed;
+  void reset() { memset(this, 0, sizeof(*this)); }
+};
+static_assert(std::is_trivially_copyable<ParentScratch>::value,
+              "memset reset requires a trivially-copyable scratch");
+
+struct ChildScratch {
+  double total_pieces, cpu, mem, task_len;
+  StrRef idc, loc;
+  void reset() { memset(this, 0, sizeof(*this)); }
+};
+static_assert(std::is_trivially_copyable<ChildScratch>::value,
+              "memset reset requires a trivially-copyable scratch");
+
+struct DfPairs {
+  std::vector<ColAction> colmap;
+  std::vector<uint32_t> hot_cols;  // ascending indices of non-ignored columns
+  std::vector<uint32_t> skip_on_empty;  // hot-index jump when a parent id is empty
+  std::string header_col0;
+  std::string carry;        // partial record across feed() chunks
+  bool in_quotes = false;   // RFC4180 quote parity across chunks
+  std::string scratch;      // unquote buffer
+  std::vector<FieldRef> fields;
+  ParentScratch parents[kMaxParents];
+  ChildScratch child;
+  int64_t row = 0;  // download-record counter (not counting headers)
+  int64_t errors = 0;
+
+  std::vector<float> feat;    // M * kFeatureDim
+  std::vector<float> label;   // M
+  std::vector<int32_t> index; // M — source download row
+
+  void resolve_header(const std::vector<FieldRef>& hs) {
+    colmap.assign(hs.size(), ColAction{});
+    header_col0 = hs.empty() ? "" : hs[0].view();
+    for (size_t c = 0; c < hs.size(); ++c) {
+      std::string name = hs[c].view();
+      ColAction a;
+      auto child_num = [&](size_t off) {
+        a.op = OP_NUM;
+        a.parent = kChildBase;
+        a.offset = uint16_t(off);
+      };
+      if (name == "task.total_piece_count") {
+        child_num(offsetof(ChildScratch, total_pieces));
+      } else if (name == "task.content_length") {
+        child_num(offsetof(ChildScratch, task_len));
+      } else if (name == "host.cpu.percent") {
+        child_num(offsetof(ChildScratch, cpu));
+      } else if (name == "host.memory.used_percent") {
+        child_num(offsetof(ChildScratch, mem));
+      } else if (name == "host.network.idc") {
+        a = {OP_STR, kChildBase, uint16_t(offsetof(ChildScratch, idc))};
+      } else if (name == "host.network.location") {
+        a = {OP_STR, kChildBase, uint16_t(offsetof(ChildScratch, loc))};
+      } else if (name.rfind("parents.", 0) == 0) {
+        const char* p = name.c_str() + 8;
+        char* end;
+        long slot = strtol(p, &end, 10);
+        if (end == p || *end != '.' || slot < 0 || slot >= kMaxParents) {
+          colmap[c] = a;
+          continue;
+        }
+        std::string rest(end + 1);
+        const uint8_t pa = uint8_t(slot);
+        auto num = [&](size_t off) {
+          a = {OP_NUM, pa, uint16_t(off)};
+        };
+        if (rest == "id") a = {OP_FLAG_TRUE, pa, uint16_t(offsetof(ParentScratch, has_id))};
+        else if (rest == "state") a = {OP_EQ_SUCCEEDED, pa, uint16_t(offsetof(ParentScratch, succeeded))};
+        else if (rest == "finished_piece_count") num(offsetof(ParentScratch, fin));
+        else if (rest == "host.upload_count") num(offsetof(ParentScratch, upload_count));
+        else if (rest == "host.upload_failed_count") num(offsetof(ParentScratch, upload_failed));
+        else if (rest == "host.concurrent_upload_limit") num(offsetof(ParentScratch, cul));
+        else if (rest == "host.concurrent_upload_count") num(offsetof(ParentScratch, cuc));
+        else if (rest == "host.type") a = {OP_NE_NORMAL, pa, uint16_t(offsetof(ParentScratch, is_seed))};
+        else if (rest == "host.network.idc") a = {OP_STR, pa, uint16_t(offsetof(ParentScratch, idc))};
+        else if (rest == "host.network.location") a = {OP_STR, pa, uint16_t(offsetof(ParentScratch, loc))};
+        else if (rest == "host.cpu.percent") num(offsetof(ParentScratch, cpu));
+        else if (rest == "host.memory.used_percent") num(offsetof(ParentScratch, mem));
+        else if (rest == "host.network.tcp_connection_count") num(offsetof(ParentScratch, tcp));
+        else if (rest == "host.network.upload_tcp_connection_count") num(offsetof(ParentScratch, utcp));
+        else if (rest == "host.disk.used_percent") num(offsetof(ParentScratch, disk));
+        else if (rest == "host.cpu.process_percent") num(offsetof(ParentScratch, cpu_proc));
+        else if (rest == "host.memory.available") num(offsetof(ParentScratch, mem_avail));
+        else if (rest == "host.memory.total") num(offsetof(ParentScratch, mem_total));
+        else if (rest == "host.disk.inodes_used_percent") num(offsetof(ParentScratch, inodes));
+        else if (rest.rfind("pieces.", 0) == 0) {
+          const char* q = rest.c_str() + 7;
+          long pj = strtol(q, &end, 10);
+          if (end != q && strcmp(end, ".cost") == 0 && pj >= 0 && pj < kMaxPieces) {
+            num(offsetof(ParentScratch, piece_cost) + sizeof(double) * size_t(pj));
+          }
+        }
+      }
+      colmap[c] = a;
+    }
+    hot_cols.clear();
+    for (size_t c = 0; c < colmap.size(); ++c)
+      if (colmap[c].op != OP_IGNORE) hot_cols.push_back(uint32_t(c));
+    // Empty-slot fast-forward: when a parent's id column is empty the
+    // whole slot is padding, so the scan can jump to the first hot column
+    // NOT belonging to that parent. This is what keeps 20-slot padded
+    // rows near the cost of their populated prefix. The id column is the
+    // only OP_FLAG_TRUE op, so it identifies slot starts.
+    skip_on_empty.assign(hot_cols.size(), 0);
+    for (size_t hi = 0; hi < hot_cols.size(); ++hi) {
+      const ColAction a = colmap[hot_cols[hi]];
+      if (a.op != OP_FLAG_TRUE) continue;
+      size_t hj = hi + 1;
+      while (hj < hot_cols.size()) {
+        const ColAction b = colmap[hot_cols[hj]];
+        if (b.parent != a.parent) break;  // kChildBase never matches a slot
+        ++hj;
+      }
+      skip_on_empty[hi] = uint32_t(hj);
+    }
+  }
+
+  inline void dispatch(const ColAction a, const char* p, size_t n) {
+    // empty fields (padding parent slots) keep their reset() defaults —
+    // skipping them is what makes padded 20-slot rows cheap
+    if (n == 0) return;
+    char* base = a.parent == kChildBase
+                     ? reinterpret_cast<char*>(&child)
+                     : reinterpret_cast<char*>(&parents[a.parent]);
+    switch (a.op) {
+      case OP_NUM:
+        *reinterpret_cast<double*>(base + a.offset) = parse_num(p, n);
+        return;
+      case OP_FLAG_TRUE:
+        *reinterpret_cast<bool*>(base + a.offset) = true;
+        return;
+      case OP_EQ_SUCCEEDED:
+        *reinterpret_cast<bool*>(base + a.offset) =
+            (n == 9 && memcmp(p, "Succeeded", 9) == 0);
+        return;
+      case OP_NE_NORMAL:
+        *reinterpret_cast<bool*>(base + a.offset) =
+            !(n == 6 && memcmp(p, "normal", 6) == 0);
+        return;
+      case OP_STR:
+        *reinterpret_cast<StrRef*>(base + a.offset) = {p, uint32_t(n)};
+        return;
+      default:
+        return;
+    }
+  }
+
+  void reset_scratch() {
+    child.reset();
+    for (auto& p : parents) p.reset();
+  }
+
+  bool looks_like_header(const char* line, size_t len) const {
+    const size_t h = header_col0.size();
+    return h && len >= h && memcmp(line, header_col0.data(), h) == 0 &&
+           (len == h || line[h] == ',');
+  }
+
+  void on_line(const char* line, size_t len, bool has_quote = true) {
+    if (len == 0) return;
+    if (colmap.empty() || has_quote || looks_like_header(line, len)) {
+      on_line_slow(line, len);
+      return;
+    }
+    reset_scratch();
+    scan_row_fast(line, len);
+    emit_row();
+    ++row;
+  }
+
+  // Header lines and RFC4180-quoted rows: full split + mapped walk.
+  void on_line_slow(const char* line, size_t len) {
+    if (!split_csv_line(line, len, fields, scratch)) {
+      ++errors;
+      return;
+    }
+    // Header detection: no mapping yet, or first column repeats the
+    // header's first column name (embedded header of a later upload).
+    if (colmap.empty() || (!fields.empty() && !header_col0.empty() &&
+                           fields[0].eq(header_col0.c_str()))) {
+      resolve_header(fields);
+      return;
+    }
+    reset_scratch();
+    size_t n = fields.size() < colmap.size() ? fields.size() : colmap.size();
+    for (size_t c = 0; c < n; ++c) {
+      const ColAction a = colmap[c];
+      if (a.op == OP_IGNORE) continue;
+      dispatch(a, fields[c].data, fields[c].len);
+    }
+    emit_row();
+    ++row;
+  }
+
+  // Tail short-circuit: called when a parent id column is empty. If every
+  // byte from `from` up to the line's second-to-last comma is a comma,
+  // then all remaining parent columns are empty (only the trailing
+  // created_at/updated_at — never hot — carry data), so the scan can stop
+  // for the whole row. Exact for any input: a later parent that DID have
+  // data would put a non-comma byte inside the checked span (its id and
+  // any piece-cost column are never the final two fields — the schema
+  // keeps them ≥2 columns apart), failing the check and falling back to
+  // the normal scan.
+  //
+  // Scope note: since columnar.write_csv's skip_padding change (round 5)
+  // OUR writer serializes padding slots as EMPTY cells, so this fires on
+  // every self-produced row with spare parent capacity — skipping the
+  // padding tail wholesale is part of the measured decode win. On
+  // "0"-padded files (older rounds, gocsv-style writers) the check fails
+  // at the first "0" and costs one bounded extra scan per row
+  // (`tried_tail`).
+  static bool tail_is_padding(const char* line, size_t len, size_t from) {
+    long p_last = -1, p_prev = -1;
+    for (long j = long(len) - 1; j >= long(from); --j) {
+      if (line[j] == ',') {
+        if (p_last < 0) {
+          p_last = j;
+        } else {
+          p_prev = j;
+          break;
+        }
+      }
+    }
+    if (p_prev < 0) return false;
+    size_t i = from;
+#if defined(__AVX2__)
+    const __m256i commas = _mm256_set1_epi8(',');
+    for (; i + 32 <= size_t(p_prev); i += 32) {
+      const __m256i v =
+          _mm256_loadu_si256(reinterpret_cast<const __m256i*>(line + i));
+      if (uint32_t(_mm256_movemask_epi8(_mm256_cmpeq_epi8(v, commas))) !=
+          0xffffffffu)
+        return false;
+    }
+#endif
+    for (; i < size_t(p_prev); ++i)
+      if (line[i] != ',') return false;
+    return true;
+  }
+
+  // Unquoted data rows (the overwhelmingly common case): one pass over the
+  // line, finding commas 32 bytes at a time (AVX2) and materializing only
+  // the ~hot columns the feature extractor reads. Runs of ignored columns
+  // — including the empty padding parent slots — are consumed by popcount
+  // without touching individual fields.
+  void scan_row_fast(const char* line, size_t len) {
+    const size_t nhot = hot_cols.size();
+    size_t hi = 0;
+    uint32_t next_hot = nhot ? hot_cols[0] : 0xffffffffu;
+    uint32_t c = 0;        // current column index
+    size_t field_start = 0;
+    size_t i = 0;
+    bool tried_tail = false;  // attempt the tail short-circuit once per row
+#if defined(__AVX2__)
+    const __m256i commas = _mm256_set1_epi8(',');
+    while (i + 32 <= len && hi < nhot) {
+      const __m256i v =
+          _mm256_loadu_si256(reinterpret_cast<const __m256i*>(line + i));
+      uint32_t m =
+          uint32_t(_mm256_movemask_epi8(_mm256_cmpeq_epi8(v, commas)));
+      if (m == 0) {
+        i += 32;
+        continue;
+      }
+      uint32_t cnt = uint32_t(__builtin_popcount(m));
+      if (c + cnt < next_hot) {
+        // every comma in this block belongs to ignored columns — consume
+        // them in bulk; the in-progress field after the block starts
+        // right past the last comma
+        c += cnt;
+        field_start = i + size_t(31 - __builtin_clz(m)) + 1;
+        i += 32;
+        continue;
+      }
+#if defined(__BMI2__)
+      // The block holds ≥1 hot-column boundary. Jump straight to each hot
+      // field's bounding commas with pdep (deposit selects the k-th set
+      // bit) instead of iterating every comma — populated rows have ~7×
+      // more commas than hot columns.
+      while (true) {
+        // next_hot's field ends at overall comma #next_hot, which is the
+        // (next_hot - c)-th comma (0-based) of the remaining mask
+        uint32_t k = next_hot - c;
+        if (k >= cnt) {  // ends beyond this block: consume the rest
+          c += cnt;
+          field_start = i + size_t(31 - __builtin_clz(m)) + 1;
+          break;
+        }
+        if (k > 0) {  // field starts after the (k-1)-th remaining comma
+          const uint32_t before = uint32_t(_pdep_u32(1u << (k - 1), m));
+          field_start = i + size_t(__builtin_ctz(before)) + 1;
+        }
+        const uint32_t at = uint32_t(_pdep_u32(1u << k, m));
+        const size_t pos = i + size_t(__builtin_ctz(at));
+        const size_t flen = pos - field_start;
+        if (flen == 0 && skip_on_empty[hi]) {
+          if (!tried_tail) {
+            tried_tail = true;
+            if (tail_is_padding(line, len, pos + 1)) return;
+          }
+          hi = skip_on_empty[hi];  // empty parent id → skip the slot
+        } else {
+          dispatch(colmap[c + k], line + field_start, flen);
+          ++hi;
+        }
+        next_hot = hi < nhot ? hot_cols[hi] : 0xffffffffu;
+        // consume commas up to and including the field-ending one
+        const uint32_t used = k + 1;
+        c += used;
+        cnt -= used;
+        field_start = pos + 1;
+        if (hi >= nhot) return;
+        if (cnt == 0) break;  // before the shift: `<< 32` would be UB
+        m = uint32_t(_pdep_u32(0xffffffffu << used, m)) & m;
+      }
+#else
+      while (m) {
+        const uint32_t b = uint32_t(__builtin_ctz(m));
+        m &= m - 1;
+        const size_t pos = i + b;
+        if (c == next_hot) {
+          const size_t flen = pos - field_start;
+          if (flen == 0 && skip_on_empty[hi]) {
+            if (!tried_tail) {
+              tried_tail = true;
+              if (tail_is_padding(line, len, pos + 1)) return;
+            }
+            hi = skip_on_empty[hi];  // empty parent id → skip the slot
+          } else {
+            dispatch(colmap[c], line + field_start, flen);
+            ++hi;
+          }
+          next_hot = hi < nhot ? hot_cols[hi] : 0xffffffffu;
+        }
+        ++c;
+        field_start = pos + 1;
+        if (hi >= nhot) return;
+      }
+#endif
+      i += 32;
+    }
+#endif
+    for (; i < len && hi < nhot; ++i) {
+      if (line[i] != ',') continue;
+      if (c == next_hot) {
+        const size_t flen = i - field_start;
+        if (flen == 0 && skip_on_empty[hi]) {
+          if (!tried_tail) {
+            tried_tail = true;
+            if (tail_is_padding(line, len, i + 1)) return;
+          }
+          hi = skip_on_empty[hi];
+        } else {
+          dispatch(colmap[c], line + field_start, flen);
+          ++hi;
+        }
+        next_hot = hi < nhot ? hot_cols[hi] : 0xffffffffu;
+      }
+      ++c;
+      field_start = i + 1;
+    }
+    // trailing field (no comma after the last column)
+    if (hi < nhot && c == next_hot && field_start <= len)
+      dispatch(colmap[c], line + field_start, len - field_start);
+  }
+
+  void emit_row() {
+    double total = child.total_pieces > 1.0 ? child.total_pieces : 1.0;
+    // per-row invariants: identical values to computing them per pair
+    // (pure hoisting — parity with the numpy path is preserved), but one
+    // log1p per row instead of one per parent
+    const double child_cpu_t = child.cpu / 100.0;
+    const double child_mem_t = child.mem / 100.0;
+    const double task_len_t =
+        log1p(child.task_len > 0 ? child.task_len : 0.0) / 30.0;
+    for (int s = 0; s < kMaxParents; ++s) {
+      ParentScratch& p = parents[s];
+      if (!p.has_id) continue;
+      double cost_sum = 0;
+      int cost_cnt = 0;
+      for (double c : p.piece_cost)
+        if (c > 0) {
+          cost_sum += c;
+          ++cost_cnt;
+        }
+      if (cost_cnt == 0) continue;  // mask: valid_parent & (cost_cnt > 0)
+
+      double finished_ratio = p.fin / total;
+      if (finished_ratio < 0) finished_ratio = 0;
+      if (finished_ratio > 1) finished_ratio = 1;
+      double upc = p.upload_count > 1.0 ? p.upload_count : 1.0;
+      double upload_success = (p.upload_count - p.upload_failed) / upc;
+      double cul = p.cul > 1.0 ? p.cul : 1.0;
+      double free_upload = 1.0 - p.cuc / cul;
+      if (free_upload < 0) free_upload = 0;
+      if (free_upload > 1) free_upload = 1;
+      bool idc_match = !p.idc.empty() && p.idc.len == child.idc.len &&
+                       memcmp(p.idc.data, child.idc.data, p.idc.len) == 0;
+
+      double mem_total = p.mem_total > 1.0 ? p.mem_total : 1.0;
+      const double f[kFeatureDim] = {
+          finished_ratio,
+          upload_success,
+          free_upload,
+          p.is_seed ? 1.0 : 0.0,
+          idc_match ? 1.0 : 0.0,
+          location_affinity(child.loc.data, child.loc.len, p.loc.data,
+                            p.loc.len),
+          p.cpu / 100.0,
+          p.mem / 100.0,
+          log1p(p.tcp) / 10.0,
+          log1p(p.utcp) / 10.0,
+          p.disk / 100.0,
+          p.succeeded ? 1.0 : 0.0,
+          p.cpu_proc / 100.0,
+          p.mem_avail / mem_total,
+          p.inodes / 100.0,
+          child_cpu_t,
+          child_mem_t,
+          task_len_t,
+          0.0,  // rtt_affinity: live-topology feature, 0.0 offline
+      };
+      // one grow per pair, then straight-line stores (push_back's
+      // per-element capacity branch defeats vectorization here)
+      const size_t base = feat.size();
+      feat.resize(base + kFeatureDim);
+      float* dst = feat.data() + base;
+      for (int k = 0; k < kFeatureDim; ++k) dst[k] = float(f[k]);
+      double mean_cost_ms = cost_sum / cost_cnt / kNsPerMs;
+      label.push_back(float(log1p(mean_cost_ms)));
+      index.push_back(int32_t(row));
+    }
+  }
+
+  // End-of-file boundary: flush a trailing record that has no newline and
+  // reset quote parity, so concatenating the next file (or pass) cannot
+  // bleed this file's tail into its first record. Safe to call once per
+  // file mid-stream — parser column mapping survives.
+  void finish() {
+    if (!carry.empty()) {
+      std::string tail;
+      tail.swap(carry);
+      size_t L = tail.size();
+      if (L && tail[L - 1] == '\r') --L;
+      on_line(tail.data(), L);
+    }
+    in_quotes = false;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Network-topology graph decoder
+// ---------------------------------------------------------------------------
+
+enum TopoCol : uint8_t {
+  T_IGNORE = 0,
+  T_SRC_ID,
+  T_SRC_TYPE,
+  T_SRC_TCP,
+  T_SRC_UTCP,
+  D_ID,
+  D_TYPE,
+  D_TCP,
+  D_UTCP,
+  D_RTT,
+};
+
+struct TopoColAction {
+  uint8_t kind = T_IGNORE;
+  uint8_t dest = 0;
+};
+
+struct DestScratch {
+  std::string id;
+  bool is_seed = false;
+  double tcp = 0, utcp = 0, rtt = 0;
+  void reset() {
+    id.clear();
+    is_seed = false;
+    tcp = utcp = rtt = 0;
+  }
+};
+
+struct DfTopo {
+  std::vector<TopoColAction> colmap;
+  std::string header_col0;
+  std::string carry, scratch;
+  bool in_quotes = false;   // RFC4180 quote parity across chunks
+  std::vector<FieldRef> fields;
+  int64_t errors = 0;
+  int64_t row = 0;          // topology-record counter (not counting headers)
+
+  // interned nodes (first-appearance order, like the Python dict)
+  std::unordered_map<std::string, int32_t> index;
+  std::vector<std::string> node_ids;
+  std::vector<float> is_seed, tcp, utcp;
+
+  // edges, insertion-ordered with last-write-wins RTT
+  std::unordered_map<uint64_t, size_t> edge_index;
+  std::vector<int32_t> src, dst;
+  std::vector<double> rtt_ns;
+
+  std::string src_id, src_type;
+  double src_tcp = 0, src_utcp = 0;
+  DestScratch dests[kMaxDestHosts];
+
+  int32_t intern(const std::string& hid, bool seed, double t, double u) {
+    auto it = index.find(hid);
+    if (it == index.end()) {
+      int32_t idx = int32_t(node_ids.size());
+      index.emplace(hid, idx);
+      node_ids.push_back(hid);
+      is_seed.push_back(seed ? 1.0f : 0.0f);
+      tcp.push_back(float(t));
+      utcp.push_back(float(u));
+      return idx;
+    }
+    // refresh load stats, last write wins (features.build_probe_graph)
+    tcp[it->second] = float(t);
+    utcp[it->second] = float(u);
+    return it->second;
+  }
+
+  void resolve_header(const std::vector<FieldRef>& hs) {
+    colmap.assign(hs.size(), TopoColAction{});
+    header_col0 = hs.empty() ? "" : hs[0].view();
+    for (size_t c = 0; c < hs.size(); ++c) {
+      std::string name = hs[c].view();
+      TopoColAction a;
+      if (name == "host.id") a.kind = T_SRC_ID;
+      else if (name == "host.type") a.kind = T_SRC_TYPE;
+      else if (name == "host.network.tcp_connection_count") a.kind = T_SRC_TCP;
+      else if (name == "host.network.upload_tcp_connection_count") a.kind = T_SRC_UTCP;
+      else if (name.rfind("dest_hosts.", 0) == 0) {
+        const char* p = name.c_str() + 11;
+        char* end;
+        long slot = strtol(p, &end, 10);
+        if (end == p || *end != '.' || slot < 0 || slot >= kMaxDestHosts) {
+          colmap[c] = a;
+          continue;
+        }
+        std::string rest(end + 1);
+        a.dest = uint8_t(slot);
+        if (rest == "id") a.kind = D_ID;
+        else if (rest == "type") a.kind = D_TYPE;
+        else if (rest == "network.tcp_connection_count") a.kind = D_TCP;
+        else if (rest == "network.upload_tcp_connection_count") a.kind = D_UTCP;
+        else if (rest == "probes.average_rtt") a.kind = D_RTT;
+      }
+      colmap[c] = a;
+    }
+  }
+
+  void on_line(const char* line, size_t len, bool = true) {
+    if (len == 0) return;
+    if (!split_csv_line(line, len, fields, scratch)) {
+      ++errors;
+      return;
+    }
+    if (colmap.empty() || (!fields.empty() && !header_col0.empty() &&
+                           fields[0].eq(header_col0.c_str()))) {
+      resolve_header(fields);
+      return;
+    }
+    src_id.clear();
+    src_type.clear();
+    src_tcp = src_utcp = 0;
+    for (auto& d : dests) d.reset();
+
+    size_t n = fields.size() < colmap.size() ? fields.size() : colmap.size();
+    for (size_t c = 0; c < n; ++c) {
+      const TopoColAction a = colmap[c];
+      if (a.kind == T_IGNORE) continue;
+      const FieldRef& f = fields[c];
+      DestScratch& d = dests[a.dest];
+      switch (a.kind) {
+        case T_SRC_ID: src_id = f.view(); break;
+        case T_SRC_TYPE: src_type = f.view(); break;
+        case T_SRC_TCP: src_tcp = to_num(f); break;
+        case T_SRC_UTCP: src_utcp = to_num(f); break;
+        case D_ID: d.id = f.view(); break;
+        case D_TYPE: d.is_seed = !f.empty() && !f.eq("normal"); break;
+        case D_TCP: d.tcp = to_num(f); break;
+        case D_UTCP: d.utcp = to_num(f); break;
+        case D_RTT: d.rtt = to_num(f); break;
+        default: break;
+      }
+    }
+    ++row;
+    // the Python spec (features.build_probe_graph) interns the src
+    // UNCONDITIONALLY — even an empty id becomes a node — and skips
+    // only empty dests; matching exactly keeps node indices aligned
+    // between the native and numpy paths (the parity contract)
+    bool src_seed = !src_type.empty() && src_type != "normal";
+    int32_t s = intern(src_id, src_seed, src_tcp, src_utcp);
+    for (auto& d : dests) {
+      if (d.id.empty()) continue;
+      int32_t t = intern(d.id, d.is_seed, d.tcp, d.utcp);
+      if (d.rtt > 0) {
+        uint64_t key = (uint64_t(uint32_t(s)) << 32) | uint32_t(t);
+        auto it = edge_index.find(key);
+        if (it == edge_index.end()) {
+          edge_index.emplace(key, src.size());
+          src.push_back(s);
+          dst.push_back(t);
+          rtt_ns.push_back(d.rtt);
+        } else {
+          rtt_ns[it->second] = d.rtt;
+        }
+      }
+    }
+  }
+
+  void finish() {
+    if (!carry.empty()) {
+      std::string tail;
+      tail.swap(carry);
+      size_t L = tail.size();
+      if (L && tail[L - 1] == '\r') --L;
+      on_line(tail.data(), L);
+    }
+    in_quotes = false;
+  }
+};
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// C ABI
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+DfPairs* df_pairs_new() { return new DfPairs(); }
+void df_pairs_free(DfPairs* d) { delete d; }
+
+long df_pairs_feed(DfPairs* d, const char* buf, long len) {
+  feed_lines(
+      d->carry, d->in_quotes, buf, len,
+      [d](const char* line, size_t L, bool hq) { d->on_line(line, L, hq); },
+      [d]() { ++d->errors; });
+  return long(d->label.size());
+}
+
+void df_pairs_finish(DfPairs* d) { d->finish(); }
+long df_pairs_count(DfPairs* d) { return long(d->label.size()); }
+long df_pairs_rows(DfPairs* d) { return long(d->row); }
+long df_pairs_errors(DfPairs* d) { return long(d->errors); }
+
+void df_pairs_export(DfPairs* d, float* feat, float* label, int32_t* idx) {
+  memcpy(feat, d->feat.data(), d->feat.size() * sizeof(float));
+  memcpy(label, d->label.data(), d->label.size() * sizeof(float));
+  memcpy(idx, d->index.data(), d->index.size() * sizeof(int32_t));
+}
+
+// Streaming variant: export the pairs accumulated since the last take and
+// clear the buffers, so a long decode runs in bounded memory (caller
+// sizes the output with df_pairs_count between feed and take — same
+// thread drives both). Parser state (carry, colmap) is untouched, so
+// takes interleave freely with feeds mid-stream.
+long df_pairs_take(DfPairs* d, float* feat, float* label, int32_t* idx) {
+  long m = long(d->label.size());
+  memcpy(feat, d->feat.data(), d->feat.size() * sizeof(float));
+  memcpy(label, d->label.data(), d->label.size() * sizeof(float));
+  memcpy(idx, d->index.data(), d->index.size() * sizeof(int32_t));
+  d->feat.clear();
+  d->label.clear();
+  d->index.clear();
+  return m;
+}
+
+// f32 → IEEE half (round-to-nearest-even) for the reduced-precision
+// device feed: converting at take time keeps the vectors cache-hot and
+// moves the cast off the GIL-held Python packing loop (the consumer is
+// the bottleneck on small hosts). F16C does 8 lanes per instruction when
+// the build arch has it; the scalar path is the bit-exact fallback.
+static inline uint16_t f32_to_f16(float v) {
+  uint32_t x;
+  memcpy(&x, &v, 4);
+  uint32_t sign = (x >> 16) & 0x8000u;
+  int32_t exp = int32_t((x >> 23) & 0xff) - 127 + 15;
+  uint32_t mant = x & 0x7fffffu;
+  if (exp >= 31) {
+    // inf/overflow → ±inf; NaN keeps a mantissa bit (strtod parses the
+    // literal "nan" in CSV stats, and the F16C path / np.float16 both
+    // preserve it — silently turning NaN into inf would make the
+    // half-precision feed differ by build architecture)
+    bool is_nan = (int32_t((x >> 23) & 0xff) == 0xff) && mant != 0;
+    return uint16_t(sign | 0x7c00u | (is_nan ? 0x0200u : 0u));
+  }
+  if (exp <= 0) {
+    if (exp < -10) return uint16_t(sign);
+    mant |= 0x800000u;
+    uint32_t shift = uint32_t(14 - exp);
+    uint32_t half = mant >> shift;
+    uint32_t rem = mant & ((1u << shift) - 1);
+    uint32_t mid = 1u << (shift - 1);
+    if (rem > mid || (rem == mid && (half & 1))) ++half;
+    return uint16_t(sign | half);
+  }
+  uint32_t half = uint32_t(exp << 10) | (mant >> 13);
+  uint32_t rem = mant & 0x1fffu;
+  if (rem > 0x1000u || (rem == 0x1000u && (half & 1))) ++half;
+  return uint16_t(sign | half);
+}
+
+static void f32_to_f16_buf(const float* in, uint16_t* out, size_t n) {
+#if defined(__F16C__)
+  size_t i = 0;
+  for (; i + 8 <= n; i += 8) {
+    __m256 v = _mm256_loadu_ps(in + i);
+    __m128i h = _mm256_cvtps_ph(v, _MM_FROUND_TO_NEAREST_INT);
+    _mm_storeu_si128(reinterpret_cast<__m128i*>(out + i), h);
+  }
+  for (; i < n; ++i) out[i] = f32_to_f16(in[i]);
+#else
+  for (size_t i = 0; i < n; ++i) out[i] = f32_to_f16(in[i]);
+#endif
+}
+
+// ABI handshake: the binding layer refuses a library whose feature
+// width disagrees with the python schema (a stale prebuilt .so via
+// DF_NATIVE_LIB would otherwise fill misaligned tensors silently).
+long df_feature_dim() { return kFeatureDim; }
+
+long df_pairs_take_half(DfPairs* d, uint16_t* feat, uint16_t* label, int32_t* idx) {
+  long m = long(d->label.size());
+  f32_to_f16_buf(d->feat.data(), feat, d->feat.size());
+  f32_to_f16_buf(d->label.data(), label, d->label.size());
+  memcpy(idx, d->index.data(), d->index.size() * sizeof(int32_t));
+  d->feat.clear();
+  d->label.clear();
+  d->index.clear();
+  return m;
+}
+
+DfTopo* df_topo_new() { return new DfTopo(); }
+void df_topo_free(DfTopo* d) { delete d; }
+
+long df_topo_feed(DfTopo* d, const char* buf, long len) {
+  feed_lines(
+      d->carry, d->in_quotes, buf, len,
+      [d](const char* line, size_t L, bool hq) { d->on_line(line, L, hq); },
+      [d]() { ++d->errors; });
+  return long(d->src.size());
+}
+
+void df_topo_finish(DfTopo* d) { d->finish(); }
+long df_topo_rows(DfTopo* d) { return long(d->row); }
+long df_topo_num_nodes(DfTopo* d) { return long(d->node_ids.size()); }
+long df_topo_num_edges(DfTopo* d) { return long(d->src.size()); }
+long df_topo_errors(DfTopo* d) { return long(d->errors); }
+
+long df_topo_node_ids_size(DfTopo* d) {
+  long n = 0;
+  for (const auto& s : d->node_ids) n += long(s.size()) + 1;  // '\n'-joined
+  return n;
+}
+
+void df_topo_export_nodes(DfTopo* d, char* ids, float* is_seed, float* tcp,
+                          float* utcp) {
+  char* p = ids;
+  for (const auto& s : d->node_ids) {
+    memcpy(p, s.data(), s.size());
+    p += s.size();
+    *p++ = '\n';
+  }
+  memcpy(is_seed, d->is_seed.data(), d->is_seed.size() * sizeof(float));
+  memcpy(tcp, d->tcp.data(), d->tcp.size() * sizeof(float));
+  memcpy(utcp, d->utcp.data(), d->utcp.size() * sizeof(float));
+}
+
+void df_topo_export_edges(DfTopo* d, int32_t* src, int32_t* dst,
+                          double* rtt_ns) {
+  memcpy(src, d->src.data(), d->src.size() * sizeof(int32_t));
+  memcpy(dst, d->dst.data(), d->dst.size() * sizeof(int32_t));
+  memcpy(rtt_ns, d->rtt_ns.data(), d->rtt_ns.size() * sizeof(double));
+}
+
+}  // extern "C"

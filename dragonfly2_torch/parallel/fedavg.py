@@ -10,8 +10,7 @@ averaging.
   parameter trees (the cross-datacenter case where clusters are separate
   jobs); the average runs over their tensors, on the device they live on.
 - **in-mesh** (``fedavg_psum``): cluster replicas on a ``fed`` axis of a
-  process mesh, averaged with all-reduces. Not ported yet (ROADMAP queue A
-  item 11).
+  process mesh (one process a replica), averaged with all-reduces.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 import torch
+import torch.distributed as dist
 
 
 def _tree_map(fn, *trees):
@@ -56,10 +56,38 @@ def fedavg_trees(params_list: Sequence[Any], weights: Sequence[float] | None = N
     return _tree_map(avg, *params_list)
 
 
-def fedavg_psum(params: Any, num_examples, axis_name: str = "fed") -> Any:
-    """In-mesh FedAvg over the ``fed`` axis of a process mesh: not ported
-    yet."""
-    raise NotImplementedError(
-        "in-mesh FedAvg over a fed axis is not ported yet (ROADMAP queue A item 11):"
-        " merge host-side with fedavg_trees"
-    )
+def fedavg_psum(params: Any, num_examples, axis_name: str = "fed", mesh=None) -> Any:
+    """In-mesh FedAvg over the ``axis_name`` axis of ``mesh`` (the default
+    process group when None): ``params`` is this replica's model (a
+    module, a state dict or nested dicts and lists of tensors),
+    ``num_examples`` its local example count; → the example-weighted
+    average, identical on every replica, as a new tree of tensors. The
+    reference's two ``psum``s as all-reduces: first of n, then of
+    ``p · n / total``."""
+    group = mesh.get_group(axis_name) if mesh is not None else None
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    device = next(_flat(params)).device
+    n = torch.as_tensor(num_examples, dtype=torch.float32, device=device).reshape(())
+    total = n.clone()
+    dist.all_reduce(total, group=group)
+    scale = n / torch.clamp(total, min=1.0)
+
+    @torch.no_grad()
+    def weigh(p):
+        out = p * scale.to(p.dtype)
+        dist.all_reduce(out, group=group)
+        return out
+
+    return _tree_map(weigh, params)
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _flat(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _flat(v)
+    else:
+        yield tree

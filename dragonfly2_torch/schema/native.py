@@ -1,0 +1,480 @@
+"""ctypes binding for the native ingestion library (counterpart of the
+reference's ``schema/native.py``).
+
+The trainer's ingestion edge — concatenated-CSV dataset files fed by the
+Train stream (upstream trainer/storage/storage.go:44-148) — must sustain
+~1.7M records/s for the 1B-records-in-10-min north star. The native decoder
+fuses CSV parse + feature extraction in C++ (``csrc/dfnative.cc``, the
+port's own copy of the reference's source); this module builds it with g++
+at first use into ``build/torch_native/`` (named by the hash of the
+source, the flags and the host CPU, as ``_build.py`` names the CUDA
+libraries), loads it, and falls back to the numpy path
+(``schema/features.py``) when it can't.
+
+Both paths produce identical tensors: tests assert elementwise equality,
+so the fallback is a semantic spec for the native code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import platform
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+
+from dragonfly2_torch.schema.features import (
+    GNN_NODE_FEATURE_DIM,
+    MLP_FEATURE_DIM,
+    NS_PER_MS,
+    PairExamples,
+    ProbeGraph,
+    sample_neighbors,
+)
+from dragonfly2_torch.utils import dflog
+
+logger = dflog.get("schema.native")
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+_SOURCE = _PKG_DIR / "csrc" / "dfnative.cc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "torch_native"
+# the reference's native/Makefile flags; -march=native is right because the
+# library is built on the machine that runs it
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-march=native", "-shared")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_load_failed = False
+# seconds the last g++ build took in this process (None: the library was
+# already built, or nothing was loaded yet)
+build_seconds: "float | None" = None
+
+
+def _cpu_key() -> bytes:
+    """What ``-march=native`` compiles for: the host CPU's model and flags."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = [ln for ln in f if ln.startswith((b"model name", b"flags"))]
+        return b"".join(sorted(set(lines)))
+    except OSError:
+        return platform.processor().encode()
+
+
+def library_path() -> Path:
+    """Where the library of the current source, flags and host CPU is (or
+    will be) built: a checkout copied to another machine builds anew."""
+    digest = hashlib.sha256(_SOURCE.read_bytes())
+    digest.update(" ".join(CXX_FLAGS).encode())
+    digest.update(_cpu_key())
+    return BUILD_DIR / f"libdfnative-{digest.hexdigest()[:16]}.so"
+
+
+def _build(path: Path) -> bool:
+    """g++ the shared library into ``path``; True on success. The library
+    appears whole or not at all (built beside it, then renamed), so
+    processes building at once never load a partial file."""
+    global build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp), str(_SOURCE)],
+            capture_output=True,
+            text=True,
+            timeout=300,
+        )
+    except (OSError, subprocess.TimeoutExpired) as e:
+        logger.warning("native build unavailable: %s", e)
+        tmp.unlink(missing_ok=True)
+        return False
+    if proc.returncode != 0:
+        logger.warning("native build failed:\n%s", proc.stderr[-2000:])
+        tmp.unlink(missing_ok=True)
+        return False
+    os.replace(tmp, path)
+    build_seconds = time.perf_counter() - t0
+    return True
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    c_char_p = ctypes.c_char_p
+    c_long = ctypes.c_long
+    c_void_p = ctypes.c_void_p
+    f32_p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    i32_p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    f64_p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    u16_p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
+
+    lib.df_pairs_new.restype = c_void_p
+    lib.df_pairs_free.argtypes = [c_void_p]
+    lib.df_pairs_feed.argtypes = [c_void_p, c_char_p, c_long]
+    lib.df_pairs_feed.restype = c_long
+    lib.df_pairs_finish.argtypes = [c_void_p]
+    lib.df_pairs_count.argtypes = [c_void_p]
+    lib.df_pairs_count.restype = c_long
+    lib.df_pairs_rows.argtypes = [c_void_p]
+    lib.df_pairs_rows.restype = c_long
+    lib.df_pairs_errors.argtypes = [c_void_p]
+    lib.df_pairs_errors.restype = c_long
+    lib.df_pairs_export.argtypes = [c_void_p, f32_p, f32_p, i32_p]
+    lib.df_pairs_take.argtypes = [c_void_p, f32_p, f32_p, i32_p]
+    lib.df_pairs_take.restype = c_long
+    # ABI handshake: an explicitly overridden .so (DF_NATIVE_LIB) may lack
+    # a symbol or disagree on the feature width — either degrades to the
+    # numpy path (load() catches this), never crashes
+    lib.df_feature_dim.restype = c_long
+    if lib.df_feature_dim() != MLP_FEATURE_DIM:
+        raise OSError(
+            f"native library feature dim {lib.df_feature_dim()} != schema"
+            f" {MLP_FEATURE_DIM} — stale build"
+        )
+    lib.df_pairs_take_half.argtypes = [c_void_p, u16_p, u16_p, i32_p]
+    lib.df_pairs_take_half.restype = c_long
+    lib.df_topo_rows.argtypes = [c_void_p]
+    lib.df_topo_rows.restype = c_long
+
+    lib.df_topo_new.restype = c_void_p
+    lib.df_topo_free.argtypes = [c_void_p]
+    lib.df_topo_feed.argtypes = [c_void_p, c_char_p, c_long]
+    lib.df_topo_feed.restype = c_long
+    lib.df_topo_finish.argtypes = [c_void_p]
+    lib.df_topo_num_nodes.argtypes = [c_void_p]
+    lib.df_topo_num_nodes.restype = c_long
+    lib.df_topo_num_edges.argtypes = [c_void_p]
+    lib.df_topo_num_edges.restype = c_long
+    lib.df_topo_errors.argtypes = [c_void_p]
+    lib.df_topo_errors.restype = c_long
+    lib.df_topo_node_ids_size.argtypes = [c_void_p]
+    lib.df_topo_node_ids_size.restype = c_long
+    lib.df_topo_export_nodes.argtypes = [c_void_p, c_char_p, f32_p, f32_p, f32_p]
+    lib.df_topo_export_edges.argtypes = [c_void_p, i32_p, i32_p, f64_p]
+    return lib
+
+
+def load() -> ctypes.CDLL | None:
+    """The native library, building it on first use; None when
+    unavailable (callers fall back to the numpy path). ``DF_NO_NATIVE``
+    turns it off; ``DF_NATIVE_LIB`` loads that file as it is."""
+    global _lib, _load_failed
+    if _lib is not None:
+        return _lib
+    if _load_failed or os.environ.get("DF_NO_NATIVE"):
+        return None
+    with _lock:
+        if _lib is not None or _load_failed:
+            return _lib
+        override = os.environ.get("DF_NATIVE_LIB")
+        path = Path(override) if override else library_path()
+        if not override and not path.exists() and not _build(path):
+            _load_failed = True
+            return None
+        try:
+            _lib = _bind(ctypes.CDLL(str(path)))
+        except (OSError, AttributeError) as e:
+            logger.warning("native library load failed: %s", e)
+            _load_failed = True
+            return None
+        return _lib
+
+
+def available() -> bool:
+    return load() is not None
+
+
+_CHUNK = 8 * 1024 * 1024
+
+
+def _feed_file(
+    lib, handle, feed, finish, path: str | Path, offset: int = 0, end: int | None = None
+) -> None:
+    with open(path, "rb") as f:
+        if offset:
+            f.seek(offset)
+        remaining = None if end is None else max(0, end - offset)
+        while True:
+            take = _CHUNK if remaining is None else min(_CHUNK, remaining)
+            if take == 0:
+                break
+            chunk = f.read(take)
+            if not chunk:
+                break
+            if remaining is not None:
+                remaining -= len(chunk)
+            feed(handle, chunk, len(chunk))
+    finish(handle)
+
+
+def decode_pairs_file(
+    path: str | Path, offset: int = 0, end: int | None = None
+) -> PairExamples | None:
+    """Download-record CSV file → MLP training pairs via the native
+    decoder; None when the library is unavailable (the caller falls back
+    to read_csv + extract_pair_features). ``offset`` starts mid-file at an
+    upload-round boundary (each round begins with its own header line —
+    the decoder re-keys on it); ``end`` stops at one, so an in-flight
+    concurrent upload's tail is never decoded."""
+    lib = load()
+    if lib is None or not Path(path).exists():
+        return None
+    if offset > Path(path).stat().st_size:
+        # the file was recreated smaller than a stale committed offset
+        offset = 0
+    handle = lib.df_pairs_new()
+    try:
+        _feed_file(lib, handle, lib.df_pairs_feed, lib.df_pairs_finish, path, offset, end)
+        m = lib.df_pairs_count(handle)
+        feats = np.empty((m, MLP_FEATURE_DIM), dtype=np.float32)
+        labels = np.empty((m,), dtype=np.float32)
+        idx = np.empty((m,), dtype=np.int32)
+        if m:
+            lib.df_pairs_export(handle, feats, labels, idx)
+        nerr = lib.df_pairs_errors(handle)
+        if nerr:
+            logger.warning("native pair decode: %d malformed lines skipped", nerr)
+        return PairExamples(
+            features=feats,
+            labels=labels,
+            download_index=idx,
+            num_downloads=int(lib.df_pairs_rows(handle)),
+        )
+    finally:
+        lib.df_pairs_free(handle)
+
+
+_MIN_SPAN = 8 * 1024 * 1024
+
+
+def split_file_spans(
+    path: str | Path, n: int, offset: int = 0, end: int | None = None
+) -> list[tuple]:
+    """Split ``[offset, end or size)`` of a CSV file into ≤ n
+    record-aligned ``(path, start, end)`` spans for parallel decode (each
+    at least 8 MiB). ``end`` bounds the read at a committed round boundary.
+
+    Record boundaries are newlines at even RFC4180 quote parity — a
+    newline inside a quoted field is data — found in one streaming pass
+    that tracks the cumulative quote count from ``offset`` (committed
+    offsets are record-aligned, so the parity there is even). Spans after
+    the first get the file's header line re-fed (``stream_pairs_file``),
+    which assumes one schema per file."""
+    size = Path(path).stat().st_size
+    if end is not None and end < size:
+        size = end
+    if offset > size:
+        offset = 0  # stale committed offset beyond a recreated file
+    span = size - offset
+    n = max(1, min(n, span // max(_MIN_SPAN, 1) or 1))
+    if n == 1:
+        return [(str(path), offset, size)]
+    targets = [offset + span * i // n for i in range(1, n)]
+    bounds = [offset]
+    chunk_size = 8 * 1024 * 1024
+    with open(path, "rb") as f:
+        f.seek(offset)
+        quotes = 0  # cumulative quote count over [offset, pos)
+        pos = offset
+        ti = 0
+        pending = False  # a target was passed; its boundary not yet found
+        while ti < len(targets) and pos < size:
+            chunk = f.read(chunk_size)
+            if not chunk:
+                break
+            search_from = 0
+            while ti < len(targets):
+                if not pending:
+                    if pos + len(chunk) <= targets[ti]:
+                        break  # target beyond this chunk
+                    search_from = max(search_from, targets[ti] - pos)
+                    pending = True
+                # the next newline at even global parity at or after search_from
+                at = search_from
+                found = -1
+                while True:
+                    nl = chunk.find(b"\n", at)
+                    if nl < 0:
+                        break
+                    if (quotes + chunk.count(b'"', 0, nl)) % 2 == 0:
+                        found = nl
+                        break
+                    at = nl + 1
+                if found < 0:
+                    break  # keep scanning in the next chunk
+                b = pos + found + 1
+                if bounds[-1] < b < size:
+                    bounds.append(b)
+                pending = False
+                search_from = found + 1
+                ti += 1
+                # collapse targets already behind the found boundary
+                while ti < len(targets) and targets[ti] < b:
+                    ti += 1
+            quotes += chunk.count(b'"')
+            pos += len(chunk)
+    bounds.append(size)
+    return [(str(path), s, e) for s, e in zip(bounds, bounds[1:]) if e > s]
+
+
+def _read_header_line(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.readline()
+
+
+def stream_pairs_file(
+    paths,
+    passes: int = 1,
+    chunk_bytes: int = _CHUNK,
+    max_records: int | None = None,
+    offset: int = 0,
+    half: bool = False,
+):
+    """Stream-decode download-record CSV file(s) into (features, labels)
+    numpy shards — one shard per fed chunk — in bounded memory. Yields
+    ``(feats [m, F], labels [m], cumulative_download_rows)``; with
+    ``half`` the shards are float16, cast in the C++ copy.
+
+    ``paths`` entries are plain paths or ``(path, start, end)`` spans
+    (``split_file_spans``); a span starting mid-file gets the file's
+    header line re-fed first so the column mapping resolves. ``passes``
+    re-reads the list; ``max_records`` stops after that many download
+    records; ``offset`` seeks the first plain-path entry to a committed
+    round boundary on every pass. Each file/span boundary flushes the
+    parser (a trailing record without a newline belongs to its own span).
+    Raises RuntimeError when the native library is unavailable (callers
+    needing a fallback use decode_pairs_file)."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError("native ingestion library unavailable")
+    if isinstance(paths, (str, Path)):
+        paths = [paths]
+    spans = []
+    for j, p in enumerate(paths):
+        if isinstance(p, tuple):
+            spans.append(p)
+        else:
+            start = offset if j == 0 else 0
+            size = Path(p).stat().st_size
+            if start > size:
+                start = 0  # stale offset beyond a recreated file
+            spans.append((str(p), start, size))
+    headers: dict[str, bytes] = {}
+    handle = lib.df_pairs_new()
+    try:
+        for _ in range(passes):
+            for path, start, end in spans:
+                with open(path, "rb") as f:
+                    if start:
+                        # mid-file span: re-feed the header line so the
+                        # parser keys its column mapping
+                        h = headers.get(path)
+                        if h is None:
+                            h = headers[path] = _read_header_line(path)
+                        lib.df_pairs_feed(handle, h, len(h))
+                        f.seek(start)
+                    remaining = end - start
+                    while remaining > 0:
+                        chunk = f.read(min(chunk_bytes, remaining))
+                        if not chunk:
+                            break
+                        remaining -= len(chunk)
+                        lib.df_pairs_feed(handle, chunk, len(chunk))
+                        yield _take(lib, handle, half)
+                        if max_records is not None:
+                            if lib.df_pairs_rows(handle) >= max_records:
+                                lib.df_pairs_finish(handle)
+                                yield _take(lib, handle, half)
+                                return
+                # per-span flush: emit the last record even when it lacks
+                # a trailing newline, and reset quote parity
+                lib.df_pairs_finish(handle)
+                yield _take(lib, handle, half)
+    finally:
+        lib.df_pairs_free(handle)
+
+
+def _take(lib, handle, half: bool = False):
+    m = lib.df_pairs_count(handle)
+    dt = np.float16 if half else np.float32
+    feats = np.empty((m, MLP_FEATURE_DIM), dtype=dt)
+    labels = np.empty((m,), dtype=dt)
+    idx = np.empty((m,), dtype=np.int32)
+    if m:
+        if half:
+            # the cast rides the C-side copy instead of a GIL-held numpy
+            # convert in the packing loop
+            lib.df_pairs_take_half(handle, feats.view(np.uint16), labels.view(np.uint16), idx)
+        else:
+            lib.df_pairs_take(handle, feats, labels, idx)
+    return feats, labels, int(lib.df_pairs_rows(handle))
+
+
+def build_probe_graph_file(
+    path: str | Path, max_degree: int = 16, seed: int = 0
+) -> ProbeGraph | None:
+    """Topology CSV file → ProbeGraph via the native decoder; None when
+    unavailable. Node interning and last-write-wins edge RTT match
+    ``features.build_probe_graph``; the degree/RTT node aggregates and the
+    neighbor sampling run in numpy over the (small) edge arrays."""
+    lib = load()
+    if lib is None or not Path(path).exists():
+        return None
+    handle = lib.df_topo_new()
+    try:
+        _feed_file(lib, handle, lib.df_topo_feed, lib.df_topo_finish, path)
+        n = lib.df_topo_num_nodes(handle)
+        e = lib.df_topo_num_edges(handle)
+        ids_size = lib.df_topo_node_ids_size(handle)
+        ids_buf = ctypes.create_string_buffer(max(ids_size, 1))
+        is_seed = np.empty((max(n, 1),), dtype=np.float32)
+        tcp = np.empty((max(n, 1),), dtype=np.float32)
+        utcp = np.empty((max(n, 1),), dtype=np.float32)
+        lib.df_topo_export_nodes(handle, ids_buf, is_seed, tcp, utcp)
+        src = np.empty((max(e, 1),), dtype=np.int32)
+        dst = np.empty((max(e, 1),), dtype=np.int32)
+        rtt_ns = np.empty((max(e, 1),), dtype=np.float64)
+        lib.df_topo_export_edges(handle, src, dst, rtt_ns)
+        num_records = int(lib.df_topo_rows(handle))
+        nerr = lib.df_topo_errors(handle)
+        if nerr:
+            logger.warning("native topo decode: %d malformed lines skipped", nerr)
+    finally:
+        lib.df_topo_free(handle)
+
+    node_ids = ids_buf.raw[:ids_size].decode("utf-8").split("\n")[:-1] if n else []
+    is_seed, tcp, utcp = is_seed[:n], tcp[:n], utcp[:n]
+    src, dst, rtt_ns = src[:e], dst[:e], rtt_ns[:e]
+
+    rtt_log = np.log1p(rtt_ns / NS_PER_MS).astype(np.float32)
+    out_deg = np.bincount(src, minlength=n).astype(np.float64)
+    in_deg = np.bincount(dst, minlength=n).astype(np.float64)
+    out_rtt = np.bincount(src, weights=rtt_log, minlength=n) / np.maximum(out_deg, 1)
+    in_rtt = np.bincount(dst, weights=rtt_log, minlength=n) / np.maximum(in_deg, 1)
+    node_feats = np.stack(
+        [
+            is_seed.astype(np.float64),
+            np.log1p(tcp.astype(np.float64)) / 10.0,
+            np.log1p(utcp.astype(np.float64)) / 10.0,
+            np.log1p(out_deg),
+            np.log1p(in_deg),
+            out_rtt,
+            in_rtt,
+        ],
+        axis=-1,
+    ).astype(np.float32)
+    assert node_feats.shape[1] == GNN_NODE_FEATURE_DIM
+    neighbors, mask = sample_neighbors(src, dst, n, max_degree, seed)
+    return ProbeGraph(
+        node_ids=node_ids,
+        node_features=node_feats,
+        edge_src=src,
+        edge_dst=dst,
+        edge_rtt_log_ms=rtt_log,
+        neighbors=neighbors,
+        neighbor_mask=mask,
+        num_records=num_records,
+    )

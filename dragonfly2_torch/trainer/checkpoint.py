@@ -62,6 +62,10 @@ class FitCheckpointer:
         self._dir.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max(1, max_to_keep)
 
+    @property
+    def directory(self) -> Path:
+        return self._dir
+
     def _epochs(self) -> list[int]:
         return sorted(
             int(m.group(1)) for m in map(_SNAPSHOT.match, os.listdir(self._dir)) if m
@@ -91,6 +95,10 @@ class FitCheckpointer:
         epoch = self.latest_epoch()
         if epoch is None:
             return None
+        return self.restore(epoch, device)
+
+    def restore(self, epoch: int, device="cpu") -> tuple[int, Any]:
+        """→ (epoch, state) of the snapshot taken after ``epoch``."""
         snap = torch.load(self._path(epoch), map_location=device, weights_only=True)
         return int(snap["epoch"]), snap["state"]
 

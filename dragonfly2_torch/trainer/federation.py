@@ -8,9 +8,8 @@ cluster's view of the swarm. A merged model generalizes across clusters
 without ever pooling their raw records — the cross-datacenter shape,
 where clusters are separate jobs and only parameters cross between them
 (``parallel.fedavg.fedavg_trees``). The fits and the merge run on the
-round's device. CSV shards decode by the reference's numpy route (its
-native decoder is not ported: ROADMAP queue A item 5d), which the
-reference itself takes whenever its decoder is unavailable.
+round's device. CSV shards decode through the native decoder
+(``schema/native.py``), with the numpy route when it is unavailable.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import numpy as np
 from dragonfly2_torch.device import resolve_device
 from dragonfly2_torch.models.mlp import MLP
 from dragonfly2_torch.parallel.fedavg import fedavg_trees
-from dragonfly2_torch.schema import wire
+from dragonfly2_torch.schema import native, wire
 from dragonfly2_torch.schema.columnar import records_to_columns
 from dragonfly2_torch.schema.features import PairExamples, extract_pair_features
 from dragonfly2_torch.trainer.train import FitConfig, evaluate_mlp, train_mlp
@@ -41,8 +40,9 @@ class FederatedResult:
 
 def _host_pairs(storage, host_id: str) -> PairExamples:
     # a host that uploaded the binary columnar stream carries its pairs
-    # pre-extracted (schema/wire.py); CSV shards decode by the numpy
-    # route. A host holding BOTH forms (scheduler switched payload formats
+    # pre-extracted (schema/wire.py); CSV shards decode via the native
+    # parser with the numpy path as fallback — identical tensors either
+    # way. A host holding BOTH forms (scheduler switched payload formats
     # mid-history) contributes the union, not just the newer era.
     cpath = storage.download_path(host_id)
     pairs = None
@@ -51,12 +51,14 @@ def _host_pairs(storage, host_id: str) -> PairExamples:
         # below: an in-flight upload's tail may be truncated by a failed
         # stream mid-read
         csv_boundary = storage.download_round_boundary(host_id)
-        recs = [
-            r
-            for chunk in storage.iter_download_chunks(host_id, max_bytes=csv_boundary)
-            for r in chunk
-        ]
-        pairs = extract_pair_features(records_to_columns(recs))
+        pairs = native.decode_pairs_file(cpath, end=csv_boundary)
+        if pairs is None:
+            recs = [
+                r
+                for chunk in storage.iter_download_chunks(host_id, max_bytes=csv_boundary)
+                for r in chunk
+            ]
+            pairs = extract_pair_features(records_to_columns(recs))
     bpath = storage.download_blocks_path(host_id)
     if bpath.exists() and bpath.stat().st_size:
         # bytes past the round boundary belong to an in-flight upload
@@ -92,13 +94,8 @@ def federated_fit_mlp(
     one round from a common init). Merge: example-weighted parameter
     average. Evaluation: the merged model scored on a held-out slice
     drawn from EVERY shard, so the metric reflects cross-cluster
-    generalization, not any single cluster's distribution. A ``mesh`` is
-    not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel fit mesh is not ported yet (ROADMAP queue A item 11):"
-            " pass mesh=None"
-        )
+    generalization, not any single cluster's distribution. With ``mesh``
+    each shard's fit is data parallel over its ``dp`` axis."""
     cfg = config or FitConfig()
     dev = resolve_device(device)
     models, weights = [], []
@@ -117,7 +114,7 @@ def federated_fit_mlp(
         if len(tr) == 0:
             per_host[host_id] = {"examples": n, "skipped": True}
             continue
-        result = train_mlp(pairs.features[tr], pairs.labels[tr], config=cfg, device=dev)
+        result = train_mlp(pairs.features[tr], pairs.labels[tr], config=cfg, device=dev, mesh=mesh)
         models.append(result.params.state_dict())
         weights.append(float(len(tr)))
         if n_eval:

@@ -1,11 +1,17 @@
 """Streaming ingestion: bytes on disk → decode → device feed → trained
 params, in bounded host memory with decode, transfer and compute
-overlapped (counterpart of the reference's ``trainer/ingest.py``, binary
-payload only).
+overlapped (counterpart of the reference's ``trainer/ingest.py``).
 
-The Train stream lands binary columnar blocks (``schema/wire.py``) on the
-trainer's disk; producer threads mmap block-aligned spans, verify
-checksums and cast the precomputed pair tensors to the staging dtype.
+The Train stream lands dataset files on the trainer's disk in one of two
+payload formats, sniffed from the file's magic bytes:
+
+- binary columnar blocks (``schema/wire.py``): producer threads mmap
+  block-aligned spans, verify checksums and cast the precomputed pair
+  tensors to the staging dtype;
+- CSV (the old-peer fallback): producer threads drive the fused C++
+  CSV→tensor decoder (``schema/native.py``) over newline-aligned spans
+  (ctypes releases the GIL while it parses).
+
 The packing thread (the caller) fills fixed-size superbatches in pinned
 host buffers and hands them to a two-stage device leg: a TRANSFER thread
 that copies each buffer to the card on a side CUDA stream and waits for
@@ -15,8 +21,16 @@ N+1's copy overlaps step N (``StreamStats.h2d_overlap_s``).
 A host buffer is reused only after the step that read it has finished
 on the device (the reference's rule: on the CPU the "copy" is the buffer
 itself), and the packing thread refuses a buffer whose copy has not
-completed. CSV payloads take ``Training``'s numpy path instead: the
-reference streams them through its native C++ decoder, not ported.
+completed.
+
+With a ``mesh`` the fit is data parallel over its ``dp`` axis, one
+process a rank: every rank runs the same producers over the same spans
+and consumes their shards in one fixed order (the stream is
+deterministic, so every rank packs the same superbatches), copies only
+its row shard of each to its device (``parallel.sharding.
+shard_superbatch``: one put per superbatch per rank) and averages the
+gradients over the axis before each update. The decode is duplicated on
+every rank; only the upload and the step are split.
 
 Memory bound: the shard queue holds ≤ ``queue_depth`` decoded blocks plus
 a six-buffer packing pool (one packing, up to three queued or in
@@ -39,10 +53,11 @@ import torch
 
 from dragonfly2_torch.device import resolve_device
 from dragonfly2_torch.models import mlp as mlp_mod
-from dragonfly2_torch.schema import wire
+from dragonfly2_torch.parallel.sharding import axis_group, mean_grads, replicate, shard_superbatch
+from dragonfly2_torch.schema import native, wire
 from dragonfly2_torch.schema.features import MLP_FEATURE_DIM
 from dragonfly2_torch.trainer import metrics as M
-from dragonfly2_torch.trainer.train import AdamW, linear_schedule
+from dragonfly2_torch.trainer.train import AdamW, _mesh_min, linear_schedule
 from dragonfly2_torch.utils import dflog, flight, profiling
 from dragonfly2_torch.weights import mlp_from_numpy
 
@@ -99,6 +114,11 @@ class StreamStats:
     def records_per_s(self) -> float:
         return self.download_records / self.wall_s if self.wall_s else 0.0
 
+    @property
+    def h2d_overlap_pct(self) -> float:
+        """Percentage of the H2D wall hidden behind device steps."""
+        return round(100.0 * self.h2d_overlap_s / self.h2d_s, 1) if self.h2d_s else 0.0
+
 
 _LOSS_KEEP = 1024
 # superbatch buffers in the pool, and the depths of the filled (packed,
@@ -121,45 +141,62 @@ def stream_shards(
     passes: int = 1,
     max_records: int | None = None,
     queue_depth: int = 8,
+    chunk_bytes: int = 8 * 1024 * 1024,
     offset: int = 0,
     end: int | None = None,
     workers: int = 1,
     half: bool = False,
     stats: "StreamStats | None" = None,
+    ordered: bool = False,
 ):
-    """Generator of ``(feats, labels, total_rows)`` shards from binary
-    columnar block files, decoded by background producer thread(s)
-    through a bounded queue. ``total_rows`` is the cumulative
-    download-record count across everything yielded so far.
+    """Generator of ``(feats, labels, total_rows)`` shards, decoded by
+    background producer thread(s) through a bounded queue. ``total_rows``
+    is the cumulative download-record count across everything yielded so
+    far.
 
-    With ``workers > 1`` the dataset splits into block-aligned spans
-    across that many producers (``workers=0`` → ``default_workers``);
-    shard order is then interleaved. ``offset`` (a committed round
-    boundary in the first file) is excluded on every pass, and ``end``
-    bounds the first file's read at the current round boundary.
-    ``stats``, when given, accumulates the producer-side read/cast/
-    enqueue split. Abandoning the generator releases the producers."""
+    The payload format is sniffed from the first file's magic bytes:
+    binary columnar blocks are cast from their precomputed pair tensors;
+    CSV goes through the fused native parser (``schema/native.py``) in
+    ``chunk_bytes`` feeds over newline-aligned spans.
+
+    With ``workers > 1`` the dataset splits into aligned spans across that
+    many producers (``workers=0`` → ``default_workers``); shard order is
+    then interleaved as the producers finish, or, with ``ordered``, taken
+    from the producers in turn — one fixed order, the same on every run.
+    ``offset`` (a committed round boundary in the first file) is excluded
+    on every pass, and ``end`` bounds the first file's read at the
+    current round boundary. ``stats``, when given, accumulates the
+    producer-side read/cast/enqueue split (the native parser fuses read,
+    parse and cast, so a CSV's whole cost lands in read). Abandoning the
+    generator releases the producers."""
     if isinstance(paths, (str, Path)):
         paths = [paths]
     paths = list(paths)
     if not paths:
         raise ValueError("stream_shards: no input files")
-    if not wire.is_block_file(paths[0]):
-        raise ValueError(
-            f"{paths[0]} is not a binary block file: CSV streams through the"
-            " reference's native decoder, which is not ported"
-        )
     if workers <= 0:
         workers = default_workers()
-    bounded = [
-        (str(p), offset if j == 0 else 0, end if j == 0 else None)
-        for j, p in enumerate(paths)
-    ]
-    spans = wire.split_block_spans(bounded)
+    binary = wire.is_block_file(paths[0])
+    if binary:
+        bounded = [
+            (str(p), offset if j == 0 else 0, end if j == 0 else None)
+            for j, p in enumerate(paths)
+        ]
+        spans = wire.split_block_spans(bounded)
+    else:
+        spans = []
+        per_file = max(1, -(-workers // len(paths)))  # ceil
+        for j, p in enumerate(paths):
+            spans.extend(
+                native.split_file_spans(
+                    p, per_file, offset=offset if j == 0 else 0, end=end if j == 0 else None
+                )
+            )
     if not spans:
-        return  # no complete blocks past the offset
+        return  # binary file with no complete blocks past the offset
     workers = max(1, min(workers, len(spans)))
-    q: "queue.Queue" = queue.Queue(maxsize=queue_depth)
+    # one queue for all producers, or one each when the order is fixed
+    queues = [queue.Queue(maxsize=queue_depth) for _ in range(workers if ordered else 1)]
     stop = threading.Event()
     errors: list[BaseException] = []
     stats_lock = threading.Lock()
@@ -175,16 +212,34 @@ def stream_shards(
             else:
                 stats.enqueue_s += dt
 
-    def produce(worker_spans):
+    def csv_iter(worker_spans):
+        it = native.stream_pairs_file(
+            worker_spans, passes=passes, chunk_bytes=chunk_bytes, max_records=max_records,
+            half=half,
+        )
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            add_stage("read", time.perf_counter() - t0)
+            yield item
+
+    def produce(worker_spans, q):
         try:
             prev_rows = 0
-            for feats, labels, rows in wire.stream_train_pairs(
-                worker_spans,
-                passes=passes,
-                max_records=max_records,
-                half=half,
-                stage_timer=add_stage,
-            ):
+            if binary:
+                shard_iter = wire.stream_train_pairs(
+                    worker_spans,
+                    passes=passes,
+                    max_records=max_records,
+                    half=half,
+                    stage_timer=add_stage,
+                )
+            else:
+                shard_iter = csv_iter(worker_spans)
+            for feats, labels, rows in shard_iter:
                 item = (feats, labels, rows - prev_rows)
                 prev_rows = rows
                 t0 = time.perf_counter()
@@ -211,23 +266,34 @@ def stream_shards(
     for w in range(workers):
         t = threading.Thread(
             target=produce,
-            args=(spans[w::workers],),
+            args=(spans[w::workers], queues[w % len(queues)]),
             name=f"trainer.ingest-decode-{w}",
             daemon=True,
         )
         t.start()
         threads.append(t)
 
-    done = 0
+    # producers still running behind each queue, and the queues still live
+    running = [0] * len(queues)
+    for w in range(len(threads)):
+        running[w % len(queues)] += 1
+    live = list(range(len(queues)))
+    turn = 0
     total_rows = 0
     try:
-        while done < len(threads):
-            item = q.get()
+        while live:
+            turn %= len(live)
+            qi = live[turn]
+            item = queues[qi].get()
             if errors:
                 break  # one broken producer aborts the whole stream now
             if item is None:
-                done += 1
+                running[qi] -= 1
+                if not running[qi]:
+                    live.pop(turn)
                 continue
+            if ordered:
+                turn += 1
             feats, labels, delta_rows = item
             if delta_rows:
                 M.INGEST_RECORDS_TOTAL.inc(delta_rows)
@@ -238,11 +304,12 @@ def stream_shards(
     finally:
         stop.set()
         # drain so producers blocked on put() can see the event and exit
-        while True:
-            try:
-                q.get_nowait()
-            except queue.Empty:
-                break
+        for q in queues:
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
         for t in threads:
             t.join(timeout=5.0)
     if errors:
@@ -277,12 +344,13 @@ def _optimizer_and_loss(learning_rate: float, weight_decay: float, warmup_steps:
     return make_optimizer, loss_fn
 
 
-def _get_step(learning_rate: float, weight_decay: float, warmup_steps: int = 64):
+def _get_step(learning_rate: float, weight_decay: float, warmup_steps: int = 64, sync=None):
     """→ (optimizer factory, step). ``step(mlp, opt, xy)`` runs one
     optimizer step on a fused [B, F+1] (features ‖ label) superbatch in
     the staging dtype, upcast to float32 on the device, and returns the
     loss as a device scalar; parameters and optimizer state update in
-    place."""
+    place. ``sync(params, loss)``, when given, reduces the gradients
+    across ranks before the update and returns the global loss."""
     make_optimizer, loss_fn = _optimizer_and_loss(learning_rate, weight_decay, warmup_steps)
 
     def step(mlp, opt, xy):
@@ -290,6 +358,8 @@ def _get_step(learning_rate: float, weight_decay: float, warmup_steps: int = 64)
         loss = loss_fn(mlp, xy[:, :MLP_FEATURE_DIM], xy[:, MLP_FEATURE_DIM])
         opt.zero_grad()
         loss.backward()
+        if sync is not None:
+            loss = sync(opt.params, loss)
         opt.step()
         return loss.detach()
 
@@ -297,13 +367,13 @@ def _get_step(learning_rate: float, weight_decay: float, warmup_steps: int = 64)
 
 
 def _get_scan_step(
-    learning_rate: float, weight_decay: float, k: int, warmup_steps: int = 64
+    learning_rate: float, weight_decay: float, k: int, warmup_steps: int = 64, sync=None
 ):
     """→ (optimizer factory, k-step call): ``scan_step(mlp, opt, xy)``
     runs ``k`` sequential optimizer steps over a [k, B, F+1] superbatch
     — the math of k calls of the single step — and returns the LAST
     loss, as the reference's ``lax.scan`` step does."""
-    make_optimizer, step = _get_step(learning_rate, weight_decay, warmup_steps)
+    make_optimizer, step = _get_step(learning_rate, weight_decay, warmup_steps, sync)
 
     def scan_step(mlp, opt, xy):
         loss = None
@@ -357,6 +427,7 @@ def stream_train_mlp(
     eval_every: int = 10,
     eval_max_batches: int = 16,
     params=None,
+    mesh=None,
     transfer_dtype=np.float16,
     time_budget_s: float | None = None,
     steps_per_call: int = 1,
@@ -391,14 +462,61 @@ def stream_train_mlp(
     ``steps_per_call`` > 1 packs k minibatches into one [k, B, F+1]
     superbatch and runs k optimizer steps per dispatch.
 
+    With ``mesh`` (every rank calls this with the same arguments; of their
+    ``workers`` the ranks take the least) the rows of each minibatch shard
+    over its ``dp`` axis: each rank copies only its row shard
+    (``shard_superbatch``) and the gradients are averaged over the axis
+    every step. A ``batch_size`` the axis does not divide feeds every rank
+    the whole superbatch (no collective), as the reference does. Over several ranks a time budget stops all of them after the
+    same step: the flag rides each step's all-reduce.
+
     Stall watchdogs (``utils.flight.StallWatchdog``) ride the pipeline
     and dump the flight rings while a stall is live (a device trace is
     ``Training``'s ``profile_dir``, which covers the whole round).
     """
     dev = resolve_device(device)
-    make_optimizer, step = _get_step(learning_rate, weight_decay)
     k = max(1, int(steps_per_call))
-    fn = step if k == 1 else _get_scan_step(learning_rate, weight_decay, k)[1]
+    # the mesh feed: the dp group, whether the rows shard over it, and
+    # whether the ranks must agree on stopping early
+    group, dp, sharded, agree = None, 1, False, False
+    if mesh is not None:
+        group, dp, _ = axis_group(mesh, "dp")
+        sharded = batch_size % dp == 0
+        if not sharded:
+            # a batch that does not divide the dp axis cannot shard evenly;
+            # feed replicated rather than fail the fit
+            logger.warning("batch_size %d not divisible by dp=%d; feeding unsharded", batch_size, dp)
+        agree = time_budget_s is not None and dp > 1
+    control = {"want_stop": 0.0, "stop": False}
+
+    def sync(params, loss):
+        extra = [loss.detach().float().reshape(1)] if sharded else []
+        if agree:
+            extra.append(torch.full((1,), control["want_stop"], device=loss.device))
+        extra = torch.cat(extra)
+        if sharded:
+            got = mean_grads(params, group, dp, extra=extra)
+        else:
+            got = extra
+            torch.distributed.all_reduce(got, group=group)
+        if agree and float(got[-1]) > 0:
+            control["stop"] = True  # every rank reads the same sum
+        return got[0] / dp if sharded else loss
+
+    step_sync = sync if sharded or agree else None
+    make_optimizer, step = _get_step(learning_rate, weight_decay)
+    fn = (
+        _get_step(learning_rate, weight_decay, sync=step_sync)[1]
+        if k == 1
+        else _get_scan_step(learning_rate, weight_decay, k, sync=step_sync)[1]
+    )
+    batch_dim = 0 if k == 1 else 1
+
+    def put(arg):
+        if sharded:
+            return shard_superbatch(mesh, arg, batch_dim=batch_dim, device=dev)
+        return arg.to(dev, non_blocking=True)
+
     warm_bias = params is None
     if isinstance(params, torch.nn.Module):
         mlp = params.to(dev)
@@ -409,6 +527,12 @@ def stream_train_mlp(
     else:
         gen = torch.Generator().manual_seed(0)
         mlp = mlp_mod.init_mlp(gen, [MLP_FEATURE_DIM, *hidden_dims, 1]).to(dev)
+    if mesh is not None:
+        replicate(mesh, mlp)
+        # every rank must pack the same superbatches, and the spans and the
+        # producers' turns follow the producer count, which defaults off
+        # each host's cores: the ranks take the least of theirs
+        workers = _mesh_min(mesh, workers if workers > 0 else default_workers())
     opt = None  # made at the first shard (after the bias warm start)
 
     stats = StreamStats()
@@ -478,13 +602,13 @@ def stream_train_mlp(
                 ev = None
                 if on_card:
                     with torch.cuda.stream(copy_stream):
-                        d = arg.to(dev, non_blocking=True)
+                        d = put(arg)
                         ev = torch.cuda.Event()
                         ev.record(copy_stream)
                     pool.copies[id(b)] = ev
                     ev.synchronize()
                 else:
-                    d = arg  # the CPU step reads the host buffer itself
+                    d = put(arg)  # the CPU step reads the host buffer itself
                 dt_h = time.perf_counter() - t_h
                 stats.h2d_s += dt_h
                 stats.h2d_overlap_s += min(max(_step_busy_clock() - busy0, 0.0), dt_h)
@@ -511,6 +635,9 @@ def stream_train_mlp(
                     saw_sentinel = True
                     break
                 d, b, ev, dt_h = item
+                if control["stop"]:
+                    pool.give(b)  # the ranks agreed to stop: drain
+                    continue
                 t_s = time.perf_counter()
                 step_busy["since"] = t_s
                 try:
@@ -569,6 +696,7 @@ def stream_train_mlp(
                 workers=workers,
                 half=half,
                 stats=stats,
+                ordered=mesh is not None,
             )
         )
         while True:
@@ -583,8 +711,13 @@ def stream_train_mlp(
             PH_DECODE_WAIT.observe(dt_w)
             decode_watch.observe(dt_w)
             if budget_end is not None and time.perf_counter() > budget_end:
+                if not agree:
+                    stats.truncated = True
+                    break  # generator abandonment releases the producers
+                control["want_stop"] = 1.0  # stop with the other ranks
+            if control["stop"]:
                 stats.truncated = True
-                break  # generator abandonment releases the producers
+                break
             if disp_errors:
                 break
             stats.download_records = rows

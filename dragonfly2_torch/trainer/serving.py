@@ -22,6 +22,7 @@ from dragonfly2_torch.device import resolve_device
 from dragonfly2_torch.models.gnn import GraphSAGE, apply_graphsage, predict_edge
 from dragonfly2_torch.models.gru import GRU, predict_next_cost
 from dragonfly2_torch.models.mlp import MLP, score_parents
+from dragonfly2_torch.parallel.mesh import mesh_shape
 from dragonfly2_torch.schema.features import GRU_FEATURE_DIM, GRU_MAX_SEQ
 from dragonfly2_torch.schema.records import MAX_PIECES_PER_PARENT
 from dragonfly2_torch.weights import (  # noqa: F401  (the reference's serving API)
@@ -164,27 +165,51 @@ class GNNScorer:
     the model refresher's lifecycle — with ``apply_graphsage`` (bfloat16
     SAGE inputs on every device, as the reference) and stay on the device
     next to the parameters; a predict moves only the (src, dst) index
-    vectors. The reference's graph-parallel embed over a multi-device
-    ``mesh`` is not ported yet and raises."""
+    vectors. With a ``mesh`` whose ``axis`` spans more than one rank the
+    embed runs graph parallel (``models.gnn_sharded``): node tables
+    row-sharded over the axis, so the graph never materializes on one
+    device; the [N, H] embedding rows are then gathered to every rank of
+    the axis (each rank serves predicts on its own)."""
 
     def __init__(self, params: Any, graph, mesh=None, axis: str = "gp", device="cuda"):
-        if mesh is not None and dict(getattr(mesh, "shape", {})).get(axis, 1) > 1:
-            raise NotImplementedError(
-                "the graph-parallel GNN embed over a device mesh is not ported yet"
-                " (ROADMAP queue A item 11): pass mesh=None"
-            )
         self.device = resolve_device(device)
         if not isinstance(params, GraphSAGE):
             params = graphsage_from_numpy(params, device=self.device)
         self._model = params.to(self.device).requires_grad_(False)
         self._node_index = {hid: i for i, hid in enumerate(graph.node_ids)}
         with torch.no_grad():
-            self._emb = apply_graphsage(
-                self._model,
-                torch.from_numpy(np.asarray(graph.node_features, np.float32)).to(self.device),
-                torch.from_numpy(np.asarray(graph.neighbors)).to(self.device),
-                torch.from_numpy(np.asarray(graph.neighbor_mask)).to(self.device),
-            )
+            if mesh is not None and mesh_shape(mesh).get(axis, 1) > 1:
+                self._emb = self._sharded_embed(graph, mesh, axis)
+            else:
+                self._emb = apply_graphsage(
+                    self._model,
+                    torch.from_numpy(np.asarray(graph.node_features, np.float32)).to(self.device),
+                    torch.from_numpy(np.asarray(graph.neighbors)).to(self.device),
+                    torch.from_numpy(np.asarray(graph.neighbor_mask)).to(self.device),
+                )
+
+    def _sharded_embed(self, graph, mesh, axis: str) -> torch.Tensor:
+        """Graph-parallel embed at swap time: node tables padded to the
+        shard multiple, the ring-gather SAGE forward over this rank's rows,
+        then every rank's rows gathered and the padding cut (padded nodes
+        self-neighbor with zero mask — inert)."""
+        from dragonfly2_torch.models.gnn_sharded import (
+            make_sharded_embed,
+            pad_node_arrays,
+            shard_graph_arrays,
+        )
+        from dragonfly2_torch.ops.ring import ring_all_gather
+
+        shards = mesh_shape(mesh)[axis]
+        feats, nbrs, mask = pad_node_arrays(graph, shards)
+        tables = [feats, nbrs, mask]
+        embed = self._model.node_embed
+        if embed is not None:
+            tables.append(pad_batch(embed.cpu().numpy(), feats.shape[0]))
+        local = shard_graph_arrays(mesh, axis, *tables, device=self.device)
+        embed_local = local[3] if embed is not None else None
+        emb = make_sharded_embed(mesh, axis)(self._model, embed_local, *local[:3])
+        return ring_all_gather(emb, mesh.get_group(axis))[: graph.num_nodes]
 
     def has_host(self, host_id: str) -> bool:
         return host_id in self._node_index

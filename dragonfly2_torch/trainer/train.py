@@ -14,6 +14,17 @@ JAX's random init cannot be reproduced here, so ``FitConfig.init``
 takes an initial parameter tree in the reference's layout (numpy); the
 output-bias warm start is applied on top of it, as on a fresh init.
 
+With a ``mesh`` (``parallel.mesh``; one process a rank) the fits are data
+parallel over its ``dp`` axis, as the reference's: parameters replicated
+(broadcast from rank 0), each rank's minibatch the rank's rows of the
+global one, and the gradients of the rank means averaged over the axis in
+one all-reduce per step — the gradient of the global mean loss, so a dp
+step is the single-device step on the whole batch up to the order of the
+sums. A batch that does not divide the axis fits replicated, and so does
+``train_gnn``, as in the reference. ``train_gnn_sharded`` is graph
+parallel instead: node tables and edge blocks row-sharded over a ``gp``
+axis (``models.gnn_sharded``).
+
 With ``checkpoint_dir`` set, the MLP and GNN fits snapshot (module state,
 ``AdamW`` state, epoch) after every epoch through
 ``trainer.checkpoint.FitCheckpointer`` and resume from the newest
@@ -30,13 +41,17 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dragonfly2_torch.device import resolve_device
 from dragonfly2_torch.models import gnn as gnn_mod
 from dragonfly2_torch.models import gru as gru_mod
 from dragonfly2_torch.models import mlp as mlp_mod
-from dragonfly2_torch.utils import faults
+from dragonfly2_torch.parallel.sharding import axis_group, mean_grads, replicate
+from dragonfly2_torch.utils import dflog, faults
 from dragonfly2_torch.weights import graphsage_from_numpy, gru_from_numpy, mlp_from_numpy
+
+logger = dflog.get("trainer.train")
 
 # fault point: fires once per MLP and GNN fit epoch — a ``delay`` rule
 # models a stalling device link, an ``abort`` rule a crash mid-fit
@@ -202,10 +217,16 @@ def _batch_steps(n: int, batch: int) -> tuple[int, int, int]:
     return steps, steps * batch, batch
 
 
-def make_epoch_fn(loss_fn: Callable[[Any, tuple], torch.Tensor], optimizer: AdamW):
+def make_epoch_fn(
+    loss_fn: Callable[[Any, tuple], torch.Tensor],
+    optimizer: AdamW,
+    sync: "Callable[[list, torch.Tensor], torch.Tensor] | None" = None,
+):
     """Whole-epoch function over [steps, batch, ...] stacked minibatches:
     one optimizer step per minibatch, parameters and state updated in
-    place → the epoch's mean loss (a device scalar)."""
+    place → the epoch's mean loss (a device scalar). ``sync(params,
+    loss)``, when given, reduces the gradients across ranks before the
+    update and returns the global loss (``_dp_feed``)."""
 
     def epoch(params, batches: tuple) -> torch.Tensor:
         losses = []
@@ -213,6 +234,8 @@ def make_epoch_fn(loss_fn: Callable[[Any, tuple], torch.Tensor], optimizer: Adam
             loss = loss_fn(params, tuple(b[i] for b in batches))
             optimizer.zero_grad()
             loss.backward()
+            if sync is not None:
+                loss = sync(optimizer.params, loss)
             optimizer.step()
             losses.append(loss.detach())
         return torch.stack(losses).mean()
@@ -220,28 +243,73 @@ def make_epoch_fn(loss_fn: Callable[[Any, tuple], torch.Tensor], optimizer: Adam
     return epoch
 
 
-def _open_checkpoint(cfg: FitConfig):
+def _dp_feed(mesh, batch: int, axis: str = "dp"):
+    """→ (shard, sync) for a fit's [steps, batch, ...] minibatches over
+    ``mesh[axis]``: ``shard`` keeps this rank's rows of the batch dim,
+    ``sync`` averages the gradients over the axis (``mean_grads``) and
+    returns the global mean loss. Without a mesh, or with a batch the axis
+    does not divide (``_batch_steps`` clamps small datasets' batches), the
+    fit runs replicated: every rank the whole batch, no collective."""
+    if mesh is None:
+        return (lambda a: a), None
+    group, n, rank = axis_group(mesh, axis)
+    if batch % n:
+        logger.info("batch %d not divisible by %s=%d; fitting replicated", batch, axis, n)
+        return (lambda a: a), None
+    per = batch // n
+
+    def shard(a):
+        return a[:, rank * per : (rank + 1) * per]
+
+    def sync(params, loss):
+        return mean_grads(params, group, n, extra=loss.detach())[0] / n
+
+    return shard, sync
+
+
+def _mesh_ranks(mesh) -> int:
+    return 1 if mesh is None else int(np.prod(mesh.mesh.shape))
+
+
+def _mesh_min(mesh, value: int) -> int:
+    """The least of every mesh rank's ``value``."""
+    t = torch.tensor([value], dtype=torch.int64,
+                     device="cuda" if dist.get_backend() == "nccl" else "cpu")
+    for name in mesh.mesh_dim_names:
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.get_group(name))
+    return int(t.item())
+
+
+def _open_checkpoint(cfg: FitConfig, mesh=None):
     """→ (FitCheckpointer | None, start_epoch). Epoch ``k`` snapshots are
-    taken *after* epoch k runs, so resume starts at latest+1."""
+    taken *after* epoch k runs, so resume starts at latest+1. Over a mesh
+    of several ranks each rank keeps its own snapshots
+    (``<checkpoint_dir>/rank-<r>``) and every rank resumes after the
+    newest epoch all of them saved."""
     if not cfg.checkpoint_dir:
         return None, 0
     from dragonfly2_torch.trainer.checkpoint import FitCheckpointer
 
-    ckpt = FitCheckpointer(cfg.checkpoint_dir)
+    directory = cfg.checkpoint_dir
+    if _mesh_ranks(mesh) > 1:
+        directory = f"{directory}/rank-{dist.get_rank()}"
+    ckpt = FitCheckpointer(directory)
     latest = ckpt.latest_epoch()
-    return ckpt, (latest + 1 if latest is not None else 0)
+    start = latest + 1 if latest is not None else 0
+    if _mesh_ranks(mesh) > 1:
+        start = _mesh_min(mesh, start)
+    return ckpt, start
 
 
 def _resume(ckpt, start_epoch: int, model: torch.nn.Module, optimizer: AdamW) -> None:
-    """Load the newest snapshot, on the fit's device, into ``model`` and
-    ``optimizer`` in place (the optimizer keeps its parameter list)."""
+    """Load the snapshot of epoch ``start_epoch - 1``, on the fit's device,
+    into ``model`` and ``optimizer`` in place (the optimizer keeps its
+    parameter list)."""
     if ckpt is None or start_epoch == 0:
         return
-    restored = ckpt.restore_latest(_device_of(model))
-    if restored is not None:
-        _, state = restored
-        model.load_state_dict(state["params"])
-        optimizer.load_state_dict(state["opt_state"])
+    _, state = ckpt.restore(start_epoch - 1, _device_of(model))
+    model.load_state_dict(state["params"])
+    optimizer.load_state_dict(state["opt_state"])
 
 
 def _fit_state(model: torch.nn.Module, optimizer: AdamW) -> dict:
@@ -255,9 +323,15 @@ def _maybe_save_tree(ckpt, cfg: FitConfig, epoch: int, state) -> None:
 
 def _finish_checkpoint(ckpt) -> None:
     """Successful completion: drop the run's snapshots (the next round
-    must train fresh, not resume into zero epochs)."""
+    must train fresh, not resume into zero epochs); a rank's directory
+    leaves the run's with it once the last rank's is gone."""
     if ckpt is not None:
         ckpt.clear()
+        if ckpt.directory.name.startswith("rank-"):
+            try:
+                ckpt.directory.parent.rmdir()
+            except OSError:
+                pass  # another rank's snapshots are still there
 
 
 def _device_of(module: torch.nn.Module) -> torch.device:
@@ -274,10 +348,12 @@ def train_mlp(
     labels: np.ndarray,
     config: FitConfig | None = None,
     device="cuda",
+    mesh=None,
 ) -> FitResult:
     """Fit the pair scorer: features [N, F] → label log piece cost [N].
     Evaluation metrics are MSE/MAE on the held-out split, what the
-    manager stores with an MLP upload."""
+    manager stores with an MLP upload. With ``mesh``, data parallel over
+    its ``dp`` axis (every rank calls it with the same arguments)."""
     cfg = config or FitConfig()
     dev = resolve_device(device)
     n, f = features.shape
@@ -293,6 +369,8 @@ def train_mlp(
     # starts unbiased instead of spending its first epochs drifting there
     with torch.no_grad():
         mlp.layers[-1].b.fill_(float(labels.mean()))
+    if mesh is not None:
+        replicate(mesh, mlp)
 
     optimizer = _optimizer(cfg, steps * cfg.epochs, mlp.parameters())
 
@@ -301,8 +379,9 @@ def train_mlp(
         pred = mlp_mod.score_parents(p, x)
         return torch.mean((pred - y) ** 2)
 
-    epoch_fn = make_epoch_fn(loss_fn, optimizer)
-    ckpt, start_epoch = _open_checkpoint(cfg)
+    shard, sync = _dp_feed(mesh, batch)
+    epoch_fn = make_epoch_fn(loss_fn, optimizer, sync)
+    ckpt, start_epoch = _open_checkpoint(cfg, mesh)
     _resume(ckpt, start_epoch, mlp, optimizer)
     history: list[float] = []
     for epoch in range(start_epoch, cfg.epochs):
@@ -310,8 +389,8 @@ def train_mlp(
         # per-epoch rng: a resumed run replays the exact shuffle schedule
         rng = np.random.default_rng(cfg.seed + 1 + epoch)
         order = train_idx[rng.permutation(len(train_idx))][:used]
-        xb = torch.from_numpy(features[order].reshape(steps, batch, f)).to(dev)
-        yb = torch.from_numpy(labels[order].reshape(steps, batch)).to(dev)
+        xb = torch.from_numpy(shard(features[order].reshape(steps, batch, f))).to(dev)
+        yb = torch.from_numpy(shard(labels[order].reshape(steps, batch))).to(dev)
         history.append(float(epoch_fn(mlp, (xb, yb))))
         _maybe_save_tree(ckpt, cfg, epoch, _fit_state(mlp, optimizer))
 
@@ -366,9 +445,11 @@ def _graph_tensors(graph, device) -> tuple:
     )
 
 
-def train_gnn(graph, config: GNNFitConfig | None = None, device="cuda") -> FitResult:
+def train_gnn(graph, config: GNNFitConfig | None = None, device="cuda", mesh=None) -> FitResult:
     """Fit GraphSAGE on a ``schema.features.ProbeGraph``: predict per-edge
-    log-RTT from host embeddings.
+    log-RTT from host embeddings. With ``mesh`` the parameters start
+    replicated and every rank runs the whole fit, as the reference's
+    (which feeds its edge batches unsharded).
 
     Evaluation reports MSE/MAE plus precision/recall/f1 on the derived
     binary task "edge is faster than the median RTT" — the tuple the
@@ -378,6 +459,8 @@ def train_gnn(graph, config: GNNFitConfig | None = None, device="cuda") -> FitRe
     e = len(graph.edge_src)
     train_idx, eval_idx = _split_eval(e, cfg.eval_fraction, cfg.seed)
     model = _init_gnn(graph, cfg, dev)
+    if mesh is not None:
+        replicate(mesh, model)
     node_features, neighbors, neighbor_mask = _graph_tensors(graph, dev)
 
     steps, used, batch = _batch_steps(len(train_idx), cfg.batch_size)
@@ -388,8 +471,10 @@ def train_gnn(graph, config: GNNFitConfig | None = None, device="cuda") -> FitRe
         pred = gnn_mod.forward_edge_rtt(p, node_features, neighbors, neighbor_mask, src, dst)
         return torch.mean((pred - y) ** 2)
 
+    # the reference puts the edge batches unsharded: every rank runs the
+    # whole fit (train_gnn_sharded is the graph's parallel path)
     epoch_fn = make_epoch_fn(loss_fn, optimizer)
-    ckpt, start_epoch = _open_checkpoint(cfg)
+    ckpt, start_epoch = _open_checkpoint(cfg, mesh)
     _resume(ckpt, start_epoch, model, optimizer)
     history: list[float] = []
     for epoch in range(start_epoch, cfg.epochs):
@@ -409,6 +494,101 @@ def train_gnn(graph, config: GNNFitConfig | None = None, device="cuda") -> FitRe
         metrics = evaluate_gnn(model, graph, eval_idx)
     _finish_checkpoint(ckpt)
     return FitResult(params=model, metrics=metrics, history=history)
+
+
+def train_gnn_sharded(
+    graph,
+    mesh,
+    axis: str = "gp",
+    config: GNNFitConfig | None = None,
+    device="cuda",
+) -> FitResult:
+    """Graph-parallel GraphSAGE fit: node feature and embedding tables and
+    edge blocks row-sharded over ``mesh[axis]``, neighbor and endpoint rows
+    over the ring (``models.gnn_sharded``). Per-rank memory is O(N/ranks)
+    — the path for probe graphs too large for one device. One full-batch
+    step an epoch over every training edge (the eval edges weigh 0), from
+    the same init as ``train_gnn``; the evaluation runs through the
+    sharded forward. Every rank of the axis calls it; each returns the
+    same unpadded parameters, ``GraphSAGE``'s tree."""
+    from dragonfly2_torch.models import gnn_sharded as gs
+
+    cfg = config or GNNFitConfig()
+    dev = resolve_device(device)
+    e = len(graph.edge_src)
+    group, shards, rank = axis_group(mesh, axis)
+    _, eval_idx = _split_eval(e, cfg.eval_fraction, cfg.seed)
+    model = _init_gnn(graph, cfg, dev)
+    replicate(mesh, model)
+
+    nf, nbrs, mask, src_all, dst_all, y_all, w_all = gs.pad_graph(graph, shards)
+    # hold out the eval edges by zeroing their loss weight: shapes stay
+    # static, sharding stays even
+    w_all[eval_idx] = 0.0
+    arrays = gs.shard_graph_arrays(mesh, axis, nf, nbrs, mask, src_all, dst_all, y_all, w_all,
+                                   device=dev)
+    # the node embedding table sharded over the axis; dense weights
+    # replicated (the module keeps them, its own table set aside)
+    embed = None
+    if model.node_embed is not None:
+        table = gs.pad_rows(model.node_embed.detach().cpu().numpy(), shards)
+        (local,) = gs.shard_graph_arrays(mesh, axis, table, device=dev)
+        embed = torch.nn.Parameter(local)
+        model.node_embed = None
+    params = list(model.parameters()) + ([embed] if embed is not None else [])
+    dense_params = list(model.parameters())
+
+    loss_fn = gs.make_sharded_loss(mesh, axis)
+    optimizer = _optimizer(cfg, cfg.epochs, params)
+
+    def state():
+        return {"dense": model.state_dict(), "embed": embed, "opt_state": optimizer.state_dict()}
+
+    ckpt, start_epoch = _open_checkpoint(cfg, mesh)
+    if ckpt is not None and start_epoch > 0:
+        _, saved = ckpt.restore(start_epoch - 1, dev)
+        model.load_state_dict(saved["dense"])
+        if embed is not None:
+            with torch.no_grad():
+                embed.copy_(saved["embed"])
+        optimizer.load_state_dict(saved["opt_state"])
+
+    history: list[float] = []
+    for epoch in range(start_epoch, cfg.epochs):
+        loss = loss_fn(model, embed, *arrays)
+        optimizer.zero_grad()
+        loss.backward()
+        # each rank's replicated weights hold their part of the gradient
+        mean_grads(dense_params, group, 1)
+        optimizer.step()
+        history.append(float(loss.detach()))
+        _maybe_save_tree(ckpt, cfg, epoch, state())
+    _finish_checkpoint(ckpt)
+
+    metrics: dict[str, float] = {}
+    if len(eval_idx):
+        # eval through the sharded forward too: the graph need not fit one
+        # device; the ranks' edge blocks are gathered in rank order
+        with torch.no_grad():
+            fwd = gs.make_sharded_forward(mesh, axis)
+            local_pred = fwd(model, embed, *arrays[:5])
+            pred = _gather_rows(local_pred, group, shards)[:e].cpu().numpy()[eval_idx]
+        metrics = _edge_metrics(
+            pred, graph.edge_rtt_log_ms[eval_idx], float(np.median(graph.edge_rtt_log_ms))
+        )
+
+    if embed is not None:
+        with torch.no_grad():
+            table = _gather_rows(embed.detach(), group, shards)[: graph.num_nodes]
+        model.node_embed = torch.nn.Parameter(table.clone())
+    return FitResult(params=model, metrics=metrics, history=history)
+
+
+def _gather_rows(local: torch.Tensor, group, n: int) -> torch.Tensor:
+    """Every rank's row shard, concatenated in rank order."""
+    from dragonfly2_torch.ops.ring import ring_all_gather
+
+    return ring_all_gather(local.contiguous(), group) if n > 1 else local
 
 
 def _edge_metrics(pred: np.ndarray, y: np.ndarray, thresh: float) -> dict[str, float]:
@@ -460,14 +640,9 @@ def train_gru(
     device="cuda",
 ) -> FitResult:
     """Fit the next-piece-cost predictor over piece history sequences.
-    Evaluation metrics are MSE/MAE on the held-out split. A data-parallel
-    ``mesh`` is not ported yet and raises. ``checkpoint_dir`` takes no
+    Evaluation metrics are MSE/MAE on the held-out split. With ``mesh``,
+    data parallel over its ``dp`` axis. ``checkpoint_dir`` takes no
     snapshot here, as in the reference (ROADMAP §C)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel fit mesh is not ported yet (ROADMAP queue A item 11):"
-            " pass mesh=None"
-        )
     cfg = config or FitConfig(hidden_dims=(64,), batch_size=256, epochs=5)
     dev = resolve_device(device)
     n, t, f = sequences.shape
@@ -483,6 +658,8 @@ def train_gru(
     # warm-start the head's output bias at the label mean
     with torch.no_grad():
         model.head.layers[-1].b.fill_(float(labels.mean()))
+    if mesh is not None:
+        replicate(mesh, model)
 
     steps, used, batch = _batch_steps(len(train_idx), cfg.batch_size)
     optimizer = _optimizer(cfg, steps * cfg.epochs, model.parameters())
@@ -492,14 +669,15 @@ def train_gru(
         pred = gru_mod.predict_next_cost(p, x, ln)
         return torch.mean((pred - y) ** 2)
 
-    epoch_fn = make_epoch_fn(loss_fn, optimizer)
+    shard, sync = _dp_feed(mesh, batch)
+    epoch_fn = make_epoch_fn(loss_fn, optimizer, sync)
     history: list[float] = []
     rng = np.random.default_rng(cfg.seed + 1)
     for _ in range(cfg.epochs):
         order = train_idx[rng.permutation(len(train_idx))][:used]
-        xb = torch.from_numpy(sequences[order].reshape(steps, batch, t, f)).to(dev)
-        yb = torch.from_numpy(labels[order].reshape(steps, batch)).to(dev)
-        lb = torch.from_numpy(lengths[order].reshape(steps, batch).astype(np.int64)).to(dev)
+        xb = torch.from_numpy(shard(sequences[order].reshape(steps, batch, t, f))).to(dev)
+        yb = torch.from_numpy(shard(labels[order].reshape(steps, batch))).to(dev)
+        lb = torch.from_numpy(shard(lengths[order].reshape(steps, batch).astype(np.int64))).to(dev)
         history.append(float(epoch_fn(model, (xb, yb, lb))))
 
     metrics: dict[str, float] = {}

@@ -17,10 +17,12 @@ resumes it. ``federated_round`` fits every uploading host's shard on its
 own, merges the fits by example-weighted FedAvg and uploads one global
 MLP (``trainer/federation.py``).
 
-Not ported yet: the data-parallel mesh (an explicit mesh, or
-``auto_mesh`` on a host with more than one card, raises: ROADMAP queue A
-item 11) and the native C++ CSV decoder (item 5d) — CSV payloads take the
-reference's own numpy fallback.
+Every fit takes the round's ``mesh``: an explicit one, or with
+``auto_mesh`` a data-parallel mesh over every rank of the process group
+when it has more than one (``parallel.mesh.auto_dp_mesh``; one process a
+device, each rank running the same round). CSV payloads decode through
+the native C++ decoder (``schema/native.py``), with the reference's numpy
+fallback when it is unavailable.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from dragonfly2_torch.device import resolve_device
-from dragonfly2_torch.schema import wire
+from dragonfly2_torch.schema import native, wire
 from dragonfly2_torch.schema.columnar import concat_columns, records_to_columns
 from dragonfly2_torch.schema.features import (
     PieceSequences,
@@ -126,8 +128,8 @@ class TrainingConfig:
     gru_config: FitConfig = field(
         default_factory=lambda: FitConfig(hidden_dims=(32,), batch_size=128, epochs=10)
     )
-    # the reference's data-parallel mesh over every card of the host;
-    # not ported yet: a host with more than one card raises
+    # the reference's data-parallel mesh over every rank of the process
+    # group when it holds more than one (single-process rounds: None)
     auto_mesh: bool = True
     # torch.profiler trace per round ("" = off): <profile_dir>/<host_id>.json
     profile_dir: str = ""
@@ -163,17 +165,27 @@ class Training:
         self.manager_client = manager_client
         self.config = config or TrainingConfig()
         self.device = resolve_device(device)
-        multi = self.device.type == "cuda" and torch.cuda.device_count() > 1
-        if mesh is not None or (self.config.auto_mesh and multi):
-            raise NotImplementedError(
-                "the data-parallel fit mesh is not ported yet (ROADMAP queue A"
-                " item 11): pass mesh=None, and auto_mesh=False on a host with"
-                " more than one card"
-            )
+        if mesh is None and self.config.auto_mesh:
+            mesh = self._auto_mesh()
+        self.mesh = mesh
+
+    @staticmethod
+    def _auto_mesh():
+        """A dp mesh over every rank of the process group, or None in a
+        single process — a mesh-construction failure degrades to the
+        single-device fit, never fails training."""
+        try:
+            from dragonfly2_torch.parallel.mesh import auto_dp_mesh
+
+            return auto_dp_mesh()
+        except Exception:
+            logger.warning("auto dp mesh unavailable; fitting single-device", exc_info=True)
+            return None
 
     def train(self, ip: str, hostname: str) -> TrainingOutcome:
         """Fit MLP + GNN (+ GRU) for one uploading scheduler host,
-        concurrently (upstream training.go errgroup)."""
+        concurrently (upstream training.go errgroup; in turn over a mesh of
+        several ranks)."""
         host_id = host_id_v2(ip, hostname)
         outcome = TrainingOutcome()
         # the caller's span: fit spans in the pool threads parent under
@@ -182,8 +194,11 @@ class Training:
         # which payload form the MLP leg consumed: the post-fit clear
         # drops exactly that form
         mlp_info: dict = {}
+        # over a mesh of several ranks the legs run one after another: their
+        # collectives must come in one order on every rank
+        legs_at_once = 3 if self.mesh is None or self.mesh.mesh.numel() == 1 else 1
         with self._maybe_profile(host_id), concurrent.futures.ThreadPoolExecutor(
-            max_workers=3
+            max_workers=legs_at_once
         ) as pool:
             f_mlp = pool.submit(
                 self._timed_fit, "mlp", parent_span, self._train_mlp,
@@ -333,14 +348,16 @@ class Training:
         if binary:
             pairs = wire.read_train_pairs(path, offset=offset, end=boundary)
         else:
-            # the reference's numpy fallback (its native decoder is not
-            # ported), bounded at the round boundary like the binary path
-            recs = [
-                r
-                for chunk in self.storage.iter_download_chunks(host_id, max_bytes=boundary)
-                for r in chunk
-            ]
-            pairs = extract_pair_features(records_to_columns(recs))
+            # bounded at the round boundary like the binary path; the
+            # numpy route when the native decoder is unavailable
+            pairs = native.decode_pairs_file(path, offset=offset, end=boundary)
+            if pairs is None:
+                recs = [
+                    r
+                    for chunk in self.storage.iter_download_chunks(host_id, max_bytes=boundary)
+                    for r in chunk
+                ]
+                pairs = extract_pair_features(records_to_columns(recs))
         if pairs.num_downloads < self.config.min_download_records:
             raise BelowMinRecords(
                 f"{pairs.num_downloads} download records for host {host_id}"
@@ -353,6 +370,7 @@ class Training:
             pairs.labels,
             config=self._fit_config(self.config.mlp, "mlp", host_id),
             device=self.device,
+            mesh=self.mesh,
         )
         if self.manager_client is not None:
             self.manager_client.create_model(
@@ -397,9 +415,11 @@ class Training:
             return 0
 
     def _use_streaming(self, path, offset: int, binary: bool) -> bool:
-        # CSV streams through the reference's native decoder, which is
-        # not ported: CSV always takes the batch path here
-        if not self.config.streaming or not binary:
+        # the binary stream needs no native library; CSV streaming rides
+        # the fused C++ parser
+        if not self.config.streaming:
+            return False
+        if not binary and not native.available():
             return False
         try:
             pending = os.path.getsize(path) - offset
@@ -415,7 +435,7 @@ class Training:
         path,
         offset: int,
         boundary: int,
-        binary: bool = True,
+        binary: bool = False,
     ) -> dict[str, float]:
         """Large-dataset path: bounded-memory overlapped decode + train
         (``trainer.ingest.stream_train_mlp``). Holdout mse/mae stands in
@@ -425,10 +445,18 @@ class Training:
 
         cfg = self.config.mlp
         if self.config.min_download_records > 1:
-            # cheap pre-gate from block headers alone
-            rows = wire.count_records(
-                path, offset=offset, max_records=self.config.min_download_records
-            )
+            # cheap pre-gate: a bounded decode stops as soon as min records
+            # are seen (binary: from block headers alone)
+            if binary:
+                rows = wire.count_records(
+                    path, offset=offset, max_records=self.config.min_download_records
+                )
+            else:
+                rows = 0
+                for _, _, rows in native.stream_pairs_file(
+                    path, offset=offset, max_records=self.config.min_download_records
+                ):
+                    pass
             if rows < self.config.min_download_records:
                 raise BelowMinRecords(
                     f"{rows} download records for host {host_id}"
@@ -447,6 +475,7 @@ class Training:
             end=boundary,
             workers=self.config.streaming_workers,
             eval_every=eval_every,
+            mesh=self.mesh,
             steps_per_call=self.config.streaming_steps_per_call,
             time_budget_s=self.config.streaming_time_budget_s,
             device=self.device,
@@ -490,12 +519,13 @@ class Training:
         cpath = self.storage.network_topology_path(host_id)
         has_bin = bpath.exists() and bpath.stat().st_size > 0
         has_csv = cpath.exists() and cpath.stat().st_size > 0
-        batches = []
-        if has_csv:
-            # CSV rows first: they predate the binary era, and edge RTT
-            # is last-write-wins in the graph build
-            batches.append(records_to_columns(self.storage.list_network_topology(host_id)))
+        graph = None
         if has_bin:
+            batches = []
+            if has_csv:
+                # format-switch history: CSV rows first — they predate the
+                # binary era, and edge RTT is last-write-wins in the build
+                batches.append(records_to_columns(self.storage.list_network_topology(host_id)))
             # read bounded by the round boundary so a concurrent upload's
             # tail is never decoded
             batches.append(
@@ -505,14 +535,22 @@ class Training:
                     end=self.storage.network_topology_round_boundary(host_id, binary=True),
                 )
             )
-        graph = build_probe_graph(concat_columns(batches), max_degree=self.config.gnn_max_degree)
+            graph = build_probe_graph(concat_columns(batches), max_degree=self.config.gnn_max_degree)
+        else:
+            graph = native.build_probe_graph_file(cpath, max_degree=self.config.gnn_max_degree)
+        if graph is None:
+            recs = self.storage.list_network_topology(host_id)
+            graph = build_probe_graph(records_to_columns(recs), max_degree=self.config.gnn_max_degree)
         if graph.num_records < self.config.min_topology_records:
             raise ValueError(
                 f"{graph.num_records} network topology records for host {host_id}"
                 f" < min {self.config.min_topology_records}"
             )
         result = train_gnn(
-            graph, config=self._fit_config(self.config.gnn, "gnn", host_id), device=self.device
+            graph,
+            config=self._fit_config(self.config.gnn, "gnn", host_id),
+            device=self.device,
+            mesh=self.mesh,
         )
         if self.manager_client is not None:
             self.manager_client.create_model(
@@ -577,6 +615,7 @@ class Training:
             seqs.sequences,
             seqs.labels,
             lengths=seqs.lengths,
+            mesh=self.mesh,
             config=self._fit_config(self.config.gru_config, "gru", host_id),
             device=self.device,
         )
@@ -603,7 +642,8 @@ class Training:
         if not host_ids:
             raise ValueError("no host shards in trainer storage")
         result = federated_fit_mlp(
-            self.storage, host_ids, config=config or self.config.mlp, device=self.device
+            self.storage, host_ids, config=config or self.config.mlp, mesh=self.mesh,
+            device=self.device,
         )
         if self.manager_client is not None:
             self.manager_client.create_model(

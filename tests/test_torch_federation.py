@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from dragonfly2_torch.parallel import fedavg as t_fedavg
+from dragonfly2_torch.parallel import make_mesh
 from dragonfly2_torch.trainer import federation as t_federation
 from dragonfly2_torch.trainer import train as t_train
 from dragonfly2_torch.trainer import training as t_training
@@ -30,6 +31,7 @@ from dragonfly2_tpu.trainer import train as j_train
 from dragonfly2_tpu.trainer import training as j_training
 from dragonfly2_tpu.trainer.storage import TrainerStorage as JStorage
 from dragonfly2_tpu.utils import idgen as j_idgen
+from torch_mesh_child import one_rank_world
 
 torch.set_num_threads(1)
 
@@ -75,8 +77,12 @@ def test_fedavg_trees_weights_by_examples_and_averages_state_dicts():
 
 
 def test_fedavg_psum_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_fedavg.fedavg_psum({"w": torch.ones(1)}, torch.ones(()))
+    """Ported since: over a ``fed`` axis of one replica the average is the
+    replica itself (worlds of 2 and 4 against ``fedavg_trees``:
+    tests/test_torch_mesh.py)."""
+    with one_rank_world():
+        got = t_fedavg.fedavg_psum({"w": torch.arange(3.0)}, torch.full((), 7.0), mesh=make_mesh(fed=1))
+    assert torch.equal(got["w"], torch.arange(3.0))
 
 
 def test_federated_model_id_matches_reference():
@@ -191,6 +197,16 @@ def test_federated_round_empty_storage_raises(tmp_path, package):
 
 
 def test_federated_fit_mesh_is_not_ported_yet(tmp_path):
+    """Ported since: each shard's fit over a dp mesh of one rank lands on
+    the fit without a mesh exactly (the reduction over one rank divides
+    by one)."""
     storage = TStorage(tmp_path / "t")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_federation.federated_fit_mlp(storage, [], mesh=object(), device="cpu")
+    _seed(tmp_path, (storage,))
+    cfg = t_train.FitConfig(hidden_dims=HIDDEN, batch_size=64, epochs=2, seed=0)
+    hosts = storage.host_ids()
+    with one_rank_world():
+        got = t_federation.federated_fit_mlp(storage, hosts, config=cfg, mesh=make_mesh(dp=1), device="cpu")
+    want = t_federation.federated_fit_mlp(storage, hosts, config=cfg, device="cpu")
+    assert got.metrics == want.metrics and got.total_examples == want.total_examples
+    for a, b in zip(got.params.state_dict().values(), want.params.state_dict().values()):
+        assert torch.equal(a, b)

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from dragonfly2_torch import graft_entry as t_graft
+from dragonfly2_torch.parallel import make_mesh
 from dragonfly2_torch.scheduler import model_refresher as t_refresher
 from dragonfly2_torch.scheduler import resource as t_res
 from dragonfly2_torch.scheduler import seed_placement as t_seeds
@@ -60,6 +61,7 @@ from dragonfly2_tpu.trainer import train as j_train
 from dragonfly2_tpu.utils.kvstore import KVStore
 
 import manager_pb2  # noqa: E402  (the reference's generated module)
+from torch_mesh_child import one_rank_world  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -223,10 +225,53 @@ def test_gnn_scorer_matches_the_reference(graphs, gnn_tree, n):
 
 
 def test_gnn_scorer_mesh_is_not_ported_yet(graphs, gnn_tree):
+    """Ported since: a gp mesh of one rank embeds as without a mesh, as in
+    the reference (the graph-parallel embed over 2 and 4 ranks:
+    tests/test_torch_mesh.py)."""
     tg, _ = graphs
-    mesh = type("Mesh", (), {"shape": {"gp": 2}})()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_serving.GNNScorer(gnn_tree, tg, mesh=mesh, device="cpu")
+    with one_rank_world():
+        got = t_serving.GNNScorer(gnn_tree, tg, mesh=make_mesh(gp=1), device="cpu")
+    want = t_serving.GNNScorer(gnn_tree, tg, device="cpu")
+    assert torch.equal(got._emb, want._emb)
+
+
+def test_the_card_check_bands_every_rounding_of_the_gnn_head(graphs, gnn_tree):
+    """``chip_smoke.hold_served_gnn`` holds the card's served GNN scores to
+    the CPU's bf16 head over the card's own embeddings, within a band for
+    the hidden units that may round to either bf16 neighbour
+    (``chip_smoke.gnn_head_band``). Scores summed in another order must all
+    land in it: here the CPU's float32 sums under ``gnn_head_like_the_card``
+    against the band's float64 head, on every host pair of the graph and on
+    20,000 pairs of seeded unit embeddings, where some units round the
+    other way. The band must stay narrow: scores moved by 1e-2 leave it,
+    and on most pairs it is under 1e-3 wide."""
+    import chip_smoke
+
+    tg, _ = graphs
+    card = t_serving.GNNScorer(gnn_tree, tg, device="cpu")
+    cpu = t_serving.GNNScorer(gnn_tree, tg, device="cpu")
+    src = [a for a in tg.node_ids for _ in tg.node_ids]
+    dst = [b for _ in tg.node_ids for b in tg.node_ids]
+    with chip_smoke.gnn_head_like_the_card():
+        scores = card.predict_rtt_log_ms(src, dst)
+    out = chip_smoke.hold_served_gnn("cpu", card, cpu, src, dst, scores)
+    assert out["emb_err"] == 0 and out["head_err"] <= chip_smoke.GNN_HEAD_TOL, out
+    with pytest.raises(AssertionError, match="outside their rounding band"):
+        chip_smoke.hold_served_gnn("cpu", card, cpu, src, dst, scores + 1e-2)
+
+    model = cpu._model
+    rng = np.random.default_rng(0)
+    emb = rng.standard_normal((2000, cpu._emb.shape[1])).astype(np.float32)
+    emb = torch.from_numpy(emb / np.linalg.norm(emb, axis=1, keepdims=True))
+    s_idx, d_idx = (torch.from_numpy(rng.integers(0, 2000, 20_000)) for _ in range(2))
+    with torch.no_grad():
+        want, allowance = chip_smoke.gnn_head_band(model, emb, s_idx, d_idx)
+        with chip_smoke.gnn_head_like_the_card():
+            got = t_serving.predict_edge(model, emb, s_idx, d_idx).numpy()
+    gap = np.abs(got - want)
+    assert (gap > chip_smoke.GNN_HEAD_TOL).sum() > 0  # units rounded the other way
+    assert (gap - allowance).max() <= chip_smoke.GNN_HEAD_TOL
+    assert np.median(allowance) < 1e-3
 
 
 def _check_rankings(got_rank, want_rank, want_scores):

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from dragonfly2_torch.models import gru as t_gru
+from dragonfly2_torch.parallel import make_mesh
 from dragonfly2_torch.scheduler.model_refresher import ManagerUploader, PlainRequests
 from dragonfly2_torch.schema import wire as t_wire
 from dragonfly2_torch.trainer import service as t_service
@@ -36,6 +37,7 @@ from dragonfly2_tpu.trainer import train as j_train
 from dragonfly2_tpu.trainer import training as j_training
 from dragonfly2_tpu.trainer.storage import TrainerStorage as JStorage
 from dragonfly2_tpu.utils import idgen as j_idgen
+from torch_mesh_child import one_rank_world
 
 torch.set_num_threads(1)
 
@@ -241,9 +243,16 @@ def test_train_gru_without_lengths_uses_every_step():
 
 @pytest.mark.parametrize("what,item", [("mesh", "item 11")])
 def test_train_gru_parts_not_ported_yet_raise(what, item, tmp_path):
+    """Ported since (item 11): a dp mesh of one rank fits exactly as
+    without one (worlds of 2 and 4: tests/test_torch_mesh.py)."""
     x, lengths = _sequences(20)
-    with pytest.raises(NotImplementedError, match=item):
-        t_train.train_gru(x, x[:, 0, 0], lengths=lengths, device="cpu", mesh=object())
+    cfg = t_train.FitConfig(init=_init(), hidden_dims=(8,), batch_size=8, epochs=2)
+    with one_rank_world():
+        got = t_train.train_gru(x, x[:, 0, 0], lengths=lengths, device="cpu", mesh=make_mesh(dp=1), config=cfg)
+    want = t_train.train_gru(x, x[:, 0, 0], lengths=lengths, device="cpu", config=cfg)
+    assert got.history == want.history
+    for a, b in zip(got.params.state_dict().values(), want.params.state_dict().values()):
+        assert torch.equal(a, b)
 
 
 def test_train_gru_with_checkpoint_dir_matches_reference_and_writes_nothing(tmp_path):

@@ -12,8 +12,9 @@ trainer leg feeds its Train stream through plain messages and uploads
 through plain requests; the preheat leg's job goes out through a plain
 request), then the server leg, whose scheduler and trainer servers talk
 gRPC, push telemetry and serve /metrics, then the resume phase's crash
-drill (two spawned fits SIGKILLed by a fault rule) and the federation
-phase; the other also refuses gRPC and protobuf, imports only
+drill (two spawned fits SIGKILLed by a fault rule), the federation
+phase, the native phase and the mesh phase (a gloo group of one), and
+checks that the native decoder it loaded is its own build; the other also refuses gRPC and protobuf, imports only
 ``chip_smoke`` and runs the five legs again, never the servers."""
 
 import ast
@@ -123,7 +124,14 @@ if {servers!r}:
     fed = chip_smoke.federation_phase(
         "cpu", group_records=200, shards=((80, "binary"), (60, "binary"), (40, "binary"), (20, "csv")), batch=32,
     )
-    assert fed["hosts"] == 4 and fed["merge_rel_err"] <= 1e-6, fed
+    assert fed["hosts"] == 4 and fed["merge_rel_err"] <= 1e-6 and fed["csv_native"], fed
+    nat = chip_smoke.native_phase(
+        "cpu", file_mib=6, prefix_mib=1, hosts=64, probes=8, group_records=400, mlp_batch=128,
+        streaming_threshold_bytes=0,
+    )
+    assert nat["streamed"] and nat["prefix_equal"] and nat["graph_equal"], nat
+    mesh = chip_smoke.mesh_phase("cpu", hosts=128, probes=16, group_records=400, gnn_epochs=100)
+    assert mesh["backend"] == "gloo" and mesh["embed_err"] <= 1e-5, mesh
 else:
     assert not any(n.startswith("dragonfly2_torch.scheduler.server") for n in sys.modules)
 loaded = sorted(
@@ -131,6 +139,16 @@ loaded = sorted(
     if any(n == b or n.startswith(b + ".") for b in BLOCKED) and sys.modules[n] is not None
 )
 assert not loaded, loaded
+# importing torch.distributed.tensor slows every small torch op in the
+# process (the server leg's probe ingest doubled on the card): no port
+# module may import it with the module
+assert "torch.distributed.tensor" not in sys.modules
+# the port decodes CSV with its own build of its own copy of the decoder,
+# never the reference's native/build/libdfnative.so
+from dragonfly2_torch.schema import native
+assert native.available()
+maps = open("/proc/self/maps").read()
+assert "native/build" not in maps and str(native.library_path()) in maps
 print("ISOLATED", len(mods))
 """
 
@@ -155,8 +173,14 @@ def _run_child(blocked, every_module: bool) -> int:
 def test_port_runs_with_jax_and_reference_blocked():
     # every module of the port was imported (92 with the scheduler and
     # trainer servers, 96 with the sequence-parallel plane, 101 with the
-    # telemetry plane and federation)
-    assert _run_child(BLOCKED, every_module=True) >= 101
+    # telemetry plane and federation, 104 with the native decoder and the
+    # sharded trainer)
+    assert _run_child(BLOCKED, every_module=True) >= 104
+
+
+def test_no_port_source_names_the_reference_build():
+    for path in _sources() + sorted(PORT.rglob("*.cc")):
+        assert "native/build" not in path.read_text(), path
 
 
 def test_chip_smoke_runs_without_grpc_or_protobuf():

@@ -265,17 +265,19 @@ def test_uploaded_npz_scores_alike_in_both_scorers(tmp_path):
     "config,mesh,item",
     [
         # the reference's defaults, gru=True included, build since the GRU
-        # leg landed: only a mesh still raises
+        # leg landed, and a mesh since item 11 did
         (dict(), object(), "item 11"),
         (dict(gru=False), object(), "item 11"),
     ],
     ids=["gru", "mesh"],
 )
 def test_legs_not_ported_yet_raise(tmp_path, config, mesh, item):
-    with pytest.raises(NotImplementedError, match=item):
-        t_training.Training(
-            TStorage(tmp_path), config=t_training.TrainingConfig(**config), mesh=mesh, device="cpu"
-        )
+    """Nothing raises any more: an explicit mesh is the round's, and the
+    default ``auto_mesh`` in a single process is None, as the reference's
+    on one device (a dp mesh over a world of 2: tests/test_torch_mesh.py)."""
+    cfg = t_training.TrainingConfig(**config)
+    assert t_training.Training(TStorage(tmp_path), config=cfg, mesh=mesh, device="cpu").mesh is mesh
+    assert cfg.auto_mesh and t_training.Training(TStorage(tmp_path), config=cfg, device="cpu").mesh is None
 
 
 def test_checkpoint_dir_round_matches_reference(tmp_path):

@@ -138,6 +138,22 @@ Phases (any failed check raises and the script exits non-zero):
    ``train_gnn_sharded`` for 120 full-batch steps beating its mean
    predictor and reading the unsharded fit's holdout (within 5e-2
    relative), and ``fedavg_psum`` against ``fedavg_trees``;
+7c. download leg: the P2P download path — the port's ``SchedulerServer``
+   (``algorithm="ml"`` on the card, a seeded MLP installed by the
+   refresher, seed peers enabled) and 8 of the port's daemons, each
+   ``python -m dragonfly2_torch.client.daemon`` in its own interpreter at
+   ``DaemonConfig``'s defaults (one seed peer, 7 peers; probes every 2 s
+   into the topology engine through ``SyncProbes``), against an origin in
+   a process of its own serving a seeded 1 GiB file: the 7 peers ``dfget``
+   it at once, ``dfcache`` stats and exports it on one peer, and an image
+   preheat job (an OCI index → the ``linux/amd64`` manifest of 4 layers of
+   64 MiB) runs through the scheduler's job worker, whose manifest fetch
+   goes through the port's source client, before one peer pulls a layer.
+   Every output's sha256 must be the origin's, every decision served by
+   the card's MLP on the ``serving`` rung, origin egress below 8× the file,
+   one peer ≥ 90% of its bytes from peers, ≥ 7 download records, every
+   probed pair in the engine, and the preheated layer's pull 0 origin
+   bytes;
 8. encoder leg at full width: the piece-sequence transformer (model_dim
    256, 4 heads, 4 layers) on B = 2, T = 8192 with flash attention, against
    the plain ``local_attention``: once in bfloat16, which must launch
@@ -949,7 +965,8 @@ class _Manager:
     its id, active at once (the manager's activation step is an
     operator's), ``ListModels`` lists each id at its newest version,
     ``GetModelWeights`` returns a stored model's npz bytes, ``CreateJob``
-    keeps the job's request and ``ReportTelemetry`` keeps the newest
+    keeps the job's request, ``ListPendingJobs`` leases each job once,
+    ``UpdateJobResult`` keeps its outcome and ``ReportTelemetry`` keeps the newest
     cumulative value of each series a reporter pushed, as the manager's
     telemetry plane folds them (a new reporter or epoch starts afresh and
     is acked ``registered``). Called in-process it answers with plain
@@ -963,7 +980,9 @@ class _Manager:
         self.created = {}  # model_id → its newest CreateModel request
         self.versions = {}  # model_id → its newest version
         self.stamps = {}  # model_id → creation order of its newest version
-        self.jobs = []  # the CreateJob requests, in order
+        self.jobs = []  # the CreateJob requests, in order (job id = place + 1)
+        self.leased = set()  # ids of the jobs ListPendingJobs handed out
+        self.job_results = {}  # job id → (state, its result as JSON)
         self.calls = {}  # RPC name → times called
         # (service, instance) → {"epoch", "seq", "counters", "gauges",
         # "hists", "sections", "bytes": payload size of each report}
@@ -1036,10 +1055,17 @@ class _Manager:
 
     def ListPendingJobs(self, request, context=None):
         self._called("ListPendingJobs")
-        return self.pb2.ListPendingJobsResponse()
+        with self._lock:
+            pending = [(n, r) for n, r in enumerate(self.jobs, 1) if n not in self.leased]
+            self.leased.update(n for n, _ in pending)
+        return self.pb2.ListPendingJobsResponse(jobs=[
+            self.pb2.Job(id=n, type=r.type, state="running", args_json=r.args_json) for n, r in pending
+        ])
 
     def UpdateJobResult(self, request, context=None):
         self._called("UpdateJobResult")
+        with self._lock:
+            self.job_results[request.id] = (request.state, request.result_json)
         return self.pb2.Job(id=request.id, state=request.state)
 
     def ReportTelemetry(self, request, context=None):
@@ -3311,6 +3337,487 @@ def server_leg(
         shutil.rmtree(SERVER_WORK, ignore_errors=True)
 
 
+DOWNLOAD_WORK = Path(__file__).resolve().parent / "build" / "download_leg"
+# the burst: one seed peer and 7 peers, one process each, pulling one 1 GiB
+# object at once (a node pool pulling an image layer or a model shard at a
+# rollout); then an image of 4 layers of 64 MiB preheated through the job
+# worker
+DOWNLOAD_PEERS = 7
+DOWNLOAD_FILE_MIB = 1024
+DOWNLOAD_LAYERS, DOWNLOAD_LAYER_MIB = 4, 64
+DOWNLOAD_PROBE_INTERVAL_S = 2.0
+IMAGE_PATH = "/v2/leg/app"  # the registry stand-in's repository
+
+
+def _origin_process(conn, root):
+    """The origin in its own interpreter: files under ``root`` served by
+    URL path (HEAD, GET, ``Range``) through ``socket.sendfile``, counting
+    the body bytes sent for each path; ``GET /_sent`` answers those counts
+    as JSON. Sends its port over ``conn``, then serves until killed."""
+    import http.server
+    import os
+
+    sent = {}
+    lock = threading.Lock()
+
+    class Origin(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _serve(self, body: bool):
+            if self.path == "/_sent":
+                with lock:
+                    data = json.dumps(sent).encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+                return
+            path = os.path.join(root, self.path.lstrip("/"))
+            if ".." in self.path or not os.path.isfile(path):
+                self.send_error(404)
+                return
+            size = os.path.getsize(path)
+            lo, hi, status = 0, size - 1, 200
+            rng = self.headers.get("Range")
+            if rng:
+                a, _, b = rng.removeprefix("bytes=").partition("-")
+                lo, hi, status = int(a), min(int(b), size - 1) if b else size - 1, 206
+            self.send_response(status)
+            self.send_header("Content-Length", str(hi - lo + 1))
+            self.send_header("Accept-Ranges", "bytes")
+            if status == 206:
+                self.send_header("Content-Range", f"bytes {lo}-{hi}/{size}")
+            self.end_headers()
+            if not body:
+                return
+            self.wfile.flush()
+            with open(path, "rb") as f:
+                n = self.connection.sendfile(f, lo, hi - lo + 1)
+            with lock:
+                sent[self.path] = sent.get(self.path, 0) + n
+
+        def do_HEAD(self):
+            self._serve(False)
+
+        def do_GET(self):
+            self._serve(True)
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Origin)
+    srv.daemon_threads = True
+    conn.send(srv.server_address[1])
+    conn.close()
+    srv.serve_forever()
+
+
+def _seeded_file(path: Path, mib: int, rng: np.random.Generator) -> str:
+    """``mib`` MiB of seeded bytes at ``path`` → their sha256."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    h = hashlib.sha256()
+    with open(path, "wb") as f:
+        for _ in range(mib // 64):
+            chunk = rng.bytes(64 << 20)
+            h.update(chunk)
+            f.write(chunk)
+        if mib % 64:
+            chunk = rng.bytes((mib % 64) << 20)
+            h.update(chunk)
+            f.write(chunk)
+    return h.hexdigest()
+
+
+def _image(root: Path, layers: int, layer_mib: int, rng: np.random.Generator) -> "tuple[list[str], dict]":
+    """A registry stand-in's files under ``root``: an OCI index over a
+    ``linux/arm64`` and a ``linux/amd64`` manifest, the latter of
+    ``layers`` seeded layers → (layer digests, digest → sha256)."""
+    repo = root / IMAGE_PATH.lstrip("/")
+    digests = []
+    for i in range(layers):
+        tmp = repo / "blobs" / f"layer-{i}"
+        d = "sha256:" + _seeded_file(tmp, layer_mib, rng)
+        tmp.rename(repo / "blobs" / d)
+        digests.append(d)
+    config = json.dumps({"architecture": "amd64", "os": "linux"}).encode()
+    cfg_digest = "sha256:" + hashlib.sha256(config).hexdigest()
+    (repo / "blobs" / cfg_digest).write_bytes(config)
+    manifest = json.dumps({
+        "schemaVersion": 2, "mediaType": "application/vnd.oci.image.manifest.v1+json",
+        "config": {"mediaType": "application/vnd.oci.image.config.v1+json", "digest": cfg_digest,
+                   "size": len(config)},
+        "layers": [{"mediaType": "application/vnd.oci.image.layer.v1.tar+gzip", "digest": d,
+                    "size": layer_mib << 20} for d in digests],
+    }).encode()
+    m_digest = "sha256:" + hashlib.sha256(manifest).hexdigest()
+    (repo / "manifests").mkdir(parents=True)
+    (repo / "manifests" / m_digest).write_bytes(manifest)
+    index = {"schemaVersion": 2, "mediaType": "application/vnd.oci.image.index.v1+json", "manifests": [
+        {"mediaType": "application/vnd.oci.image.manifest.v1+json", "digest": "sha256:" + "a" * 64,
+         "size": 1, "platform": {"os": "linux", "architecture": "arm64"}},
+        {"mediaType": "application/vnd.oci.image.manifest.v1+json", "digest": m_digest,
+         "size": len(manifest), "platform": {"os": "linux", "architecture": "amd64"}},
+    ]}
+    (repo / "manifests" / "v1").write_text(json.dumps(index))
+    return digests, {d: d.split(":", 1)[1] for d in digests}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _DaemonProcs:
+    """The port's daemons, each ``python -m dragonfly2_torch.client.daemon``
+    in its own interpreter (a deployment runs them so; the card's process
+    holds a CUDA context, and the daemons see no card:
+    ``CUDA_VISIBLE_DEVICES`` is empty), at ``DaemonConfig``'s defaults but
+    for ``overrides``; each serves /metrics on a port of its own.
+    ``start`` returns once every daemon printed its ``READY`` line."""
+
+    def __init__(self, work: Path):
+        self.work = work
+        self.procs = {}  # name → (Popen, dfdaemon address, metrics address)
+
+    def start(self, specs: "dict[str, dict]", timeout: float = 120.0) -> None:
+        import os
+        import selectors
+
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=str(Path(__file__).resolve().parent))
+        sel = selectors.DefaultSelector()
+        for name, overrides in specs.items():
+            metrics = _free_port()
+            args = [sys.executable, "-m", "dragonfly2_torch.client.daemon",
+                    "--set", f"data_dir={self.work / name}", "--set", f"hostname={name}",
+                    "--set", f"metrics_port={metrics}"]
+            for k, v in overrides.items():
+                args += ["--set", f"{k}={v}"]
+            log = open(self.work / f"{name}.log", "w")
+            proc = subprocess.Popen(args, stdout=subprocess.PIPE, stderr=log, text=True,
+                                    cwd=str(Path(__file__).resolve().parent), env=env)
+            log.close()
+            self.procs[name] = (proc, None, f"127.0.0.1:{metrics}")
+            sel.register(proc.stdout, selectors.EVENT_READ, name)
+        waiting = set(specs)
+        deadline = time.monotonic() + timeout
+        while waiting:
+            left = deadline - time.monotonic()
+            check(left > 0, f"daemons {sorted(waiting)} not ready in {timeout:.0f} s")
+            for key, _ in sel.select(left):
+                name = key.data
+                line = key.fileobj.readline()
+                if not line:
+                    sel.unregister(key.fileobj)
+                    tail = (self.work / f"{name}.log").read_text()[-2000:]
+                    check(False, f"daemon {name} exited before READY:\\n{tail}")
+                if line.startswith("READY "):
+                    proc, _, metrics = self.procs[name]
+                    self.procs[name] = (proc, line.split()[2], metrics)
+                    sel.unregister(key.fileobj)
+                    waiting.discard(name)
+
+    def address(self, name: str) -> str:
+        return self.procs[name][1]
+
+    def traffic(self, name: str) -> "dict[str, float]":
+        """Piece bytes the daemon wrote, by traffic type, from its /metrics."""
+        status, _, body, _ = http_get(f"http://{self.procs[name][2]}/metrics")
+        check(status == 200, f"daemon {name}: /metrics answered {status}")
+        out = {}
+        for line in body.decode().splitlines():
+            m = _SAMPLE.match(line)
+            if m and m.group(1) == "dragonfly_daemon_piece_traffic_bytes_total":
+                labels = dict(_LABEL.findall(m.group(2) or ""))
+                out[labels.get("traffic_type", "")] = float(m.group(3))
+        return out
+
+    def stop(self) -> None:
+        import signal
+
+        for proc, _, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for proc, _, _ in self.procs.values():
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+
+
+def _sha256_file(path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(16 << 20):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def download_leg(
+    device, peers=DOWNLOAD_PEERS, file_mib=DOWNLOAD_FILE_MIB, piece_length=0,
+    layers=DOWNLOAD_LAYERS, layer_mib=DOWNLOAD_LAYER_MIB, probe_interval=DOWNLOAD_PROBE_INTERVAL_S,
+    seed=0,
+) -> dict:
+    """The P2P download path end to end: the port's ``SchedulerServer``
+    (``algorithm="ml"`` on ``device``, a seeded MLP ``[19, 128, 128, 1]``
+    installed by the refresher from a served manager stand-in) and the
+    port's daemons — one seed peer (``host_type="super"``) and ``peers``
+    peers, each ``python -m dragonfly2_torch.client.daemon`` in its own
+    interpreter at ``DaemonConfig``'s defaults (pieces from
+    ``compute_piece_length`` unless ``piece_length``) but a
+    ``probe_interval`` of ``probe_interval`` s, whose probes reach the
+    topology engine through ``SyncProbes``. An origin in its own process
+    serves a ``file_mib`` MiB file made from ``seed`` and counts its bytes.
+    Traffic: every peer ``dfget``s the file at once (the burst); ``dfcache``
+    stats and exports the task on one peer; a ``CreateJob`` on the stand-in
+    preheats an image (an OCI index → its ``linux/amd64`` manifest of
+    ``layers`` layers of ``layer_mib`` MiB) through the scheduler's job
+    worker, which resolves the manifest with the port's source client and
+    has the seed peer fetch every layer; then one peer ``dfget``s a layer.
+
+    Checks: every output's sha256 is the origin's; every decision was
+    served by the card's ``MLPScorer`` (``model_kind()`` ``mlp``, no
+    demotion below the ``serving`` rung); origin egress below ``peers + 1``
+    times the file; at least one peer took ≥ 90 % of its bytes from peers;
+    at least ``peers`` download records written; the engine holds every
+    probed pair; the preheated layer's pull cost the origin 0 bytes."""
+    import multiprocessing
+    import urllib.request
+
+    from dragonfly2_torch.client import dfcache, dfget
+    from dragonfly2_torch.scheduler import server as sched_server
+    from dragonfly2_torch.scheduler import serving as serving_mod
+    from dragonfly2_torch.scheduler.server import SchedulerServer, SchedulerServerConfig
+
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    names = ["seed"] + [f"peer-{i}" for i in range(peers)]
+    out = {"peers": peers, "file_mib": file_mib}
+    procs = _DaemonProcs(DOWNLOAD_WORK / "daemons")
+    origin = mgr_server = srv = None
+    decide_ms, log = [], []
+
+    class _Evaluator(_ServerRecordingEvaluator):
+        """The recording evaluator, keeping every decision in order."""
+
+        def evaluate_parents(self, parents, child, total_piece_count):
+            ranked = super().evaluate_parents(parents, child, total_piece_count)
+            log.append(self.decisions[child.id])
+            return ranked
+
+    try:
+        t0 = time.perf_counter()
+        shutil.rmtree(DOWNLOAD_WORK, ignore_errors=True)
+        (DOWNLOAD_WORK / "daemons").mkdir(parents=True)
+        files = DOWNLOAD_WORK / "origin"
+        file_sha = _seeded_file(files / "blob.bin", file_mib, rng)
+        digests, layer_sha = _image(files, layers, layer_mib, rng)
+        ctx = multiprocessing.get_context("spawn")
+        here, there = ctx.Pipe()
+        origin = ctx.Process(target=_origin_process, args=(there, str(files)), daemon=True)
+        origin.start()
+        there.close()
+        base = f"http://127.0.0.1:{here.recv()}"
+        here.close()
+
+        def sent() -> dict:
+            with urllib.request.urlopen(f"{base}/_sent", timeout=30) as r:
+                return json.loads(r.read())
+
+        manager = _Manager()
+        mgr_server, mgr_addr = manager.served()
+        blob = serialize_params(init_mlp(torch.Generator().manual_seed(seed), MLP_DIMS))
+        manager.CreateModel(manager.pb2.CreateModelRequest(model_id="mlp-seeded", type="mlp", weights=blob))
+        cfg = SchedulerServerConfig(
+            data_dir=str(DOWNLOAD_WORK / "scheduler"), manager_address=mgr_addr, algorithm="ml",
+            device=str(device), model_refresh_interval=3600.0, job_poll_interval=3600.0,
+            seed_peer_enabled=True,
+        )
+        built = (sched_server.MLEvaluator, serving_mod.ScoringService)
+        sched_server.MLEvaluator, serving_mod.ScoringService = _Evaluator, _ServerRecordingService
+        try:
+            srv = SchedulerServer(cfg)
+        finally:
+            sched_server.MLEvaluator, serving_mod.ScoringService = built
+        evaluator, service = srv.evaluator, srv.scoring_service
+        schedule = srv.scheduling.schedule_candidate_parents
+
+        def timed_schedule(peer, blocklist=None, cancelled=None):
+            t = time.perf_counter()
+            try:
+                return schedule(peer, blocklist, cancelled)
+            finally:
+                decide_ms.append((time.perf_counter() - t) * 1e3)
+
+        srv.scheduling.schedule_candidate_parents = timed_schedule
+        addr = srv.serve()
+        check(srv.model_refresher.loaded_version == ("mlp-seeded", 1), "the seeded MLP is not installed")
+        served = service._served[0]
+        check(service.model_kind() == "mlp" and isinstance(served._scorer, MLPScorer)
+              and served._scorer.device.type == device.type,
+              f"the serving slot holds {service.model_kind()!r}, not the MLP on {device}")
+        check(srv.topology_engine.device.type == device.type, "the topology engine is not on the device")
+        out["setup_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        common = {"scheduler_address": addr, "probe_interval": probe_interval}
+        if piece_length:
+            common["piece_length"] = piece_length
+        procs.start({n: dict(common, host_type="super" if n == "seed" else "normal") for n in names})
+        while len(srv.resource.host_manager.all()) < len(names):
+            check(time.perf_counter() - t0 < 60, "the daemons' hosts were not all announced")
+            time.sleep(0.05)
+        out["daemons_up_s"] = time.perf_counter() - t0
+        check(len(srv.seed_client.seed_hosts()) == 1, "the scheduler sees no seed peer")
+        # every daemon's first probe round, before the traffic
+        while len({k.split(":")[1] for k in srv.kvstore.scan_iter("networktopology:*")}) < len(names):
+            check(time.perf_counter() - t0 < 60 + 5 * probe_interval, "a daemon never probed")
+            time.sleep(0.05)
+        out["probed_s"] = time.perf_counter() - t0
+        print(f"download[{device}]: {len(names)} daemons up in {out['daemons_up_s']:.2f} s,"
+              f" each probed by {out['probed_s']:.2f} s")
+
+        # the burst: every peer dfgets the file at once
+        url = f"{base}/blob.bin"
+        outputs = {n: DOWNLOAD_WORK / "daemons" / f"{n}.out" for n in names[1:]}
+        walls = {}
+        launches0 = (service.launches, service.launch_calls)
+        del decide_ms[:], log[:]
+
+        def pull(name):
+            t = time.perf_counter()
+            dfget.download(procs.address(name), url, str(outputs[name]))
+            walls[name] = time.perf_counter() - t
+
+        def burst():
+            t = time.perf_counter()
+            with ThreadPoolExecutor(peers) as pool:
+                list(pool.map(pull, names[1:]))
+            walls["burst"] = time.perf_counter() - t
+
+        if device.type == "cuda":
+            # the profiler's own start and stop stay outside the burst's wall
+            wall_ms, busy_ms = device_busy(burst)
+            check(busy_ms is not None, f"download[{device}]: the burst ran nothing on the card")
+            out.update(device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms)
+        else:
+            burst()
+        burst_s = walls.pop("burst")
+        with ThreadPoolExecutor(peers) as pool:
+            shas = dict(zip(names[1:], pool.map(lambda n: _sha256_file(outputs[n]), names[1:])))
+        for n, sha in shas.items():
+            check(sha == file_sha, f"download[{device}]: {n}'s output is not the origin's bytes")
+        size = file_mib << 20
+        egress = sent().get("/blob.bin", 0)
+        traffic = {n: procs.traffic(n) for n in names[1:]}
+        from_peers = {n: t.get("remote_peer", 0.0) / max(sum(t.values()), 1.0) for n, t in traffic.items()}
+        launches = service.launches - launches0[0]
+        calls = service.launch_calls - launches0[1]
+        demoted = [r["candidates"] for r in log if r["served"] is None]
+        wall_list = sorted(walls.values())
+        out["burst"] = {
+            "wall_s": burst_s, "peer_wall_s": walls, "peer_wall_p50_s": float(np.percentile(wall_list, 50)),
+            "peer_wall_max_s": wall_list[-1], "aggregate_mib_per_s": peers * file_mib / burst_s,
+            "origin_egress_x": egress / size, "from_peers_share": {n: round(v, 6) for n, v in from_peers.items()},
+            "peer_bytes_share": sum(t.get("remote_peer", 0.0) for t in traffic.values())
+            / max(sum(sum(t.values()) for t in traffic.values()), 1.0),
+            "decisions": len(decide_ms), "scored": len(log),
+            "decide_ms_p50": float(np.percentile(decide_ms, 50)) if decide_ms else 0.0,
+            "decide_ms_p99": float(np.percentile(decide_ms, 99)) if decide_ms else 0.0,
+            "candidates_max": max((len(r["candidates"]) for r in log), default=0),
+            "launches": launches, "calls_per_launch": calls / launches if launches else 0.0,
+            "rung": evaluator._rung, "demoted": len(demoted), "kind": service.model_kind(),
+        }
+        b = out["burst"]
+        print(
+            f"download[{device}]: burst of {peers} × {file_mib} MiB in {burst_s:.2f} s"
+            f" ({b['aggregate_mib_per_s']:.1f} MiB/s); peer wall p50 {b['peer_wall_p50_s']:.2f} s,"
+            f" max {b['peer_wall_max_s']:.2f} s; origin egress {b['origin_egress_x']:.3f}× the file;"
+            f" {b['peer_bytes_share']:.4f} of piece bytes from peers (per peer {b['from_peers_share']});"
+            f" {b['decisions']} decisions ({b['scored']} scored, ≤ {b['candidates_max']} candidates),"
+            f" decide_ms p50 {b['decide_ms_p50']:.2f} p99 {b['decide_ms_p99']:.2f}; {launches} scoring"
+            f" launches, {b['calls_per_launch']:.2f} calls each; rung {b['rung']!r}, {len(demoted)} demoted"
+            + (f"; device idle share {out['device_idle_share']:.4f}" if "device_idle_share" in out else "")
+        )
+        check(b["scored"] > 0 and b["rung"] == "serving" and not demoted and b["kind"] == "mlp",
+              f"download[{device}]: decisions not all served by the MLP: {b}")
+        check(egress < (peers + 1) * size, f"download[{device}]: origin egress {egress} ≥ {peers + 1}× the file")
+        check(max(from_peers.values()) >= 0.9, f"download[{device}]: no peer took 90% from peers: {from_peers}")
+
+        # dfcache on one peer: stat, then export the task
+        peer0 = names[1]
+        check(dfcache.stat(procs.address(peer0), url), "dfcache stat does not find the task")
+        exported = DOWNLOAD_WORK / "daemons" / "exported.bin"
+        dfcache.export_file(procs.address(peer0), url, str(exported), local_only=True)
+        check(_sha256_file(exported) == file_sha, "dfcache export is not the origin's bytes")
+
+        # image preheat through the job worker, then one peer pulls a layer
+        before = sent()
+        t0 = time.perf_counter()
+        manager.CreateJob(manager.pb2.CreateJobRequest(type="preheat", args_json=json.dumps(
+            {"type": "image", "url": f"{base}{IMAGE_PATH}/manifests/v1", "platform": "linux/amd64"})))
+        check(srv.job_worker.poll_once() == 1, "the job worker leased no job")
+        state, result = manager.job_results[len(manager.jobs)]
+        result = json.loads(result)
+        check(state == "succeeded" and result.get("layers") == layers and result.get("count") == layers,
+              f"the image preheat job: {state} {result}")
+        seed_host = next(h.id for h in srv.resource.host_manager.all() if h.hostname == "seed")
+
+        def seeded():
+            done = {p.task.id for p in srv.resource.peer_manager.all()
+                    if p.host.id == seed_host and p.fsm.is_state(res.PEER_STATE_SUCCEEDED)}
+            return set(result["triggered"]) <= done
+
+        while not seeded():
+            check(time.perf_counter() - t0 < 300, "the seed peer did not fetch every layer")
+            time.sleep(0.05)
+        preheat_s = time.perf_counter() - t0
+        layer_url = f"{base}{IMAGE_PATH}/blobs/{digests[0]}"
+        mid = sent()
+        layer_out = DOWNLOAD_WORK / "daemons" / "layer.out"
+        dfget.download(procs.address(peer0), layer_url, str(layer_out))
+        check(_sha256_file(layer_out) == layer_sha[digests[0]], "the layer pull is not the registry's bytes")
+        after = sent()
+        layer_path = f"{IMAGE_PATH}/blobs/{digests[0]}"
+        out["preheat"] = {
+            "seconds": preheat_s, "layers": layers,
+            "seed_origin_bytes": sum(after.get(k, 0) - before.get(k, 0) for k in after if "/blobs/" in k
+                                     ) - (after.get(layer_path, 0) - mid.get(layer_path, 0)),
+            "layer_pull_origin_bytes": after.get(layer_path, 0) - mid.get(layer_path, 0),
+        }
+        print(f"download[{device}]: image preheat of {layers} × {layer_mib} MiB in {preheat_s:.2f} s;"
+              f" the layer pull cost the origin {out['preheat']['layer_pull_origin_bytes']} bytes")
+        check(out["preheat"]["layer_pull_origin_bytes"] == 0, "the preheated layer's pull reached the origin")
+        check(not [r for r in log if r["served"] is None], "a decision after the burst was demoted")
+
+        # records and probes
+        srv.storage.flush()
+        out["records"] = len(srv.storage.list_download())
+        check(out["records"] >= peers, f"download[{device}]: {out['records']} download records written")
+        ids = {h.id: h.hostname for h in srv.resource.host_manager.all()}
+        pairs = [tuple(k.split(":")[1:3]) for k in srv.kvstore.scan_iter("networktopology:*")]
+        srv.topology_engine.flush()
+        held = [p for p in pairs if srv.topology_engine.est_rtt_detail(*p)[1] == "direct"]
+        out["probes"] = {"pairs": len(pairs), "held": len(held), "engine_edges": len(srv.topology_engine.store.edges)}
+        print(f"download[{device}]: {out['records']} download records; {len(pairs)} probed pairs among"
+              f" {len(ids)} hosts, {len(held)} held by the engine ({out['probes']['engine_edges']} edges)")
+        check(pairs and len(held) == len(pairs), f"download[{device}]: the engine lacks probed pairs")
+    finally:
+        procs.stop()
+        if srv is not None:
+            srv.stop()
+        if mgr_server is not None:
+            mgr_server.stop(0)
+        if origin is not None:
+            origin.kill()
+            origin.join()
+        shutil.rmtree(DOWNLOAD_WORK, ignore_errors=True)
+    return out
+
+
 def encoder_inputs(batch: int, seq: int, in_dim: int, seed: int) -> torch.Tensor:
     """Seeded piece histories [B, T, F]: a piece's log cost and its position."""
     rng = np.random.default_rng(seed)
@@ -3501,6 +4008,7 @@ def main() -> int:
     native_csv = leg("native", native_phase, "cuda")
     mesh = leg("mesh", mesh_phase, "cuda")
     check(mesh["backend"] == "nccl", f"the mesh phase ran over {mesh['backend']}, not NCCL")
+    download = leg("download", download_leg, "cuda")
     encoders = {
         kern: leg(f"encoder_{kern}", encoder_leg, "cuda", dtype=dtype, attention=True)
         for kern, dtype in (("sm90", torch.bfloat16), ("tf32x3", torch.float32))
@@ -3522,6 +4030,7 @@ def main() -> int:
         "mesh": mesh,
         "preheat": preheat,
         "server": server,
+        "download": download,
         "encoder": encoders,
         "encoder_grad": grad_legs,
         "tf32x3_d8_bf16": rows["tf32x3_d8_bf16"],

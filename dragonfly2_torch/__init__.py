@@ -24,7 +24,10 @@ sequence parallelism over ``torch.distributed`` (``ops.ring``,
 placement and the preheat plane; and the scheduler and trainer servers
 (``scheduler.server``, ``trainer.server``, ``python -m
 dragonfly2_torch.scheduler`` / ``python -m dragonfly2_torch.trainer``),
-which daemons and the manager reach over gRPC on the reference's wire.
+which daemons and the manager reach over gRPC on the reference's wire; and
+the dfdaemon's download path (``client``: the daemon, seed peer or peer,
+``python -m dragonfly2_torch.client.daemon``, with the ``dfget`` and
+``dfcache`` CLIs).
 """
 
 from dragonfly2_torch.device import compute_dtype, resolve_device

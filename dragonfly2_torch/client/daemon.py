@@ -1,0 +1,584 @@
+"""Peer daemon assembly: wires storage, piece pipeline, upload server,
+gRPC surface, announcer, prober, and GC into one process (counterpart of
+the reference's ``client/daemon.py``).
+
+Role parity: upstream client/daemon/daemon.go:86-899 (assembly),
+client/daemon/announcer/announcer.go:45-337 (host announce),
+client/daemon/networktopology/network_topology.go:39-203 (prober),
+client/daemon/gc/gc.go (storage GC runner).
+
+The config keeps the reference's every key, so one YAML file starts
+either daemon. Four options enable planes this package does not port yet,
+and ``Daemon.start`` raises ``NotImplementedError`` naming the ROADMAP
+item when one is set (:data:`NOT_PORTED`): the HTTP proxy and the object
+storage gateway (A-D2), the manager's dynconfig (A-D1 and A-D3) and fleet
+membership over the shared KV (5h).
+"""
+
+from __future__ import annotations
+
+import socket
+import threading
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+
+from dragonfly2_torch.rpc import glue, protos
+from dragonfly2_torch.client import hostinfo
+from dragonfly2_torch.client.conductor import ConductorOptions
+from dragonfly2_torch.client.peertask import TaskManager
+from dragonfly2_torch.client.piece_manager import PieceManager
+from dragonfly2_torch.client.rpcserver import SERVICE_NAME as DFDAEMON_SERVICE, DfdaemonService
+from dragonfly2_torch.client.storage import StorageManager
+from dragonfly2_torch.client.uploader import UploadServer
+from dragonfly2_torch.utils import dflog
+from dragonfly2_torch.utils.gc import GC, GCTask
+from dragonfly2_torch.utils.idgen import host_id_v2
+
+common_pb2 = protos.load("common_pb2")
+scheduler_pb2 = protos.load("scheduler_pb2")
+
+logger = dflog.get("client.daemon")
+
+# (option, the value test that enables it, what it is, the ROADMAP item)
+NOT_PORTED = (
+    ("proxy_port", lambda v: v >= 0, "the HTTP proxy (proxy.py, transport.py)",
+     "queue A item A-D2"),
+    ("object_storage_port", lambda v: v >= 0,
+     "the object storage gateway (objectstorage.py, dfstore.py)", "queue A item A-D2"),
+    ("manager_address", bool, "the manager's dynconfig (utils/dynconfig.py)",
+     "queue A items A-D1 and A-D3"),
+    ("kv_address", bool, "scheduler-fleet membership (scheduler/fleet.py)",
+     "queue A item 5h"),
+)
+
+
+@dataclass
+class DaemonConfig:
+    data_dir: str
+    scheduler_address: str
+    hostname: str = field(default_factory=socket.gethostname)
+    ip: str = "127.0.0.1"
+    listen: str = "127.0.0.1:0"  # daemon gRPC
+    # also serve the dfdaemon gRPC on this unix socket (local CLI path,
+    # upstream pkg/rpc/mux.go); empty = TCP only
+    unix_socket: str = ""
+    # manager to fetch the scheduler list from (dynconfig-fed, searcher-
+    # scoped); empty = static scheduler_address only
+    manager_address: str = ""
+    dynconfig_interval: float = 300.0
+    # shared KV for scheduler-fleet membership (scheduler/fleet.py,
+    # docs/fleet.md): when set, the daemon follows the fleet's leased
+    # member set directly — the ring reconciles within one poll of a
+    # join/leave/death instead of waiting out a dynconfig interval
+    kv_address: str = ""
+    kv_secret: str = ""
+    fleet_poll_interval: float = 1.0
+    # client-side roots (and optional mTLS pair) for the manager dial —
+    # same shape as the scheduler/trainer manager clients
+    manager_tls_ca_file: str = ""
+    manager_tls_server_name: str = ""
+    manager_tls_client_cert_file: str = ""
+    manager_tls_client_key_file: str = ""
+    upload_host: str = "127.0.0.1"
+    upload_port: int = 0
+    host_type: str = "normal"  # "normal" | "super" (seed peer)
+    location: str = ""
+    idc: str = ""
+    storage_max_bytes: int = 0
+    gc_interval: float = 60.0
+    announce_interval: float = 30.0
+    probe_interval: float = 0.0  # 0 = prober disabled
+    piece_workers: int = 4
+    piece_length: int = 0  # 0 = derive from content length
+    schedule_timeout: float = 10.0
+    concurrent_upload_limit: int = 50
+    scheduler_cluster_id: int = 1
+    # HTTP proxy (registry acceleration): -1 = disabled, 0 = ephemeral
+    # port; rules are transport.ProxyRule instances or kwargs dicts
+    # ({"regex": ..., "direct": ..., "use_https": ..., "redirect": ...})
+    proxy_port: int = -1
+    proxy_host: str = "127.0.0.1"  # bind address (0.0.0.0 in containers)
+    proxy_rules: list = field(default_factory=list)
+    registry_mirror: str = ""
+    # HTTPS interception: spoof per-host certs signed by a local CA
+    # persisted under data_dir/ca (clients trust ca.crt once); hosts
+    # matching proxy_mitm_hosts regexes are intercepted (empty = all)
+    proxy_mitm: bool = False
+    proxy_mitm_hosts: list = field(default_factory=list)
+    object_storage_host: str = "127.0.0.1"  # bind address (0.0.0.0 in containers)
+    # object-storage gateway: -1 = disabled, 0 = ephemeral port; the
+    # backend dir is the bucket store (shared across daemons — NFS/S3
+    # mount in production, a shared tmp dir in tests)
+    object_storage_port: int = -1
+    object_storage_dir: str = ""
+    # host stat collection (upstream announcer.go:158-303). Overrides
+    # replace sampled values — the A/B harness and tests use them to model
+    # synthetic hosts; keys are dotted stat paths ("cpu.percent": 90.0)
+    collect_host_stats: bool = True
+    host_stats_override: dict = field(default_factory=dict)
+    # synthetic per-piece upload latency (A/B harness models slow hosts)
+    upload_delay_s: float = 0.0
+    # extra serving latency on piece 0 only (benign cold-piece pattern:
+    # TCP slow start / cold cache — the GRU bad-node A/B scenario)
+    upload_cold_piece_delay_s: float = 0.0
+    # synthetic receive-side per-piece latency, inside the measured cost
+    # window (fault injection: a loaded host's own downloads slow down)
+    download_delay_s: float = 0.0
+    # global upload bandwidth budget in bytes/s shared by all child peers
+    # (upstream upload totalRateLimit); 0 = unlimited
+    upload_rate_limit: float = 0.0
+    # zero-copy data plane (docs/data-plane.md): serve piece bodies via
+    # os.sendfile from the piece store (False = buffered fallback, same
+    # event loop — the bench's comparison arm)
+    upload_sendfile: bool = True
+    # content-addressed cross-task piece dedup in the store (same
+    # digest → one physical copy, refcounted); DF_PIECE_DEDUP=0 is the
+    # process-wide kill switch
+    piece_dedup: bool = True
+    # bound on concurrent P2P stream tasks through the proxy/gateway
+    # transport; past it requests shed to direct fetches. 0 = unbounded
+    p2p_max_inflight: int = 512
+    # Prometheus /metrics endpoint: -1 = disabled
+    metrics_port: int = -1
+    metrics_host: str = "127.0.0.1"
+    # cluster telemetry push cadence over the manager channel
+    # (utils/telemetry.py, docs/telemetry.md); <= 0 disables
+    telemetry_interval: float = 15.0
+    # global download budget in bytes/s shared across tasks (cross-task
+    # sampling traffic shaper, upstream traffic_shaper.go); 0 = off
+    total_download_rate: float = 0.0
+    # client-side root (and optional mTLS client pair) for schedulers
+    scheduler_tls_ca_file: str = ""
+    scheduler_tls_server_name: str = ""
+    scheduler_tls_client_cert_file: str = ""
+    scheduler_tls_client_key_file: str = ""
+
+
+def _apply_stat_overrides(stats: "hostinfo.HostStats", overrides: dict) -> None:
+    """Apply dotted-path overrides onto a HostStats, raising on unknown
+    paths — a typo silently keeping the sampled value would poison every
+    announced record. Shared by the constructor's
+    fail-fast validation and the per-announce application."""
+    for path, value in overrides.items():
+        group, _, attr = path.partition(".")
+        target = getattr(stats, group, None)
+        if target is None or not attr or not hasattr(target, attr):
+            raise ValueError(
+                f"host_stats_override: unknown stat path {path!r}"
+                f" (expected '<group>.<field>' on HostStats)"
+            )
+        setattr(target, attr, value)
+
+
+class Daemon:
+    """One peer host: piece store + upload server + dfdaemon gRPC +
+    scheduler announce/probe loops."""
+
+    def __init__(self, config: DaemonConfig):
+        self.cfg = config
+        # fail fast on typo'd stat paths — don't wait for the first
+        # announce to discover a bad config
+        _apply_stat_overrides(hostinfo.HostStats(), config.host_stats_override)
+        self.host_id = host_id_v2(config.ip, config.hostname)
+        self.storage = StorageManager(
+            config.data_dir,
+            max_bytes=config.storage_max_bytes,
+            dedup=config.piece_dedup,
+        )
+        self.upload = UploadServer(
+            self.storage,
+            host=config.upload_host,
+            port=config.upload_port,
+            delay_s=config.upload_delay_s,
+            cold_piece_delay_s=config.upload_cold_piece_delay_s,
+            rate_limit_bps=config.upload_rate_limit,
+            use_sendfile=config.upload_sendfile,
+        )
+        self._selector = None
+        self._server = None
+        self.port = 0
+        self._stop = threading.Event()
+        self._threads: list[threading.Thread] = []
+        self.gc = GC()
+        self.task_manager: TaskManager | None = None
+        # constructed here, not in start(): probe_once() is a public
+        # single-round entry point and must work without a running
+        # probe loop (per-host echo budget tied to the probe cadence —
+        # concurrent probes of one host within a round reuse the cached
+        # RTT instead of multiplying echoes)
+        from dragonfly2_torch.utils.ping import Pinger
+
+        self._pinger = Pinger(
+            min_interval=min(1.0, config.probe_interval / 2)
+            if config.probe_interval > 0
+            else 1.0
+        )
+
+    def start(self) -> None:
+        for option, enabled, what, item in NOT_PORTED:
+            value = getattr(self.cfg, option)
+            if enabled(value):
+                raise NotImplementedError(
+                    f"DaemonConfig.{option}={value!r} enables {what}, which this"
+                    f" package does not port yet (ROADMAP {item})"
+                )
+        self.upload.start()
+        addresses = [a for a in self.cfg.scheduler_address.split(",") if a.strip()]
+        self._selector = glue.SchedulerSelector(
+            addresses,
+            dial_kwargs=glue.dial_tls_args(
+                self.cfg.scheduler_tls_ca_file,
+                self.cfg.scheduler_tls_server_name,
+                self.cfg.scheduler_tls_client_cert_file,
+                self.cfg.scheduler_tls_client_key_file,
+            ),
+        )
+        # fail fast when no scheduler is reachable; NOT pinned — the
+        # probe loop re-resolves the primary per round because dynconfig
+        # membership changes can close any cached channel
+        self._selector.primary()
+
+        from dragonfly2_torch.client.piece_manager import TrafficShaper
+
+        self.shaper = TrafficShaper(self.cfg.total_download_rate)
+        self.shaper.start()
+        self.task_manager = TaskManager(
+            host_id=self.host_id,
+            storage=self.storage,
+            scheduler_client=self._selector,
+            piece_manager=PieceManager(
+                concurrent_pieces=self.cfg.piece_workers,
+                shaper=self.shaper,
+                download_delay_s=self.cfg.download_delay_s,
+            ),
+            options=ConductorOptions(
+                piece_workers=self.cfg.piece_workers,
+                schedule_timeout=self.cfg.schedule_timeout,
+                piece_length=self.cfg.piece_length,
+            ),
+            host_info_fn=self.host_info,
+        )
+        service = DfdaemonService(
+            task_manager=self.task_manager,
+            storage=self.storage,
+            upload_addr=self.upload.address,
+        )
+        extra = []
+        if self.cfg.unix_socket:
+            # local CLIs (dfget/dfcache/dfstore) reach the daemon through
+            # the socket without touching the TCP stack (upstream
+            # pkg/rpc/mux.go unix listener; dfget root.go:279 dials it)
+            sock = Path(self.cfg.unix_socket)
+            sock.parent.mkdir(parents=True, exist_ok=True)
+            if sock.exists():
+                # connect-before-unlink: only a DEAD socket is stale. A
+                # spawn race must not unbind a healthy daemon and orphan
+                # it on a deleted inode
+                probe = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+                try:
+                    probe.settimeout(1.0)
+                    probe.connect(str(sock))
+                    probe.close()
+                    raise RuntimeError(
+                        f"another daemon is serving {sock}; refusing to unbind it"
+                    )
+                except socket.timeout:
+                    # a connect TIMEOUT is a live-but-stalled daemon (GC
+                    # pause, loaded host) — unbinding it would orphan a
+                    # healthy server on a deleted inode
+                    probe.close()
+                    raise RuntimeError(
+                        f"a daemon appears to be serving {sock} (slow to"
+                        " accept); refusing to unbind it"
+                    )
+                except (ConnectionRefusedError, FileNotFoundError, OSError):
+                    probe.close()
+                    try:
+                        sock.unlink()  # stale socket from an unclean shutdown
+                    except FileNotFoundError:
+                        pass  # raced: its owner already removed it
+            extra.append(f"unix:{sock}")
+        # flight recorder: crash dumps on SIGTERM/fatal + the Diagnose
+        # snapshot RPC on the daemon's gRPC plane
+        from dragonfly2_torch.rpc.diagnose import DiagnoseService
+        from dragonfly2_torch.utils import flight, profiling
+
+        flight.install("daemon")
+        # continuous profiler: always-on sampler + phase ledger
+        profiling.install("daemon")
+        flight.register_probe(
+            "daemon.tasks",
+            lambda: {"conductors": len(self.task_manager.conductors)},
+        )
+        self._server, self.port = glue.serve(
+            {DFDAEMON_SERVICE: service, glue.DIAGNOSE_SERVICE: DiagnoseService()},
+            address=self.cfg.listen,
+            extra_addresses=extra,
+        )
+        from dragonfly2_torch.utils.metrics import set_build_info
+
+        set_build_info("daemon")
+        self.announce_host()
+
+        if self.cfg.metrics_port >= 0:
+            from dragonfly2_torch.client import metrics  # noqa: F401
+            from dragonfly2_torch.utils.metrics import MetricsServer, default_registry
+
+            self._metrics = MetricsServer(default_registry, host=self.cfg.metrics_host, port=self.cfg.metrics_port)
+            # liveness on the scrape port (/healthz): the gRPC plane up
+            self._metrics.register_health("dfdaemon", lambda: self._server is not None)
+            self.metrics_addr = self._metrics.start()
+            logger.info("daemon metrics on %s", self.metrics_addr)
+
+        self._spawn(self._announce_loop, "announcer")
+        if self.cfg.probe_interval > 0:
+            self._spawn(self._probe_loop, "prober")
+        self.gc.add(
+            GCTask(
+                "storage",
+                interval=self.cfg.gc_interval,
+                timeout=30.0,
+                runner=self.storage.reclaim,
+            )
+        )
+        self.gc.start()
+        logger.info(
+            "daemon up: host=%s grpc=:%d upload=%s", self.host_id, self.port, self.upload.address
+        )
+
+    def stop(self) -> None:
+        self._stop.set()
+        selector = getattr(self, "_selector", None)
+        if selector is not None:
+            for client in selector.all():
+                try:
+                    client.LeaveHost(
+                        scheduler_pb2.LeaveHostRequest(host_id=self.host_id)
+                    )
+                except Exception as e:
+                    # best-effort; TTL GC reaps the host eventually
+                    logger.debug("LeaveHost on shutdown failed: %s", e)
+        if getattr(self, "_metrics", None) is not None:
+            self._metrics.stop()
+        if getattr(self, "shaper", None) is not None:
+            self.shaper.stop()
+        self.gc.stop()
+        if self._server is not None:
+            self._server.stop(grace=1).wait()
+        self.upload.stop()
+        if getattr(self, "_selector", None) is not None:
+            self._selector.close()
+
+    def _spawn(self, fn, name: str) -> None:
+        t = threading.Thread(target=fn, name=name, daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    # ------------------------------------------------------------------
+    # host announce (upstream client/daemon/announcer/announcer.go:158-303)
+    # ------------------------------------------------------------------
+    def host_stats(self) -> hostinfo.HostStats:
+        """Sample live host stats, then apply configured overrides (the
+        harness models synthetic hosts; production runs sample-only)."""
+        if self.cfg.collect_host_stats:
+            stats = hostinfo.collect(
+                data_dir=self.cfg.data_dir,
+                upload_ports=(self.upload.port, self.port),
+            )
+        else:
+            stats = hostinfo.HostStats()
+        _apply_stat_overrides(stats, self.cfg.host_stats_override)
+        return stats
+
+    def host_info(self) -> common_pb2.HostInfo:
+        s = self.host_stats()
+        return common_pb2.HostInfo(
+            id=self.host_id,
+            type=self.cfg.host_type,
+            hostname=self.cfg.hostname,
+            ip=self.cfg.ip,
+            port=self.port,
+            download_port=self.upload.port,
+            os="linux",
+            concurrent_upload_limit=self.cfg.concurrent_upload_limit,
+            cpu=common_pb2.CpuStat(
+                logical_count=s.cpu.logical_count,
+                physical_count=s.cpu.physical_count,
+                percent=s.cpu.percent,
+                process_percent=s.cpu.process_percent,
+            ),
+            memory=common_pb2.MemoryStat(
+                total=s.memory.total,
+                available=s.memory.available,
+                used=s.memory.used,
+                used_percent=s.memory.used_percent,
+                process_used_percent=s.memory.process_used_percent,
+                free=s.memory.free,
+            ),
+            network=common_pb2.NetworkStat(
+                tcp_connection_count=s.network.tcp_connection_count,
+                upload_tcp_connection_count=s.network.upload_tcp_connection_count,
+                location=self.cfg.location,
+                idc=self.cfg.idc,
+            ),
+            disk=common_pb2.DiskStat(
+                total=s.disk.total,
+                free=s.disk.free,
+                used=s.disk.used,
+                used_percent=s.disk.used_percent,
+                inodes_total=s.disk.inodes_total,
+                inodes_used=s.disk.inodes_used,
+                inodes_used_percent=s.disk.inodes_used_percent,
+            ),
+            scheduler_cluster_id=self.cfg.scheduler_cluster_id,
+        )
+
+    def announce_host(self) -> None:
+        # every scheduler must know this host: tasks pin to different
+        # schedulers by consistent hash, and any of them may hand this
+        # host out as a candidate parent
+        info = self.host_info()
+        for client in self._selector.all():
+            try:
+                client.AnnounceHost(scheduler_pb2.AnnounceHostRequest(host=info))
+            except Exception as e:
+                # one dead scheduler must not starve the others of
+                # announcements — they'd expire this host and stop
+                # offering it as a parent
+                logger.warning("announce to one scheduler failed: %s", e)
+
+    def _announce_loop(self) -> None:
+        while not self._stop.wait(self.cfg.announce_interval):
+            try:
+                self.announce_host()
+            except Exception as e:
+                logger.warning("announce host failed: %s", e)
+
+    # ------------------------------------------------------------------
+    # prober (upstream client/daemon/networktopology/network_topology.go:71-203)
+    #
+    # RTT measurement is ICMP echo first (upstream pkg/net/ping/ping.go:
+    # privileged pinger, 1 echo, 1s timeout) with a per-host rate limit,
+    # falling back to a TCP connect round-trip to the target's upload
+    # port when ICMP is unavailable (no CAP_NET_RAW and no unprivileged
+    # ping range) — same latency signal, needs an open port instead of
+    # privileges. utils/ping.py implements both ICMP modes.
+    # ------------------------------------------------------------------
+    def probe_once(self) -> int:
+        """One SyncProbes round; returns number of hosts probed. The
+        request side is queue-fed so the response iterator is only read
+        from this thread (reading it from inside the request generator
+        races gRPC's send loop)."""
+        import queue as _queue
+
+        me = self.host_info()
+        q: "_queue.Queue[scheduler_pb2.SyncProbesRequest | None]" = _queue.Queue()
+        q.put(
+            scheduler_pb2.SyncProbesRequest(
+                host=me, probe_started=scheduler_pb2.ProbeStartedRequest()
+            )
+        )
+        responses = self._selector.primary().SyncProbes(iter(q.get, None))
+        probed = 0
+        try:
+            resp = next(responses, None)
+            if resp is not None and resp.hosts:
+                probes, failed = [], []
+                for ph in resp.hosts:
+                    port = ph.host.download_port or ph.host.port
+                    rtt = self._pinger.rtt(
+                        ph.host.ip,
+                        fallback=lambda ip, p=port: self._tcp_ping(ip, p),
+                    )
+                    if rtt is None:
+                        failed.append(
+                            scheduler_pb2.FailedProbeResult(
+                                host_id=ph.host.id, description="unreachable"
+                            )
+                        )
+                    else:
+                        probes.append(
+                            scheduler_pb2.ProbeResult(
+                                host_id=ph.host.id,
+                                rtt_ns=int(rtt * 1e9),
+                                created_at_ns=time.time_ns(),
+                            )
+                        )
+                if probes:
+                    q.put(
+                        scheduler_pb2.SyncProbesRequest(
+                            host=me,
+                            probe_finished=scheduler_pb2.ProbeFinishedRequest(probes=probes),
+                        )
+                    )
+                if failed:
+                    q.put(
+                        scheduler_pb2.SyncProbesRequest(
+                            host=me,
+                            probe_failed=scheduler_pb2.ProbeFailedRequest(probes=failed),
+                        )
+                    )
+                probed = len(probes)
+        finally:
+            q.put(None)
+            for _ in responses:  # drain until the server closes
+                pass
+        return probed
+
+    @staticmethod
+    def _tcp_ping(ip: str, port: int, timeout: float = 2.0) -> float | None:
+        t0 = time.monotonic()
+        try:
+            with socket.create_connection((ip, port), timeout=timeout):
+                return time.monotonic() - t0
+        except OSError:
+            return None
+
+    def _probe_loop(self) -> None:
+        while not self._stop.wait(self.cfg.probe_interval):
+            try:
+                self.probe_once()
+            except Exception as e:
+                logger.warning("probe round failed: %s", e)
+
+
+# ---------------------------------------------------------------------------
+# `python -m dragonfly2_torch.client.daemon` — the dfdaemon binary
+# (upstream cmd/dfdaemon; daemon assembly client/daemon/daemon.go:114,524)
+# ---------------------------------------------------------------------------
+
+
+class _DaemonRunAdapter:
+    """Adapts Daemon.start/stop onto the runner's serve/stop contract."""
+
+    def __init__(self, daemon: "Daemon"):
+        self.daemon = daemon
+
+    def serve(self) -> str:
+        self.daemon.start()
+        host = self.daemon.cfg.listen.rsplit(":", 1)[0]
+        return f"{host}:{self.daemon.port}"
+
+    def stop(self) -> None:
+        self.daemon.stop()
+
+
+def main(argv=None) -> int:
+    from dragonfly2_torch.cli.runner import main_with_config
+
+    def build(config_path, overrides):
+        from dragonfly2_torch.cli.config import load_config
+
+        cfg = load_config(
+            DaemonConfig, config_path, env_prefix="DF_DAEMON", overrides=overrides
+        )
+        return _DaemonRunAdapter(Daemon(cfg))
+
+    return main_with_config("daemon", build, argv)
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -1,17 +1,42 @@
-"""Scheduler-fleet wire protocol: the ``WRONG_SHARD`` refusal (counterpart
-of the reference's ``scheduler/fleet.py``, its protocol half only).
+"""Scheduler-fleet wire protocol: the ``WRONG_SHARD`` refusal and the
+daemon-side failover series (counterpart of the reference's
+``scheduler/fleet.py``, its protocol half only).
 
 A fleet member refuses an announce for a task whose ring owner is another
 live member with a typed gRPC status (FAILED_PRECONDITION) whose details
 carry the owner and the refusing member's ring version. The services
 render :class:`WrongShardError` that way. Fleet membership itself (leased
 KV registration, the owner check, swarm replication) is not ported: the
-scheduler server raises on ``fleet_enabled`` (ROADMAP queue A).
+scheduler server raises on ``fleet_enabled``, the daemon on
+``kv_address`` (ROADMAP queue A item 5h).
 """
 
 from __future__ import annotations
 
 import re
+
+from dragonfly2_torch.utils.metrics import default_registry as _r
+
+WRONG_SHARD_TOTAL = _r.counter(
+    "fleet_wrong_shard_total",
+    "Announces refused (scheduler side) or re-picked (daemon side) for"
+    " landing on the wrong shard",
+    ("side",),
+)
+FAILOVER_RESUME_TOTAL = _r.counter(
+    "fleet_failover_resume_total",
+    "First decision after an announce-plane outage, by kind:"
+    " 'recognized' (normal/small-task decision — the successor adopted"
+    " the swarm and resumed the peer) vs 'fallback'"
+    " (need_back_to_source — the swarm state was lost and rebuilt)",
+    ("kind",),
+)
+BLACKOUT_MS = _r.histogram(
+    "fleet_blackout_milliseconds",
+    "Announce-plane disruption per failover: from first stream error to"
+    " the next successful scheduler decision",
+    buckets=(50, 100, 250, 500, 1000, 2500, 5000, 10000, 30000),
+)
 
 WRONG_SHARD_PREFIX = "WRONG_SHARD"
 _WRONG_SHARD_RE = re.compile(

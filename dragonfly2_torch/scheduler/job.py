@@ -7,10 +7,9 @@ and `syncPeers` (:224, report the live peer/host view to the manager).
 Here the manager itself is the queue of record and the worker leases jobs
 over gRPC (ListPendingJobs → execute → UpdateJobResult), so no Redis
 deployment is required for the job plane. The ``recommend_seeds`` job
-embeds the probe graph with the GNN on ``device``. The image preheat's
-manifest fetch needs the daemon's source client, which is not ported: a
-``preheat`` job of type ``image`` fails with ``NotImplementedError``'s
-message (ROADMAP queue A item 5g).
+embeds the probe graph with the GNN on ``device``. An image preheat
+resolves its manifest through the daemon's source client
+(``client/source.open_url``).
 """
 
 from __future__ import annotations
@@ -307,13 +306,13 @@ from dragonfly2_torch.utils.oci import (  # noqa: E402 — one home for the
 
 
 def _fetch_manifest(url: str, headers: dict, timeout: float) -> dict:
-    # the reference fetches through the daemon's back-to-source client
-    # (client/source.py: registry auth, proxies, retries)
-    raise NotImplementedError(
-        "image preheat needs the daemon's source client (client/source.py),"
-        f" which is not ported (ROADMAP queue A item 5g); cannot fetch {url}"
-        f" (Accept: {MANIFEST_ACCEPT})"
-    )
+    import urllib.request
+
+    from dragonfly2_torch.client.source import open_url
+
+    req = urllib.request.Request(url, headers={**headers, "Accept": MANIFEST_ACCEPT})
+    with open_url(req, timeout) as resp:
+        return json.loads(resp.read())
 
 
 def resolve_image_layers(

@@ -107,6 +107,11 @@ class SchedulerServerConfig:
     retry_back_to_source_limit: int = 5
     retry_interval: float = 0.05
     candidate_parent_limit: int = 4
+    # a cold task's first peer with no parent asks a seed peer of the
+    # cluster to fetch it, and its peers wait for the seed instead of each
+    # going back to source (upstream seedPeer.enable; the reference's
+    # server leaves it out, so False keeps its behavior)
+    seed_peer_enabled: bool = False
     # probe-graph CSV snapshot cadence (reference CollectInterval, 2h)
     topology_snapshot_interval: float = 2 * 3600.0
     # device-resident topology engine (topology/): the probe graph as a
@@ -321,6 +326,11 @@ class SchedulerServer:
             evaluator = new_evaluator(config.algorithm)
         self.evaluator = evaluator
 
+        # one seed-peer client for scheduling, jobs and preheat, so a seed
+        # download any of them started holds the others' peers alike
+        from dragonfly2_torch.scheduler.resource.seed_peer import SeedPeerClient
+
+        self.seed_client = SeedPeerClient(self.resource.host_manager)
         self.scheduling = Scheduling(
             evaluator,
             SchedulingConfig(
@@ -329,6 +339,7 @@ class SchedulerServer:
                 retry_interval=config.retry_interval,
                 candidate_parent_limit=config.candidate_parent_limit,
             ),
+            seed_client=self.seed_client if config.seed_peer_enabled else None,
         )
         self.service = SchedulerService(
             self.resource,
@@ -363,12 +374,11 @@ class SchedulerServer:
         if self._manager_channel is not None:
             from dragonfly2_torch.manager.service import SERVICE_NAME as MANAGER_SERVICE
             from dragonfly2_torch.scheduler.job import JobWorker
-            from dragonfly2_torch.scheduler.resource.seed_peer import SeedPeerClient
 
             self.job_worker = JobWorker(
                 glue.ServiceClient(self._manager_channel, MANAGER_SERVICE),
                 self.resource,
-                seed_client=SeedPeerClient(self.resource.host_manager),
+                seed_client=self.seed_client,
                 networktopology=self.networktopology,
                 hostname=config.hostname,
                 ip=config.advertise_ip,
@@ -384,7 +394,6 @@ class SchedulerServer:
             from dragonfly2_torch.preheat.demand import DemandWindow
             from dragonfly2_torch.preheat.forecast import DemandForecaster
             from dragonfly2_torch.preheat.planner import PreheatPlanner
-            from dragonfly2_torch.scheduler.resource.seed_peer import SeedPeerClient
 
             demand = DemandWindow(
                 bucket_s=config.preheat_bucket_s,
@@ -415,7 +424,7 @@ class SchedulerServer:
                 # planner jobs inline (execute_now), no manager queue
                 from dragonfly2_torch.scheduler.job import JobWorker
 
-                seed_client = SeedPeerClient(self.resource.host_manager)
+                seed_client = self.seed_client
                 job_worker = JobWorker(
                     None,
                     self.resource,

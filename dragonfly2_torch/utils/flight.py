@@ -72,6 +72,11 @@ def enabled() -> bool:
     return _enabled
 
 
+def set_enabled(on: bool) -> None:
+    global _enabled
+    _enabled = bool(on)
+
+
 def dump_armed() -> bool:
     """True when a flight dump could land somewhere (``DF_DIAG_DIR`` is
     set). Hot paths use this to skip building payloads that exist only to

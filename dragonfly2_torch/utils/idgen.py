@@ -4,28 +4,19 @@ Task ids are content-addressed (sha256 over the url and the ``URLMeta``
 fields that take part in identity), so every peer downloading the same
 object lands on the same task; host ids are stable per (ip, hostname);
 model ids key (type, ip, hostname) so a retrain replaces the same logical
-model. Every id is the hex sha256 of the concatenated parts,
-byte-identical to the reference's.
-
-The peer ids come with the daemon and server slices.
+model; peer ids are unique per download attempt. Every content id is the
+hex sha256 of the concatenated parts, byte-identical to the reference's.
 """
 
 from __future__ import annotations
 
-import hashlib
 import urllib.parse
+import uuid
 from dataclasses import dataclass, field
 
+from dragonfly2_torch.utils.digest import sha256_from_strings
+
 URL_FILTER_SEPARATOR = "&"
-
-
-def sha256_from_strings(*parts: str) -> str:
-    """Hash the concatenation of ``parts`` (the reference's
-    ``utils/digest.sha256_from_strings``)."""
-    h = hashlib.sha256()
-    for p in parts:
-        h.update(p.encode("utf-8"))
-    return h.hexdigest()
 
 
 @dataclass
@@ -83,6 +74,10 @@ def task_id_v1(url: str, meta: URLMeta | None = None) -> str:
 
 def host_id_v2(ip: str, hostname: str) -> str:
     return sha256_from_strings(ip, hostname)
+
+
+def peer_id_v2() -> str:
+    return str(uuid.uuid4())
 
 
 def gnn_model_id_v1(ip: str, hostname: str) -> str:

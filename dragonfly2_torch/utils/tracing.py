@@ -162,12 +162,20 @@ class Span:
     status: str = "ok"
     sampled: bool = True
     attributes: dict = field(default_factory=dict)
+    # made at the first event: most spans have none, and a list per span
+    # is one more object for the collector on every decision
+    events: "list | None" = None
     _tracer: "Tracer | None" = None
     _ctx_token: object = field(default=None, repr=False, compare=False)
 
     def set(self, **attrs) -> "Span":
         self.attributes.update(attrs)
         return self
+
+    def event(self, name: str, **attrs) -> None:
+        if self.events is None:
+            self.events = []
+        self.events.append({"name": name, "ts_ns": time.time_ns(), **attrs})
 
     def end(self, status: str = "ok") -> None:
         if self.end_ns:
@@ -199,6 +207,9 @@ class _UnsampledSpan(Span):
 
     def set(self, **attrs) -> "Span":
         return self
+
+    def event(self, name: str, **attrs) -> None:
+        pass
 
     def end(self, status: str = "ok") -> None:
         pass

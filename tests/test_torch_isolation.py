@@ -13,7 +13,9 @@ through plain requests; the preheat leg's job goes out through a plain
 request), then the server leg, whose scheduler and trainer servers talk
 gRPC, push telemetry and serve /metrics, then the resume phase's crash
 drill (two spawned fits SIGKILLed by a fault rule), the federation
-phase, the native phase and the mesh phase (a gloo group of one), and
+phase, the native phase and the mesh phase (a gloo group of one) and the
+download leg (a seed peer and two peers of the port's daemons, a 2 MiB
+origin, 64 KiB pieces), and
 checks that the native decoder it loaded is its own build; the other also refuses gRPC and protobuf, imports only
 ``chip_smoke`` and runs the five legs again, never the servers."""
 
@@ -132,6 +134,9 @@ if {servers!r}:
     assert nat["streamed"] and nat["prefix_equal"] and nat["graph_equal"], nat
     mesh = chip_smoke.mesh_phase("cpu", hosts=128, probes=16, group_records=400, gnn_epochs=100)
     assert mesh["backend"] == "gloo" and mesh["embed_err"] <= 1e-5, mesh
+    dl = chip_smoke.download_leg("cpu", peers=2, file_mib=2, piece_length=64 * 1024, layers=2, layer_mib=1)
+    assert dl["burst"]["origin_egress_x"] < 3 and dl["burst"]["demoted"] == 0, dl
+    assert dl["records"] >= 2 and dl["preheat"]["layer_pull_origin_bytes"] == 0, dl
 else:
     assert not any(n.startswith("dragonfly2_torch.scheduler.server") for n in sys.modules)
 loaded = sorted(
@@ -174,8 +179,8 @@ def test_port_runs_with_jax_and_reference_blocked():
     # every module of the port was imported (92 with the scheduler and
     # trainer servers, 96 with the sequence-parallel plane, 101 with the
     # telemetry plane and federation, 104 with the native decoder and the
-    # sharded trainer)
-    assert _run_child(BLOCKED, every_module=True) >= 104
+    # sharded trainer, 123 with the client)
+    assert _run_child(BLOCKED, every_module=True) >= 123
 
 
 def test_no_port_source_names_the_reference_build():

@@ -57,11 +57,12 @@ Phases (any failed check raises and the script exits non-zero):
    epochs) and the GRU (its newest 10,000 sequences in ``main``,
    ``GRU_MAX_SEQUENCES`` at the leg's default) at once on the card and
    uploads all three through
-   ``CreateModel`` to a manager stand-in; each holdout mse must beat the
+   ``CreateModel`` to the in-process manager shortcut (``_Manager``); each
+   holdout mse must beat the
    mean predictor's; the refresher then installs the three models — the
    GNN in the serving slot (embedded at swap time over the engine's
    export), the GRU behind bad-node detection — and scheduler waves run
-   on them (rung ``serving``, ``model_kind() == "gnn"``, no demotion
+   on them (one checked wave in ``main``; rung ``serving``, ``model_kind() == "gnn"``, no demotion
    after the warm-up wave, scores as a CPU run's whose GNN pair head
    rounds as the card's does, held in ``hold_served_gnn``'s two stages);
    a reduced streamed fit
@@ -90,23 +91,28 @@ Phases (any failed check raises and the script exits non-zero):
    buckets of 10 s) with 8 rising series among flat ones; one
    ``PreheatPlanner`` sweep fits the GRU demand forecaster inline on the
    card, forecasts every series, plans the rising ones and sends one
-   ``CreateJob`` to the manager stand-in carrying their task ids and
-   ``recommend_seeds_by_rtt`` over the 10,000-host engine; the forecast
+   ``CreateJob`` to the in-process manager shortcut carrying their task ids
+   and ``recommend_seeds_by_rtt`` over the 10,000-host engine; the forecast
    on the card is held against its numpy version (``FORECAST_TOL``), and
    ``recommend_seeds`` ranks 64 candidate hosts with the trained GNN, as
    on the CPU;
 7. server leg: the port's ``SchedulerServer`` (``algorithm="ml"``) and
-   ``TrainerServer`` live over gRPC in this process on the card, with a
-   manager stand-in served by the port's ``glue.serve``, and the
-   daemons' side in 4 processes of its own (started with ``spawn``):
+   ``TrainerServer`` live over gRPC in this process on the card, with the
+   port's ``ManagerServer`` as shipped (sqlite and ``fs`` object storage
+   under the leg's scratch, the read-through cache, the telemetry plane,
+   /metrics, the certificate authority when ``cryptography`` is there),
+   and the daemons' side in 4 processes of its own (started with ``spawn``):
    10,000 hosts announce and sync 16 seeded probes each (160,000 edges)
-   through ``SyncProbes``; 40 tasks × 256 peers run their ``AnnouncePeer``
+   through ``SyncProbes``; 16 tasks × 256 peers run their ``AnnouncePeer``
    streams at 64 at once (a back-to-source seed per task, then children
    scheduled on earlier peers through ``Scheduling`` → ``MLEvaluator`` →
    ``ScoringService`` on a seeded MLP the refresher installed); the
    announcer uploads the records and the probe snapshot to the trainer,
-   whose fits land three ``CreateModel``; the refresher installs them and
-   256 more children are scored by the trained GNN with the GRU behind
+   whose fits land three ``CreateModel``. Each upload — the seeded MLP's
+   too — lands as an inactive version that a poll must not install; the
+   leg activates it with ``UpdateModel`` as an operator would, and the
+   next poll installs it (activation → installed timed); then
+   128 more children are scored by the trained GNN with the GRU behind
    bad-node detection. Every decision must be a legal parent set or a
    legitimate back-to-source, none may drop below the serving rung after
    the warm-up, each order is ``rank_order`` of its card scores, and every
@@ -114,14 +120,17 @@ Phases (any failed check raises and the script exits non-zero):
    a CPU run whose pair head rounds as the card's does, and in
    ``hold_served_gnn``'s two stages; the gap to a float32 head printed
    beside).
-   Both servers run as shipped with a manager: telemetry to the stand-in
-   every 15 s and /metrics on a port of their own; after the last
+   Both servers run as shipped with a manager: telemetry to the manager's
+   plane every 15 s and /metrics on a port of their own; after the last
    decision each pushes once more and must have pushed at least
    ⌊leg s / 15⌋ − 1 times with no failure, the counters the leg counted
-   itself must read alike in the stand-in, both expositions (text and
+   itself must read alike in the plane, both expositions (text and
    OpenMetrics, every line parsed) and the leg's count, /healthz must
    answer 200 with every service ``ok`` and each /debug endpoint 200 with
    JSON; ``build_payload`` ms, payload bytes and scrape ms are printed;
+   the plane's snapshot must name both reporters, the manager's /healthz
+   carry the SLO section, and ``IssueCertificate`` sign a CSR whose chain
+   verifies against the CA;
 7a. native phase: the native CSV decoder (``csrc/dfnative.cc``, built with
    g++ at first use, its seconds printed): decode MiB/s of one 100 MiB
    download CSV through ``decode_pairs_file`` and through
@@ -138,12 +147,17 @@ Phases (any failed check raises and the script exits non-zero):
    ``train_gnn_sharded`` for 120 full-batch steps beating its mean
    predictor and reading the unsharded fit's holdout (within 5e-2
    relative), and ``fedavg_psum`` against ``fedavg_trees``;
-7c. download leg: the P2P download path — the port's ``SchedulerServer``
-   (``algorithm="ml"`` on the card, a seeded MLP installed by the
-   refresher, seed peers enabled) and 8 of the port's daemons, each
+7c. download leg: the P2P download path — the port's ``ManagerServer``,
+   the port's ``SchedulerServer`` (``algorithm="ml"`` on the card, a seeded
+   MLP uploaded inactive, activated with ``UpdateModel`` and then installed
+   by the refresher, seed peers enabled) and 8 of the port's daemons, each
    ``python -m dragonfly2_torch.client.daemon`` in its own interpreter at
    ``DaemonConfig``'s defaults (one seed peer, 7 peers; probes every 2 s
-   into the topology engine through ``SyncProbes``), against an origin in
+   into the topology engine through ``SyncProbes``) with no static
+   scheduler list: each finds the scheduler through the manager's
+   ``ListSchedulers`` (the searcher keeps a decoy cluster's scheduler
+   from them), and the seed peer registers with ``UpdateSeedPeer``; all
+   against an origin in
    a process of its own serving a seeded 1 GiB file: the 7 peers ``dfget``
    it at once, ``dfcache`` stats and exports it on one peer, and an image
    preheat job (an OCI index → the ``linux/amd64`` manifest of 4 layers of
@@ -960,35 +974,22 @@ class _Model:
 
 
 class _Manager:
-    """In-process stand-in for the manager's model registry, job queue and
-    telemetry plane: ``CreateModel`` stores a model as the next version of
-    its id, active at once (the manager's activation step is an
-    operator's), ``ListModels`` lists each id at its newest version,
-    ``GetModelWeights`` returns a stored model's npz bytes, ``CreateJob``
-    keeps the job's request, ``ListPendingJobs`` leases each job once,
-    ``UpdateJobResult`` keeps its outcome and ``ReportTelemetry`` keeps the newest
-    cumulative value of each series a reporter pushed, as the manager's
-    telemetry plane folds them (a new reporter or epoch starts afresh and
-    is acked ``registered``). Called in-process it answers with plain
-    records; with ``pb2`` (the manager's generated module) it answers with
-    its messages, and ``served`` puts it behind a gRPC server — with the
-    scheduler registration, keepalive and job-lease RPCs the scheduler
-    server calls, and the telemetry service — on the port's own
-    ``glue.serve``."""
+    """An in-process shortcut for the manager, for the legs that run in this
+    process without gRPC (scheduler, trainer, resume, federation, preheat,
+    native): ``CreateModel`` stores a model as the next version of its id,
+    active at once (the real manager's activation step is an operator's:
+    the server and download legs run the port's ``ManagerServer`` and
+    activate each version with ``UpdateModel``), ``ListModels`` lists each
+    id at its newest version, ``GetModelWeights`` returns a stored model's
+    npz bytes and ``CreateJob`` keeps the job's request. It answers with
+    plain records."""
 
-    def __init__(self, pb2=None):
+    def __init__(self):
         self.created = {}  # model_id → its newest CreateModel request
         self.versions = {}  # model_id → its newest version
         self.stamps = {}  # model_id → creation order of its newest version
         self.jobs = []  # the CreateJob requests, in order (job id = place + 1)
-        self.leased = set()  # ids of the jobs ListPendingJobs handed out
-        self.job_results = {}  # job id → (state, its result as JSON)
         self.calls = {}  # RPC name → times called
-        # (service, instance) → {"epoch", "seq", "counters", "gauges",
-        # "hists", "sections", "bytes": payload size of each report}
-        self.telemetry = {}
-        self.pb2 = pb2
-        self.telemetry_pb2 = None
         self._seq = 0  # creation order: a newer upload is the newer activation
         self._lock = threading.Lock()
 
@@ -1004,21 +1005,11 @@ class _Manager:
             self.versions[mid] = self.versions.get(mid, 0) + 1
             self._seq += 1
             self.stamps[mid] = self._seq
-            version = self.versions[mid]
-        if self.pb2 is not None:
-            return self.pb2.Model(model_id=mid, type=request.type, version=version, state="active")
-        return None
 
     def ListModels(self, request, context=None):
         self._called("ListModels")
         with self._lock:
             rows = [(r, self.versions[m], self.stamps[m]) for m, r in self.created.items()]
-        if self.pb2 is not None:
-            return self.pb2.ListModelsResponse(models=[
-                self.pb2.Model(model_id=r.model_id, type=r.type, version=v, state="active",
-                               created_at_ns=n, updated_at_ns=n)
-                for r, v, n in rows
-            ])
         return SimpleNamespace(models=[_Model(r.model_id, r.type, v, "active", n, n) for r, v, n in rows])
 
     def GetModelWeights(self, request, context=None):
@@ -1027,93 +1018,50 @@ class _Manager:
             known = self.versions.get(request.model_id) == request.version
             req = self.created.get(request.model_id)
         check(known, "unknown model asked for")
-        if self.pb2 is not None:
-            return self.pb2.ModelWeights(model_id=req.model_id, version=request.version,
-                                         type=req.type, weights=req.weights)
         return SimpleNamespace(weights=req.weights)
 
     def CreateJob(self, request, context=None):
         self._called("CreateJob")
         with self._lock:
             self.jobs.append(request)
-            n = len(self.jobs)
-        if self.pb2 is not None:
-            return self.pb2.Job(id=n, type=request.type, state="pending")
-        return SimpleNamespace(id=n)
+            return SimpleNamespace(id=len(self.jobs))
 
-    # the scheduler server's registration, keepalive and job lease
-    def UpdateScheduler(self, request, context=None):
-        self._called("UpdateScheduler")
-        return self.pb2.Scheduler(hostname=request.hostname, ip=request.ip, port=request.port,
-                                  scheduler_cluster_id=request.scheduler_cluster_id)
 
-    def KeepAlive(self, request_iterator, context=None):
-        self._called("KeepAlive")
-        for _ in request_iterator:
-            pass
-        return self.pb2.Empty()
+def manager_server(work: Path):
+    """The port's ``ManagerServer`` as shipped, in this process: sqlite and
+    the ``fs`` object storage under ``work``, the read-through cache at its
+    30 s, the telemetry plane, ``/metrics`` on a port of its own, and the
+    certificate authority when the ``cryptography`` package is there (its
+    absence is printed, never skipped in silence) → (server, its gRPC
+    address, the operator's channel to it, that channel's client of the
+    manager service, manager_pb2); the caller closes the channel."""
+    import importlib.util
 
-    def ListPendingJobs(self, request, context=None):
-        self._called("ListPendingJobs")
-        with self._lock:
-            pending = [(n, r) for n, r in enumerate(self.jobs, 1) if n not in self.leased]
-            self.leased.update(n for n, _ in pending)
-        return self.pb2.ListPendingJobsResponse(jobs=[
-            self.pb2.Job(id=n, type=r.type, state="running", args_json=r.args_json) for n, r in pending
-        ])
+    from dragonfly2_torch.manager.server import ManagerServer, ManagerServerConfig
+    from dragonfly2_torch.rpc import glue, protos
 
-    def UpdateJobResult(self, request, context=None):
-        self._called("UpdateJobResult")
-        with self._lock:
-            self.job_results[request.id] = (request.state, request.result_json)
-        return self.pb2.Job(id=request.id, state=request.state)
+    certs = importlib.util.find_spec("cryptography") is not None
+    if not certs:
+        print("manager: the cryptography package is missing here; the manager runs with issue_certs=False")
+    mgr = ManagerServer(ManagerServerConfig(data_dir=str(work), metrics_port=0, issue_certs=certs))
+    addr = mgr.serve()
+    channel = glue.dial(addr)
+    return mgr, addr, channel, glue.ServiceClient(channel, glue.MANAGER_SERVICE), protos.load("manager_pb2")
 
-    def ReportTelemetry(self, request, context=None):
-        self._called("ReportTelemetry")
-        payload = json.loads(request.payload_json)
-        with self._lock:
-            key = (request.service, request.instance)
-            state = self.telemetry.get(key)
-            registered = state is None or state["epoch"] != request.epoch
-            if registered:
-                state = self.telemetry[key] = {"epoch": request.epoch, "seq": 0, "counters": {},
-                                               "gauges": {}, "hists": {}, "sections": {}, "bytes": []}
-            if request.seq > state["seq"]:  # a redelivered report changes nothing
-                state["seq"] = request.seq
-                for kind in ("counters", "gauges", "hists"):
-                    state[kind].update(payload.get(kind, {}))
-                state["sections"].update({k: v for k, v in payload.items()
-                                          if k not in ("counters", "gauges", "hists", "full")})
-            state["bytes"].append(len(request.payload_json))
-            seq = state["seq"]
-        return self.telemetry_pb2.TelemetryAck(registered=registered, last_seq=seq)
 
-    def served(self):
-        """This stand-in behind a gRPC server on the port's ``glue.serve``
-        → (server, "127.0.0.1:<port>"), answering the manager's RPCs and
-        ``ReportTelemetry``. The manager RPCs it does not answer abort with
-        UNIMPLEMENTED."""
-        import grpc
+def activate(ops, pb2, model_id: str, version: int) -> None:
+    """``UpdateModel(state="active")``, as an operator activates a version."""
+    got = ops.UpdateModel(pb2.UpdateModelRequest(model_id=model_id, version=version, state="active"))
+    check(got.state == "active" and got.version == version, f"{model_id} v{version} is not active: {got}")
 
-        from dragonfly2_torch.rpc import glue, protos
 
-        self.pb2 = protos.load("manager_pb2")
-        self.telemetry_pb2 = protos.load("telemetry_pb2")
-        stand_in = self
-
-        class _Service:
-            def __getattr__(self, name):
-                impl = getattr(stand_in, name, None)
-                if impl is not None:
-                    return impl
-
-                def unimplemented(request, context):
-                    context.abort(grpc.StatusCode.UNIMPLEMENTED, f"the stand-in has no {name}")
-
-                return unimplemented
-
-        server, port = glue.serve({glue.MANAGER_SERVICE: _Service(), glue.TELEMETRY_SERVICE: _Service()})
-        return server, f"127.0.0.1:{port}"
+def plane_view(plane, service: str, instance: str) -> dict:
+    """What the manager's telemetry plane holds of one reporter: the
+    newest cumulative value of each counter and gauge it pushed."""
+    with plane._lock:
+        rep = plane._reporters.get((service, instance))
+        check(rep is not None, f"the telemetry plane holds no {service} {instance}")
+        return {"counters": dict(rep.counters_cum), "gauges": dict(rep.gauges)}
 
 
 class _RecordingEvaluator(MLEvaluator):
@@ -1332,8 +1280,8 @@ def scheduler_leg(
     seed=0, manager=None,
 ) -> dict:
     """The scheduler's ``ml`` decision path on ``device``: the active MLP of
-    ``manager`` (by default a stand-in holding a seeded random one)
-    installed by the refresher, then ``warmup`` + ``waves`` waves of
+    ``manager`` (by default the in-process shortcut holding a seeded random
+    one) installed by the refresher, then ``warmup`` + ``waves`` waves of
     ``wave_size`` running children through
     ``Scheduling.find_candidate_parents_wave``. Each checked wave must be
     scored by the service (rung ``serving``, one service wave, no
@@ -1609,13 +1557,13 @@ def trainer_leg(
     epochs), with one cut: the GRU keeps the newest ``gru_max_sequences``
     (a rehearsal at a reduced size also lowers the 64 MiB streaming
     threshold, the group and the batches). All three uploads must reach
-    the manager stand-in and beat the mean predictor on their holdout;
-    then the refresher installs the three trained models and scheduler
+    the in-process manager shortcut and beat the mean predictor on their
+    holdout; then the refresher installs the three trained models and scheduler
     waves run on them (``scheduler_leg``): the GNN in the serving slot,
     the GRU behind bad-node detection. On the card, a reduced streamed MLP
     fit and a reduced GRU fit are held against the same fits on the CPU,
     and ~20 superbatches are traced for the device's idle share. The
-    uploads land in ``manager`` (a new stand-in when None)."""
+    uploads land in ``manager`` (a new in-process shortcut when None)."""
     device = torch.device(device)
     rng = np.random.default_rng(seed)
     shutil.rmtree(TRAINER_WORK, ignore_errors=True)
@@ -2094,8 +2042,8 @@ def federation_phase(device, group_records=2000, shards=FEDERATION_SHARDS, batch
     (``group_records`` seeded download records) split into ``shards``, one
     scheduler host each, in trainer storage as that host uploaded it
     (train blocks or CSV); ``Training.federated_round`` fits each shard,
-    merges the fits and sends ``CreateModel`` to a manager stand-in. That
-    upload must be the round's only one, under ``federated_model_id_v1()``
+    merges the fits and sends ``CreateModel`` to the in-process manager
+    shortcut. That upload must be the round's only one, under ``federated_model_id_v1()``
     with hostname ``federated``; its params must be within
     ``FEDERATION_TOL`` (relative to each leaf's largest) of
     ``fedavg_trees`` over the per-host fits recomputed here, each weighted
@@ -2594,6 +2542,7 @@ class _ServerRecordingService(ScoringService):
         self.tls = threading.local()
         self.launches = 0  # batch-loop launches
         self.launch_calls = 0  # calls those launches scored
+        self.batch_ms = []  # each launch's wall (pack, forward, rank, hand-back)
         self.errors = []  # (monotonic s, what the service raised) per failed call
 
     def score_wave(self, features, pairs, counts, budget_s=None):
@@ -2608,7 +2557,11 @@ class _ServerRecordingService(ScoringService):
     def _score_batch(self, batch, rows):
         self.launches += 1
         self.launch_calls += len(batch)
-        return super()._score_batch(batch, rows)
+        t0 = time.perf_counter()
+        try:
+            return super()._score_batch(batch, rows)
+        finally:
+            self.batch_ms.append((time.perf_counter() - t0) * 1e3)
 
 
 class _ServerRecordingEvaluator(MLEvaluator):
@@ -2853,13 +2806,13 @@ def parse_exposition(text: str, openmetrics: bool) -> dict:
     return out
 
 
-def scrape_checks(name: str, metrics_addr: str, standin: dict, own: dict, before: dict) -> dict:
+def scrape_checks(name: str, metrics_addr: str, held: dict, own: dict, before: dict) -> dict:
     """One server's scrape port: /metrics in the text format and in
     OpenMetrics (every line parses), /healthz (200, every service ``ok``),
     each /debug endpoint (200, JSON); then each counter of ``own`` (series
     → what the leg itself counted since ``before``) must read the same in
-    the manager stand-in's newest push (``standin``), in the scrape, and
-    ``before`` + the leg's count. → scrape ms and series counts."""
+    what the manager's telemetry plane holds (``held``, ``plane_view``), in
+    the scrape, and ``before`` + the leg's count. → scrape ms and series counts."""
     base = f"http://{metrics_addr}"
     status, ctype, body, text_ms = http_get(base + "/metrics")
     check(status == 200 and ctype.startswith("text/plain"), f"{name}: /metrics answered {status} {ctype}")
@@ -2879,10 +2832,10 @@ def scrape_checks(name: str, metrics_addr: str, standin: dict, own: dict, before
         json.loads(body)
     for series, n in own.items():
         want = before.get(series, 0.0) + n
-        got = (standin["counters"].get(series), text.get(series), om.get(series))
+        got = (held["counters"].get(series), text.get(series), om.get(series))
         check(got == (want, want, want),
-              f"{name}: {series} is {got} (manager stand-in, text scrape, OpenMetrics scrape), not {want}")
-    pushed = {k: v for kind in ("counters", "gauges") for k, v in standin[kind].items()}
+              f"{name}: {series} is {got} (manager's plane, text scrape, OpenMetrics scrape), not {want}")
+    pushed = {k: v for kind in ("counters", "gauges") for k, v in held[kind].items()}
     agree = sum(text.get(k) == v for k, v in pushed.items())
     print(
         f"server: {name} scrape: /metrics {text_ms:.2f} ms ({len(text)} series, {om_bytes} B OpenMetrics in"
@@ -2894,13 +2847,53 @@ def scrape_checks(name: str, metrics_addr: str, standin: dict, own: dict, before
             "pushed_series": len(pushed), "pushed_agree": agree}
 
 
+def manager_checks(mgr, addr: str, reporters: set) -> dict:
+    """The port's manager after a leg: its telemetry plane's snapshot names
+    every reporter in ``reporters`` ((service, instance) pairs) live, its
+    /healthz answers 200 with the plane's SLO section, its /metrics parses,
+    and, when it runs the certificate authority, ``IssueCertificate`` signs
+    a CSR into a chain that verifies against the CA. → ms of each."""
+    t0 = time.perf_counter()
+    snap = mgr.telemetry.snapshot()
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    live = {(r["service"], r["instance"]) for r in snap["services"] if not r["stale"]}
+    check(reporters <= live, f"manager: the plane's snapshot lacks {reporters - live}")
+    status, _, body, health_ms = http_get(f"http://{mgr.metrics_addr}/healthz")
+    health = json.loads(body)
+    check(status == 200 and health["status"] == "ok" and set(health["slo"]["slos"]) >= {"download_success"},
+          f"manager: /healthz {status} {health}")
+    status, _, body, _ = http_get(f"http://{mgr.metrics_addr}/metrics")
+    check(status == 200, f"manager: /metrics answered {status}")
+    series = parse_exposition(body.decode(), openmetrics=False)
+    out = {"snapshot_ms": snapshot_ms, "healthz_ms": health_ms, "series": len(series),
+           "breached": health["slo"]["breached"], "issue_certs": mgr.service.ca is not None}
+    if mgr.service.ca is not None:
+        from cryptography import x509
+        from cryptography.hazmat.primitives.asymmetric import padding
+
+        from dragonfly2_torch.utils.issuer import obtain_certificate
+
+        t0 = time.perf_counter()
+        _, leaf_pem, ca_pem = obtain_certificate(addr, "leg-peer", hosts=["127.0.0.1", "leg-peer"])
+        out["issue_ms"] = (time.perf_counter() - t0) * 1e3
+        leaf, ca = x509.load_pem_x509_certificate(leaf_pem), x509.load_pem_x509_certificate(ca_pem)
+        ca.public_key().verify(leaf.signature, leaf.tbs_certificate_bytes, padding.PKCS1v15(),
+                               leaf.signature_hash_algorithm)
+        check(leaf.issuer == ca.subject, "manager: the issued certificate's issuer is not the CA")
+    print(f"manager: plane snapshot {snapshot_ms:.2f} ms ({len(snap['services'])} reporters), /healthz"
+          f" {health_ms:.2f} ms (SLOs breached: {out['breached']}), /metrics {len(series)} series"
+          + (f", IssueCertificate {out['issue_ms']:.1f} ms (chain verified)" if "issue_ms" in out
+             else ", no certificate authority"))
+    return out
+
+
 def server_leg(
     device, hosts=10_000, probes=16, tasks=40, peers=256, concurrency=64,
     phase2=256, probe_rounds=3, gnn_epochs=60, mlp_batch=512, seed=0,
 ) -> dict:
     """The port's scheduler and trainer servers on ``device``, live over
-    gRPC in this process: a manager stand-in served by the port's
-    ``glue.serve``, a ``TrainerServer`` and a ``SchedulerServer``
+    gRPC in this process: the port's ``ManagerServer`` as shipped
+    (``manager_server``), a ``TrainerServer`` and a ``SchedulerServer``
     (``algorithm="ml"``) wired to it. The daemons' side runs in
     ``SERVER_DAEMON_PROCS`` spawned processes (``_Daemons``), gRPC clients
     speaking raw ``scheduler_pb2`` through the port's ``ServiceClient``,
@@ -2908,13 +2901,17 @@ def server_leg(
     interpreter and its collector as a deployment has them. ``hosts``
     hosts announce and sync ``probes`` seeded probes each, in
     ``probe_rounds`` rounds with a topology snapshot after each (a
-    snapshot keeps each host's 5 newest edges, so the rounds carry the
-    whole probe graph to the trainer); phase 1 runs ``tasks`` × ``peers``
-    ``AnnouncePeer`` streams (one back-to-source seed per task, then
+    snapshot keeps each host's 5 newest edges, so rounds of at most 5
+    probes carry the whole probe graph to the trainer, and the default
+    rounds of 5, 5 and 6 all but one edge of each host); phase 1 runs
+    ``tasks`` × ``peers`` ``AnnouncePeer`` streams (one back-to-source seed per task, then
     children scheduled on earlier peers), scored by a seeded MLP the
-    refresher installed; the announcer uploads phase 1's records and the
-    probe snapshots to the trainer, which fits MLP, GNN and GRU and sends
-    three ``CreateModel``; the refresher installs them; phase 2 runs
+    refresher installed once it was activated (uploaded inactive, a poll
+    before ``UpdateModel(state="active")`` must install nothing); the
+    announcer uploads phase 1's records and the probe snapshots to the
+    trainer, which fits MLP, GNN and GRU and sends three ``CreateModel``;
+    they land inactive, a poll installs nothing, the leg activates each
+    and the next poll installs them (activation → installed timed); phase 2 runs
     ``phase2`` more children on the trained GNN, the GRU behind bad-node
     detection. Every decision is checked (a legal parent set — peers of
     the child's task registered before its answer — or a legitimate
@@ -2923,10 +2920,12 @@ def server_leg(
     call is rescored on the CPU. Both servers run as shipped with a
     manager: each pushes telemetry every 15 s (``telemetry_interval``'s
     default) and serves /metrics on a port of its own; after the last
-    decision each reporter pushes once more, and its pushes, the stand-in's
-    values, both expositions, /healthz and the /debug endpoints are checked
-    (``scrape_checks``). The server process's cyclic collections during
-    traffic are timed (``gc.callbacks``), not changed."""
+    decision each reporter pushes once more, and its pushes, what the
+    manager's telemetry plane holds of it, both expositions, /healthz and
+    the /debug endpoints are checked (``scrape_checks``), and so are the
+    plane's snapshot and the manager's /healthz with its SLO section. The
+    server process's cyclic collections during traffic are timed
+    (``gc.callbacks``), not changed."""
     import gc
     import inspect
 
@@ -2936,7 +2935,9 @@ def server_leg(
     from dragonfly2_torch.scheduler import server as sched_server
     from dragonfly2_torch.scheduler import serving as serving_mod
     from dragonfly2_torch.scheduler.server import SchedulerServer, SchedulerServerConfig
+    from dragonfly2_torch.trainer import training as training_mod
     from dragonfly2_torch.trainer.server import TrainerServer, TrainerServerConfig
+    from dragonfly2_torch.trainer.train import train_gnn
 
     pieces = SERVER_PIECES
     # glue.serve's pool: one worker per open AnnouncePeer stream
@@ -2950,8 +2951,7 @@ def server_leg(
     procs = min(SERVER_DAEMON_PROCS, concurrency)
     daemons = _Daemons(procs, concurrency // procs, hosts=hosts, probes=probes, seed=seed,
                        hosts_of=[h.tolist() for h in hosts_of], pieces=pieces)
-    manager = _Manager()
-    mgr_server = srv = trainer = None
+    mgr = ops_channel = srv = trainer = None
     # collector generation → [collections, longest wall ms, total wall ms,
     # longest ms on the collecting thread's clock]: a collection's wall
     # counts the time other threads ran while a finalizer had released
@@ -2971,9 +2971,10 @@ def server_leg(
     try:
         shutil.rmtree(SERVER_WORK, ignore_errors=True)
         SERVER_WORK.mkdir(parents=True)
-        mgr_server, mgr_addr = manager.served()
+        mgr, mgr_addr, ops_channel, ops, pb2 = manager_server(SERVER_WORK / "manager")
         seed_blob = serialize_params(init_mlp(torch.Generator().manual_seed(seed), MLP_DIMS))
-        manager.CreateModel(manager.pb2.CreateModelRequest(model_id="mlp-seeded", type="mlp", weights=seed_blob))
+        up = ops.CreateModel(pb2.CreateModelRequest(model_id="mlp-seeded", type="mlp", weights=seed_blob))
+        check((up.version, up.state) == (1, "inactive"), f"the seeded MLP landed as {up.version} {up.state}")
         before = registry_snapshot()["counters"]
         trainer = TrainerServer(TrainerServerConfig(
             data_dir=str(SERVER_WORK / "trainer"), manager_address=mgr_addr, device=str(device),
@@ -3005,14 +3006,16 @@ def server_leg(
         reporters = {"scheduler": srv.telemetry_reporter, "trainer": trainer.telemetry_reporter}
         # each push: (time.monotonic() at its start, build_payload ms, whole push ms)
         pushes = {name: [] for name in reporters}
+        payload_bytes = {name: [] for name in reporters}  # each payload's JSON size
         for name, rep in reporters.items():
             check(rep is not None and rep.interval == 15.0, f"the {name} server runs no reporter at 15 s")
             building = []
 
-            def timed_build(build=rep.build_payload, sink=building):
+            def timed_build(build=rep.build_payload, sink=building, sizes=payload_bytes[name]):
                 t0 = time.perf_counter()
                 got = build()
                 sink.append((time.perf_counter() - t0) * 1e3)
+                sizes.append(len(json.dumps(got[0], default=str)))
                 return got
 
             def timed_push(push=rep.push_once, log=pushes[name], built=building):
@@ -3023,8 +3026,19 @@ def server_leg(
 
             rep.build_payload, rep.push_once = timed_build, timed_push
         out = {"daemon_procs": procs}
+        # the gate: an inactive upload is never installed; once activated,
+        # the next poll installs it
+        check(srv.model_refresher.loaded_version is None and not srv.model_refresher.refresh_once()
+              and srv.model_refresher.loaded_version is None, "a poll installed the inactive seeded MLP")
+        t0 = time.perf_counter()
+        activate(ops, pb2, "mlp-seeded", 1)
+        check(srv.model_refresher.refresh_once(), "the refresher did not install the activated seeded MLP")
+        sync(device)
+        out["seed_activation_to_install_ms"] = (time.perf_counter() - t0) * 1e3
         check(srv.model_refresher.loaded_version == ("mlp-seeded", 1), "the seeded MLP is not installed")
         check(service.model_kind() == "mlp", "the seeded MLP does not hold the serving slot")
+        print(f"server[{device}]: the seeded MLP uploaded inactive, not installed by a poll; activated →"
+              f" installed in {out['seed_activation_to_install_ms']:.1f} ms")
         check(srv.topology_engine.device.type == device.type, "the topology engine is not on the device")
         daemons.map("dial", [addr] * procs)
         gc.callbacks.append(on_gc)
@@ -3131,11 +3145,14 @@ def server_leg(
         def phase_stats(walls, wall_s, decisions, served, launches0, phase):
             launches = service.launches - launches0[0]
             calls = service.launch_calls - launches0[1]
+            batch_ms = service.batch_ms[launches0[0] : service.launches] or [0.0]
             st = {
                 "decisions": decisions, "served": served, "wall_s": wall_s,
                 "decisions_per_s": decisions / wall_s,
                 "decide_ms_p50": float(np.percentile(walls, 50)), "decide_ms_p99": float(np.percentile(walls, 99)),
                 "launches": launches, "calls_per_launch": calls / launches if launches else 0.0,
+                "batch_ms_p50": float(np.percentile(batch_ms, 50)), "batch_ms_p99": float(np.percentile(batch_ms, 99)),
+                "batch_ms_max": float(max(batch_ms)),
             }
             print(
                 f"server[{device}] {phase}: {decisions} decisions in {wall_s:.2f}s"
@@ -3143,7 +3160,8 @@ def server_leg(
                 f" {workers} gRPC workers; decide_ms p50={st['decide_ms_p50']:.2f}"
                 f" p99={st['decide_ms_p99']:.2f} over {len(walls)} after the warm-up (register sent →"
                 f" response); {served} served; {launches} scoring launches, {st['calls_per_launch']:.2f}"
-                f" calls each"
+                f" calls each, a launch's wall ms p50={st['batch_ms_p50']:.2f} p99={st['batch_ms_p99']:.2f}"
+                f" max={st['batch_ms_max']:.2f} (the service's grace {service.cfg.service_grace_s * 1e3:.0f})"
             )
             return st
 
@@ -3175,28 +3193,49 @@ def server_leg(
         check(service.model_kind() == "mlp", "phase 1 was not served by the MLP")
 
         # upload → fits → CreateModel × 3 → install
-        uploads0 = manager.calls.get("CreateModel", 0)
+        uploads0 = len(mgr.models.list())
         srv.storage.flush()
         records = Path(cfg.data_dir) / "records"
         blocks = sorted((records / "blocks").glob("download*.dfb"))
         labels = np.concatenate([wire.read_train_pairs(p).labels for p in blocks])
         gru_labels = np.concatenate([q.labels for p in blocks for q in wire.stream_gru_sequences(p)])
         upload_bytes = sum(p.stat().st_size for p in (records / "blocks").glob("*.dfb"))
-        t0 = time.perf_counter()
-        check(srv.announcer.train_once(), "the announcer uploaded nothing")
-        upload_s = time.perf_counter() - t0
-        deadline = time.time() + 900
-        while manager.calls.get("CreateModel", 0) < uploads0 + 3 and time.time() < deadline:
-            time.sleep(0.05)
-        round_s = time.perf_counter() - t0
-        check(manager.calls.get("CreateModel", 0) == uploads0 + 3, "the trainer sent no three CreateModel")
-        ups = {t: manager.created[f(SERVER_IP, SERVER_HOST)] for t, f in
-               (("mlp", mlp_model_id_v1), ("gnn", gnn_model_id_v1), ("gru", gru_model_id_v1))}
+        # the probe graph and config of the trainer's GNN fit, for the mean
+        # predictor on the fit's own holdout
+        fitted = []
+
+        def recording_train_gnn(graph, config=None, **kw):
+            fitted.append((graph, config or GNNFitConfig()))
+            return train_gnn(graph, config=config, **kw)
+
+        training_mod.train_gnn = recording_train_gnn
+        try:
+            t0 = time.perf_counter()
+            check(srv.announcer.train_once(), "the announcer uploaded nothing")
+            upload_s = time.perf_counter() - t0
+            deadline = time.time() + 900
+            while len(mgr.models.list()) < uploads0 + 3 and time.time() < deadline:
+                time.sleep(0.05)
+            round_s = time.perf_counter() - t0
+        finally:
+            training_mod.train_gnn = train_gnn
+        check(len(mgr.models.list()) == uploads0 + 3, "the trainer sent no three CreateModel")
+        ups = {}
+        for t, f in (("mlp", mlp_model_id_v1), ("gnn", gnn_model_id_v1), ("gru", gru_model_id_v1)):
+            row = mgr.models.get(f(SERVER_IP, SERVER_HOST), 1)
+            check(row is not None and row.state == "inactive", f"the trained {t} did not land inactive: {row}")
+            ups[t] = SimpleNamespace(model_id=row.model_id, version=row.version, type=row.type,
+                                     evaluation=SimpleNamespace(**row.evaluation),
+                                     weights=mgr.models.load_weights(row.model_id, row.version))
+        # the live graph the refresher embeds for serving (rescored below)
         graph = build_probe_graph(records_to_columns(srv.networktopology.export_records()))
-        _, eval_idx = _split_eval(len(graph.edge_src), GNNFitConfig.eval_fraction, GNNFitConfig.seed)
-        # the GNN's holdout is the trainer's own split of the same graph;
+        check(len(fitted) == 1, f"the trainer ran {len(fitted)} GNN fits, not 1")
+        # the GNN's holdout is the trainer's own split of the graph it fit
+        # (its snapshots' edges, in their order — not the live graph's);
         # the MLP's and the GRU's mean predictors are over all their labels
-        means = {"mlp": mean_mse(labels), "gnn": mean_mse(graph.edge_rtt_log_ms[eval_idx]),
+        fit_graph, fit_cfg = fitted[0]
+        _, eval_idx = _split_eval(len(fit_graph.edge_src), fit_cfg.eval_fraction, fit_cfg.seed)
+        means = {"mlp": mean_mse(labels), "gnn": mean_mse(fit_graph.edge_rtt_log_ms[eval_idx]),
                  "gru": mean_mse(gru_labels)}
         for t, up in ups.items():
             check(up.type == t, f"the {t} upload has type {up.type}")
@@ -3204,13 +3243,17 @@ def server_leg(
                   f" (mean predictor {means[t]:.5f})")
             check(np.isfinite(up.evaluation.mse) and up.evaluation.mse < means[t],
                   f"the {t} fit does not beat the mean predictor")
+        r = srv.model_refresher
+        check(not r.refresh_once() and r.loaded_version == ("mlp-seeded", 1) and r.loaded_gnn_version is None
+              and r.loaded_gru_version is None, "a poll installed an inactive trained model")
         t0 = time.perf_counter()
-        check(srv.model_refresher.refresh_once(), "the refresher installed nothing")
+        for t in ups:
+            activate(ops, pb2, ups[t].model_id, ups[t].version)
+        check(r.refresh_once(), "the refresher installed nothing")
         sync(device)
         install_ms = (time.perf_counter() - t0) * 1e3
-        r = srv.model_refresher
         for t, got in (("mlp", r.loaded_version), ("gnn", r.loaded_gnn_version), ("gru", r.loaded_gru_version)):
-            want = (ups[t].model_id, manager.versions[ups[t].model_id])
+            want = (ups[t].model_id, ups[t].version)
             check(got == want, f"the refresher loaded {t} {got}, not the upload {want}")
         check(service.model_kind() == "gnn", "the trained GNN does not hold the serving slot")
         out.update(upload_mib=upload_bytes / 2**20, upload_s=upload_s, round_s=round_s, install_ms=install_ms,
@@ -3219,7 +3262,8 @@ def server_leg(
         print(
             f"server[{device}]: announcer → TrainerServer over gRPC: {out['upload_mib']:.2f} MiB of blocks"
             f" ({len(labels)} pairs, {topology_rows} topology rows) streamed in {upload_s:.2f}s;"
-            f" round_s={round_s:.1f} (upload → three CreateModel); install_ms={install_ms:.1f}"
+            f" round_s={round_s:.1f} (upload → three CreateModel, landed inactive); install_ms={install_ms:.1f}"
+            f" (three UpdateModel activations → the next poll installed them)"
         )
 
         # phase 2: more children, on the trained GNN with the GRU filter
@@ -3242,7 +3286,7 @@ def server_leg(
         )
 
         # telemetry: one last push from each reporter after the last
-        # decision, then the pushes, the stand-in and the scrape ports
+        # decision, then the pushes, the manager's plane and the scrape ports
         n_peers = len(seeds) + len(children) + len(later)
         own = {
             "scheduler": {
@@ -3258,12 +3302,12 @@ def server_leg(
         for name, rep in reporters.items():
             check(rep.push_once(), f"the {name} server's last push failed")
             leg_s = time.perf_counter() - served_at[name]
-            standin = manager.telemetry[(name, rep.instance)]
+            held = plane_view(mgr.telemetry, name, rep.instance)
             floor = max(int(leg_s // rep.interval) - 1, 0)
             check(rep.failures == 0 and rep.pushes >= floor,
                   f"the {name} server pushed {rep.pushes} times with {rep.failures} failures in {leg_s:.1f}s"
                   f" (at least {floor} wanted, none failed)")
-            sizes = standin["bytes"]
+            sizes = payload_bytes[name]
             build_ms, push_ms = [b for _, b, _ in pushes[name]], [ms for _, _, ms in pushes[name]]
             st = {
                 "pushes": rep.pushes, "failures": rep.failures, "leg_s": leg_s, "min_pushes": floor,
@@ -3281,8 +3325,9 @@ def server_leg(
                 f" p50={st['payload_bytes_p50']:.0f} max={st['payload_bytes_max']} total"
                 f" {st['payload_bytes_total']}"
             )
-            st.update(scrape_checks(name, servers[name].metrics_addr, standin, own[name], before))
+            st.update(scrape_checks(name, servers[name].metrics_addr, held, own[name], before))
             out["telemetry"][name] = st
+        out["manager"] = manager_checks(mgr, mgr_addr, {(name, rep.instance) for name, rep in reporters.items()})
 
         # every served call rescored on the CPU
         cpu = {"seeded": MLPScorer(deserialize_params_auto(seed_blob), device="cpu"),
@@ -3332,8 +3377,10 @@ def server_leg(
             srv.stop()
         if trainer is not None:
             trainer.stop()
-        if mgr_server is not None:
-            mgr_server.stop(0)
+        if ops_channel is not None:
+            ops_channel.close()
+        if mgr is not None:
+            mgr.stop()
         shutil.rmtree(SERVER_WORK, ignore_errors=True)
 
 
@@ -3561,18 +3608,27 @@ def download_leg(
     layers=DOWNLOAD_LAYERS, layer_mib=DOWNLOAD_LAYER_MIB, probe_interval=DOWNLOAD_PROBE_INTERVAL_S,
     seed=0,
 ) -> dict:
-    """The P2P download path end to end: the port's ``SchedulerServer``
+    """The P2P download path end to end: the port's ``ManagerServer`` as
+    shipped (``manager_server``), the port's ``SchedulerServer``
     (``algorithm="ml"`` on ``device``, a seeded MLP ``[19, 128, 128, 1]``
-    installed by the refresher from a served manager stand-in) and the
-    port's daemons — one seed peer (``host_type="super"``) and ``peers``
-    peers, each ``python -m dragonfly2_torch.client.daemon`` in its own
-    interpreter at ``DaemonConfig``'s defaults (pieces from
-    ``compute_piece_length`` unless ``piece_length``) but a
-    ``probe_interval`` of ``probe_interval`` s, whose probes reach the
-    topology engine through ``SyncProbes``. An origin in its own process
+    uploaded inactive, which a poll must not install, then activated with
+    ``UpdateModel`` and installed by the refresher) and the port's daemons
+    — one seed peer (``host_type="super"``) and ``peers`` peers, each
+    ``python -m dragonfly2_torch.client.daemon`` in its own interpreter at
+    ``DaemonConfig``'s defaults (pieces from ``compute_piece_length``
+    unless ``piece_length``) but a ``probe_interval`` of ``probe_interval``
+    s, whose probes reach the topology engine through ``SyncProbes``. The
+    daemons have no static scheduler list: each finds the scheduler
+    through the manager (``manager_address``, ``DaemonDynconfig``), and the
+    seed peer registers there with ``UpdateSeedPeer``. The manager holds a
+    second scheduler cluster, scoped to another IDC, with a scheduler of
+    its own on a closed port (the cluster settings an operator makes
+    through the console, written to the manager's database): the searcher
+    must keep it from the daemons, and ``ListSchedulers`` for the daemons'
+    address must read back the one live scheduler before the burst. An origin in its own process
     serves a ``file_mib`` MiB file made from ``seed`` and counts its bytes.
     Traffic: every peer ``dfget``s the file at once (the burst); ``dfcache``
-    stats and exports the task on one peer; a ``CreateJob`` on the stand-in
+    stats and exports the task on one peer; a ``CreateJob`` on the manager
     preheats an image (an OCI index → its ``linux/amd64`` manifest of
     ``layers`` layers of ``layer_mib`` MiB) through the scheduler's job
     worker, which resolves the manifest with the port's source client and
@@ -3597,7 +3653,7 @@ def download_leg(
     names = ["seed"] + [f"peer-{i}" for i in range(peers)]
     out = {"peers": peers, "file_mib": file_mib}
     procs = _DaemonProcs(DOWNLOAD_WORK / "daemons")
-    origin = mgr_server = srv = None
+    origin = mgr = ops_channel = srv = None
     decide_ms, log = [], []
 
     class _Evaluator(_ServerRecordingEvaluator):
@@ -3627,10 +3683,21 @@ def download_leg(
             with urllib.request.urlopen(f"{base}/_sent", timeout=30) as r:
                 return json.loads(r.read())
 
-        manager = _Manager()
-        mgr_server, mgr_addr = manager.served()
+        mgr, mgr_addr, ops_channel, ops, pb2 = manager_server(DOWNLOAD_WORK / "manager")
+        # the operator's cluster settings: the default cluster takes the
+        # loopback's peers; a decoy cluster in another IDC has a scheduler
+        # on a closed loopback port that no daemon may be handed
+        mgr.db.execute("UPDATE scheduler_clusters SET scopes = ? WHERE id = ?",
+                       (json.dumps({"cidrs": ["127.0.0.0/8"]}), mgr.service.default_cluster_id))
+        now = time.time()
+        decoy = mgr.db.execute(
+            "INSERT INTO scheduler_clusters (name, scopes, created_at, updated_at) VALUES ('decoy', ?, ?, ?)",
+            (json.dumps({"idc": "decoy-idc"}), now, now)).lastrowid
+        ops.UpdateScheduler(pb2.UpdateSchedulerRequest(hostname="decoy", ip="127.0.0.1", port=_free_port(),
+                                                       idc="decoy-idc", scheduler_cluster_id=decoy))
         blob = serialize_params(init_mlp(torch.Generator().manual_seed(seed), MLP_DIMS))
-        manager.CreateModel(manager.pb2.CreateModelRequest(model_id="mlp-seeded", type="mlp", weights=blob))
+        up = ops.CreateModel(pb2.CreateModelRequest(model_id="mlp-seeded", type="mlp", weights=blob))
+        check((up.version, up.state) == (1, "inactive"), f"the seeded MLP landed as {up.version} {up.state}")
         cfg = SchedulerServerConfig(
             data_dir=str(DOWNLOAD_WORK / "scheduler"), manager_address=mgr_addr, algorithm="ml",
             device=str(device), model_refresh_interval=3600.0, job_poll_interval=3600.0,
@@ -3654,6 +3721,13 @@ def download_leg(
 
         srv.scheduling.schedule_candidate_parents = timed_schedule
         addr = srv.serve()
+        check(srv.model_refresher.loaded_version is None and not srv.model_refresher.refresh_once(),
+              "a poll installed the inactive seeded MLP")
+        t1 = time.perf_counter()
+        activate(ops, pb2, "mlp-seeded", 1)
+        check(srv.model_refresher.refresh_once(), "the refresher did not install the activated seeded MLP")
+        sync(device)
+        out["activation_to_install_ms"] = (time.perf_counter() - t1) * 1e3
         check(srv.model_refresher.loaded_version == ("mlp-seeded", 1), "the seeded MLP is not installed")
         served = service._served[0]
         check(service.model_kind() == "mlp" and isinstance(served._scorer, MLPScorer)
@@ -3661,9 +3735,12 @@ def download_leg(
               f"the serving slot holds {service.model_kind()!r}, not the MLP on {device}")
         check(srv.topology_engine.device.type == device.type, "the topology engine is not on the device")
         out["setup_s"] = time.perf_counter() - t0
+        print(f"download[{device}]: the seeded MLP uploaded inactive, not installed by a poll; activated →"
+              f" installed in {out['activation_to_install_ms']:.1f} ms")
 
         t0 = time.perf_counter()
-        common = {"scheduler_address": addr, "probe_interval": probe_interval}
+        # no static scheduler list ('' is YAML's empty string on the command line)
+        common = {"scheduler_address": "''", "manager_address": mgr_addr, "probe_interval": probe_interval}
         if piece_length:
             common["piece_length"] = piece_length
         procs.start({n: dict(common, host_type="super" if n == "seed" else "normal") for n in names})
@@ -3679,6 +3756,23 @@ def download_leg(
         out["probed_s"] = time.perf_counter() - t0
         print(f"download[{device}]: {len(names)} daemons up in {out['daemons_up_s']:.2f} s,"
               f" each probed by {out['probed_s']:.2f} s")
+        # what the manager holds before the burst: the one live scheduler
+        # for the daemons' address (the searcher's pick of clusters), the
+        # decoy only for its own IDC, and the seed peer
+        listed = ops.ListSchedulers(pb2.ListSchedulersRequest(ip="127.0.0.1"))
+        check([(s.ip, s.port, s.scheduler_cluster_id) for s in listed.schedulers]
+              == [("127.0.0.1", int(addr.rsplit(":", 1)[1]), mgr.service.default_cluster_id)],
+              f"download[{device}]: ListSchedulers for the daemons gave {listed}")
+        elsewhere = ops.ListSchedulers(pb2.ListSchedulersRequest(idc="decoy-idc"))
+        check([s.hostname for s in elsewhere.schedulers] == ["decoy"],
+              f"download[{device}]: ListSchedulers for the decoy IDC gave {elsewhere}")
+        seeds = mgr.db.query("SELECT hostname, type, state, port FROM seed_peers")
+        check([(r["hostname"], r["type"], r["state"]) for r in seeds] == [("seed", "super", "active")]
+              and f"127.0.0.1:{seeds[0]['port']}" == procs.address("seed"),
+              f"download[{device}]: the manager's seed peers are {seeds}")
+        out["manager_schedulers"] = len(listed.schedulers)
+        print(f"download[{device}]: the daemons found the scheduler through the manager; ListSchedulers"
+              f" gives {addr} for them and the decoy only for its IDC; the seed peer is registered")
 
         # the burst: every peer dfgets the file at once
         url = f"{base}/blob.bin"
@@ -3757,11 +3851,11 @@ def download_leg(
         # image preheat through the job worker, then one peer pulls a layer
         before = sent()
         t0 = time.perf_counter()
-        manager.CreateJob(manager.pb2.CreateJobRequest(type="preheat", args_json=json.dumps(
+        job = ops.CreateJob(pb2.CreateJobRequest(type="preheat", args_json=json.dumps(
             {"type": "image", "url": f"{base}{IMAGE_PATH}/manifests/v1", "platform": "linux/amd64"})))
         check(srv.job_worker.poll_once() == 1, "the job worker leased no job")
-        state, result = manager.job_results[len(manager.jobs)]
-        result = json.loads(result)
+        job = ops.GetJob(pb2.GetJobRequest(id=job.id))
+        state, result = job.state, json.loads(job.result_json)
         check(state == "succeeded" and result.get("layers") == layers and result.get("count") == layers,
               f"the image preheat job: {state} {result}")
         seed_host = next(h.id for h in srv.resource.host_manager.all() if h.hostname == "seed")
@@ -3809,8 +3903,10 @@ def download_leg(
         procs.stop()
         if srv is not None:
             srv.stop()
-        if mgr_server is not None:
-            mgr_server.stop(0)
+        if ops_channel is not None:
+            ops_channel.close()
+        if mgr is not None:
+            mgr.stop()
         if origin is not None:
             origin.kill()
             origin.join()
@@ -3996,15 +4092,19 @@ def main() -> int:
     serve = leg("serve", serve_leg, "cuda")
     scheduler = leg("scheduler", scheduler_leg, "cuda")
     manager = _Manager()
-    # the server leg's cluster cannot be cut, so the trainer leg is: its
-    # upload at 1 file of 100 MiB (11 before the server leg) and its GRU
-    # at the newest 10,000 sequences (40,000)
-    trainer = leg("trainer", trainer_leg, "cuda", manager=manager, files=1, gru_max_sequences=10_000)
+    # cut to the time limit on a slow host (the legs move 1.3-2x with it),
+    # depth only: the trainer leg's upload at 1 file of 100 MiB (11 before
+    # the server leg), its GRU at the newest 10,000 sequences (40,000) and
+    # its waves on the trained models at 1 (3); the server leg keeps its
+    # cluster (10,000 hosts x 16 probes) and cuts its traffic to 16 tasks
+    # x 256 peers in phase 1 (40 x 256) and 128 children in phase 2 (256)
+    trainer = leg("trainer", trainer_leg, "cuda", manager=manager, files=1, gru_max_sequences=10_000,
+                  serve=dict(tasks=40, peers=256, wave_size=256, waves=1, warmup=1))
     # the crash drill cuts the GNN fit to 4 epochs (60 in the round)
     resume = leg("resume", resume_phase, "cuda")
     federation = leg("federation", federation_phase, "cuda")
     preheat = leg("preheat", preheat_leg, "cuda", manager)
-    server = leg("server", server_leg, "cuda")
+    server = leg("server", server_leg, "cuda", tasks=16, phase2=128)
     native_csv = leg("native", native_phase, "cuda")
     mesh = leg("mesh", mesh_phase, "cuda")
     check(mesh["backend"] == "nccl", f"the mesh phase ran over {mesh['backend']}, not NCCL")

@@ -118,9 +118,21 @@ def _hint(cls, name: str):
 def check_ported(cfg) -> None:
     """A server config asking for a part the port leaves out raises
     ``NotImplementedError`` naming its ROADMAP item — never a quiet
-    no-op (the scheduler's and the trainer's servers call this first)."""
+    no-op (the scheduler's, the trainer's and the manager's servers call
+    this first)."""
     if getattr(cfg, "fleet_enabled", False):
         raise NotImplementedError(
             "fleet membership and swarm replication are not ported"
             " (ROADMAP queue A item 5h): leave fleet_enabled False"
+        )
+    if getattr(cfg, "rest_port", -1) >= 0:
+        raise NotImplementedError(
+            "the manager's REST API and console (manager/rest.py, auth.py,"
+            " console/) are not ported (ROADMAP queue A item A-D3b): leave"
+            " rest_port -1"
+        )
+    if getattr(cfg, "kv_port", -1) >= 0:
+        raise NotImplementedError(
+            "the manager's embedded RESP KV server (utils/kvserver.py) is not"
+            " ported (ROADMAP queue A item 5h): leave kv_port -1"
         )

@@ -8,11 +8,15 @@ client/daemon/networktopology/network_topology.go:39-203 (prober),
 client/daemon/gc/gc.go (storage GC runner).
 
 The config keeps the reference's every key, so one YAML file starts
-either daemon. Four options enable planes this package does not port yet,
-and ``Daemon.start`` raises ``NotImplementedError`` naming the ROADMAP
-item when one is set (:data:`NOT_PORTED`): the HTTP proxy and the object
-storage gateway (A-D2), the manager's dynconfig (A-D1 and A-D3) and fleet
-membership over the shared KV (5h).
+either daemon. With ``manager_address`` the daemon takes its schedulers
+from the manager (``utils/dynconfig.DaemonDynconfig``, searcher-scoped,
+with a disk cache under ``data_dir``), follows the list as it changes,
+pushes its telemetry there, and a seed peer (``host_type="super"``)
+registers and keeps itself alive with ``UpdateSeedPeer``. Three options
+enable planes this package does not port yet, and ``Daemon.start`` raises
+``NotImplementedError`` naming the ROADMAP item when one is set
+(:data:`NOT_PORTED`): the HTTP proxy and the object storage gateway (A-D2)
+and fleet membership over the shared KV (5h).
 """
 
 from __future__ import annotations
@@ -31,11 +35,13 @@ from dragonfly2_torch.client.piece_manager import PieceManager
 from dragonfly2_torch.client.rpcserver import SERVICE_NAME as DFDAEMON_SERVICE, DfdaemonService
 from dragonfly2_torch.client.storage import StorageManager
 from dragonfly2_torch.client.uploader import UploadServer
+from dragonfly2_torch.manager.service import SERVICE_NAME as MANAGER_SERVICE
 from dragonfly2_torch.utils import dflog
 from dragonfly2_torch.utils.gc import GC, GCTask
 from dragonfly2_torch.utils.idgen import host_id_v2
 
 common_pb2 = protos.load("common_pb2")
+manager_pb2 = protos.load("manager_pb2")
 scheduler_pb2 = protos.load("scheduler_pb2")
 
 logger = dflog.get("client.daemon")
@@ -46,8 +52,6 @@ NOT_PORTED = (
      "queue A item A-D2"),
     ("object_storage_port", lambda v: v >= 0,
      "the object storage gateway (objectstorage.py, dfstore.py)", "queue A item A-D2"),
-    ("manager_address", bool, "the manager's dynconfig (utils/dynconfig.py)",
-     "queue A items A-D1 and A-D3"),
     ("kv_address", bool, "scheduler-fleet membership (scheduler/fleet.py)",
      "queue A item 5h"),
 )
@@ -199,6 +203,9 @@ class Daemon:
         self._server = None
         self.port = 0
         self._stop = threading.Event()
+        self._dynconfig = None
+        self._manager_channel = None
+        self._telemetry_reporter = None
         self._threads: list[threading.Thread] = []
         self.gc = GC()
         self.task_manager: TaskManager | None = None
@@ -215,6 +222,32 @@ class Daemon:
             else 1.0
         )
 
+    # ------------------------------------------------------------------
+    def _make_scheduler_dynconfig(self):
+        """Searcher-scoped DaemonDynconfig over the manager, with a disk
+        cache fallback under data_dir (utils/dynconfig.DaemonDynconfig;
+        upstream client/config/dynconfig_manager.go)."""
+        from dragonfly2_torch.utils.dynconfig import DaemonDynconfig
+
+        self._manager_channel = glue.dial(
+            self.cfg.manager_address,
+            **glue.dial_tls_args(
+                self.cfg.manager_tls_ca_file,
+                self.cfg.manager_tls_server_name,
+                self.cfg.manager_tls_client_cert_file,
+                self.cfg.manager_tls_client_key_file,
+            ),
+        )
+        return DaemonDynconfig(
+            glue.ServiceClient(self._manager_channel, MANAGER_SERVICE),
+            cache_path=Path(self.cfg.data_dir) / "dynconfig.json",
+            refresh_interval=self.cfg.dynconfig_interval,
+            hostname=self.cfg.hostname,
+            ip=self.cfg.ip,
+            idc=self.cfg.idc,
+            location=self.cfg.location,
+        )
+
     def start(self) -> None:
         for option, enabled, what, item in NOT_PORTED:
             value = getattr(self.cfg, option)
@@ -225,6 +258,30 @@ class Daemon:
                 )
         self.upload.start()
         addresses = [a for a in self.cfg.scheduler_address.split(",") if a.strip()]
+        if self.cfg.manager_address:
+            # dynconfig-fed scheduler list: the manager's view of the
+            # cluster (searcher-scoped to this daemon's location) is the
+            # source of truth, refreshed on an interval; the static list
+            # is the bootstrap/fallback (upstream client dynconfig)
+            self._dynconfig = self._make_scheduler_dynconfig()
+            fetched = self._dynconfig.scheduler_addresses()
+            if fetched:
+                addresses = fetched
+            elif not addresses:
+                # surface the real cause: get() swallows fetch failures
+                # into {}, which reads as "manager has no schedulers" —
+                # an unreachable/TLS-mismatched manager is a different bug
+                try:
+                    self._dynconfig.fetch_once()
+                except Exception as e:
+                    raise RuntimeError(
+                        f"manager dynconfig fetch failed ({e}) and no static"
+                        " scheduler_address fallback is configured"
+                    ) from e
+                raise RuntimeError(
+                    "manager returned no schedulers and no static"
+                    " scheduler_address fallback is configured"
+                )
         self._selector = glue.SchedulerSelector(
             addresses,
             dial_kwargs=glue.dial_tls_args(
@@ -234,6 +291,13 @@ class Daemon:
                 self.cfg.scheduler_tls_client_key_file,
             ),
         )
+        if self._dynconfig is not None:
+            self._dynconfig.register(
+                lambda data: self._selector.update_addresses(
+                    self._dynconfig.addresses_of(data)
+                )
+            )
+            self._dynconfig.start()
         # fail fast when no scheduler is reachable; NOT pinned — the
         # probe loop re-resolves the primary per round because dynconfig
         # membership changes can close any cached channel
@@ -319,6 +383,30 @@ class Daemon:
         from dragonfly2_torch.utils.metrics import set_build_info
 
         set_build_info("daemon")
+        if self._manager_channel is not None and self.cfg.telemetry_interval > 0:
+            # cluster telemetry: the daemon's data-plane rates to the
+            # manager over the dynconfig channel it already holds
+            from dragonfly2_torch.utils.telemetry import TelemetryReporter
+            from dragonfly2_torch.version import __version__
+
+            def _sections():
+                return {
+                    "build": {"service": "daemon", "version": __version__},
+                    "endpoints": {
+                        "rpc": f"{self.cfg.ip}:{self.port}",
+                        "metrics": getattr(self, "metrics_addr", "") or "",
+                    },
+                }
+
+            self._telemetry_reporter = TelemetryReporter(
+                glue.ServiceClient(self._manager_channel, glue.TELEMETRY_SERVICE),
+                service="daemon",
+                instance=f"{self.cfg.ip}:{self.port}",
+                prefixes=("dragonfly_daemon_", "dragonfly_flow_"),
+                interval=self.cfg.telemetry_interval,
+                collect_sections=_sections,
+            )
+            self._telemetry_reporter.start()
         self.announce_host()
 
         if self.cfg.metrics_port >= 0:
@@ -334,6 +422,18 @@ class Daemon:
         self._spawn(self._announce_loop, "announcer")
         if self.cfg.probe_interval > 0:
             self._spawn(self._probe_loop, "prober")
+        if self.cfg.host_type == "super" and self._manager_channel is not None:
+            # seed peers are manager-visible infrastructure: register and
+            # keep alive so preheat targeting and the console's seed-peer
+            # view reflect them (upstream seed-peer manager registration;
+            # normal daemons stay scheduler-only). Registration is
+            # best-effort here — the keepalive loop re-registers, so a
+            # transient manager outage never kills a booting daemon
+            try:
+                self._register_seed_peer()
+            except Exception as e:
+                logger.warning("initial seed-peer registration failed: %s", e)
+            self._spawn(self._seed_keepalive_loop, "seed-keepalive")
         self.gc.add(
             GCTask(
                 "storage",
@@ -349,6 +449,12 @@ class Daemon:
 
     def stop(self) -> None:
         self._stop.set()
+        if self._telemetry_reporter is not None:
+            self._telemetry_reporter.stop()
+        if self._dynconfig is not None:
+            self._dynconfig.stop()
+        if self._manager_channel is not None:
+            self._manager_channel.close()
         selector = getattr(self, "_selector", None)
         if selector is not None:
             for client in selector.all():
@@ -369,6 +475,33 @@ class Daemon:
         self.upload.stop()
         if getattr(self, "_selector", None) is not None:
             self._selector.close()
+
+    def _register_seed_peer(self) -> None:
+        client = glue.ServiceClient(self._manager_channel, MANAGER_SERVICE)
+        client.UpdateSeedPeer(
+            manager_pb2.UpdateSeedPeerRequest(
+                hostname=self.cfg.hostname,
+                ip=self.cfg.ip,
+                port=int(self.port),
+                download_port=int(self.upload.port),
+                type="super",
+                idc=self.cfg.idc,
+                location=self.cfg.location,
+                seed_peer_cluster_id=self.cfg.scheduler_cluster_id,
+            )
+        )
+        logger.info("registered as seed peer with manager")
+
+    def _seed_keepalive_loop(self) -> None:
+        # UpdateSeedPeer is an idempotent upsert stamping last_keepalive,
+        # so re-registering IS the keepalive — and it self-heals when the
+        # manager-side row vanished (DB recreated, operator delete),
+        # which a bare UPDATE-style keepalive would silently miss
+        while not self._stop.wait(self.cfg.announce_interval):
+            try:
+                self._register_seed_peer()
+            except Exception as e:
+                logger.warning("seed-peer keepalive failed: %s", e)
 
     def _spawn(self, fn, name: str) -> None:
         t = threading.Thread(target=fn, name=name, daemon=True)

@@ -8,11 +8,14 @@ as its plain numpy version).
 Parameters move to the device once, at construction; the GNN's node
 embeddings are computed there too and stay resident. Every forward pads
 its batch up to a rung of ``BUCKET_LADDER`` and brings the whole rung back
-before slicing on the host, as the reference does.
+before slicing on the host, as the reference does; on the card the MLP's
+ranked forward replays one captured CUDA graph per rung, as the
+reference's jitted forward is one call.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Any
 
 import numpy as np
@@ -34,6 +37,10 @@ from dragonfly2_torch.weights import (  # noqa: F401  (the reference's serving A
 )
 
 BUCKET_LADDER = (8, 16, 32, 64)
+# on the card, ranked batches of up to this many rows replay a captured
+# graph (the ladder's rungs and the top rung's multiples); a larger batch
+# runs its operations one by one
+GRAPH_MAX_ROWS = 1024
 
 
 def bucket_rows(n: int) -> int:
@@ -68,6 +75,13 @@ def score_ranked(mlp: MLP, packed: torch.Tensor) -> "tuple[torch.Tensor, torch.T
     return s, order
 
 
+def _ranked_rows(mlp: MLP, packed: torch.Tensor) -> torch.Tensor:
+    """``score_ranked`` as one [2, rows] float32 tensor: the scores, then
+    the rank permutation (exact in float32 below 2^24 rows)."""
+    s, order = score_ranked(mlp, packed)
+    return torch.stack([s, order.to(torch.float32)])
+
+
 class MLPScorer:
     """Parent scorer around trained MLP params — the object the scheduler's
     ``MLEvaluator`` calls ``predict`` / ``predict_ranked`` on. ``params`` is
@@ -79,6 +93,39 @@ class MLPScorer:
         if not isinstance(params, MLP):
             params = mlp_from_numpy(params, device=self.device)
         self._mlp = params.to(self.device).requires_grad_(False)
+        # on the card, rows → (graph, input rows, output rows) of a
+        # captured ``score_ranked``; the lock guards the shared rows
+        self._graphs: dict = {}
+        self._graph_lock = threading.Lock()
+        if self.device.type == "cuda":
+            with torch.no_grad(), self._graph_lock:
+                for rows in BUCKET_LADDER + (2 * BUCKET_LADDER[-1],):
+                    self._ranked_graph(rows)
+
+    def _ranked_graph(self, rows: int) -> tuple:
+        """The captured ranked forward at ``rows`` (the ladder's rungs and
+        twice its top are captured with the scorer, any other at first
+        use). A replay is one call, so a batch takes the interpreter lock back
+        three times (upload, replay, download) instead of after each of the
+        forward's few dozen operations; in a busy server each take-back can
+        wait out other threads' switch interval, and a batch that waits too
+        long drops its decisions a rung."""
+        got = self._graphs.get(rows)
+        if got is None:
+            packed = torch.zeros((rows, self.feature_dim + 1), dtype=torch.float32, device=self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                _ranked_rows(self._mlp, packed)  # warm-up: the side stream's handles
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = _ranked_rows(self._mlp, packed)
+                finally:
+                    graph.capture_end()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            got = self._graphs[rows] = (graph, packed, out)
+        return got
 
     @property
     def feature_dim(self) -> int:
@@ -110,6 +157,13 @@ class MLPScorer:
         packed[:n, :-1] = np.asarray(features, np.float32)
         packed[:, -1] = sentinel
         packed[:n, -1] = np.asarray(seg_ids, np.float32)
+        if self.device.type == "cuda" and rows <= GRAPH_MAX_ROWS:
+            with self._graph_lock:
+                graph, rows_in, rows_out = self._ranked_graph(rows)
+                rows_in.copy_(torch.from_numpy(packed))
+                graph.replay()
+                out = rows_out.cpu().numpy()
+            return out[0, :n], out[1, :n].astype(np.int64)
         s, order = score_ranked(self._mlp, torch.from_numpy(packed).to(self.device))
         return s.cpu().numpy()[:n], order.cpu().numpy()[:n]
 

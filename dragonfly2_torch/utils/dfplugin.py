@@ -7,10 +7,12 @@ A plugin registers extensions on the passed registry:
 
     def dragonfly_plugin_init(registry):
         registry.register_evaluator("myalgo", lambda: MyEvaluator())
+        registry.register_searcher(lambda: MySearcher())
 
-Seam served: the scheduler evaluator (``new_evaluator(algorithm=...)``).
-The reference's back-to-source client and cluster-searcher seams come with
-the daemon and manager.
+Seams served: the scheduler evaluator (``new_evaluator(algorithm=...)``)
+and the manager's cluster searcher (``manager.searcher.new_searcher``).
+The reference's back-to-source client seam comes with the daemon's
+source clients.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ INIT_HOOK = "dragonfly_plugin_init"
 class PluginRegistry:
     def __init__(self):
         self.evaluators: dict[str, Callable] = {}
+        self.searchers: list[Callable] = []
         self._lock = threading.Lock()
 
     # -- registration hooks handed to plugins ---------------------------
@@ -39,10 +42,18 @@ class PluginRegistry:
             self.evaluators[name] = factory
         logger.info("plugin evaluator registered: %s", name)
 
+    def register_searcher(self, factory: Callable) -> None:
+        with self._lock:
+            self.searchers.append(factory)
+        logger.info("plugin searcher registered")
+
     # -- lookups ---------------------------------------------------------
     def evaluator(self, name: str):
         factory = self.evaluators.get(name)
         return factory() if factory is not None else None
+
+    def searcher(self):
+        return self.searchers[-1]() if self.searchers else None
 
 
 registry = PluginRegistry()  # process-wide

@@ -549,7 +549,6 @@ def test_download_records_match_the_reference(tmp_path):
 @pytest.mark.parametrize("option,value,item", [
     ("proxy_port", 0, "A-D2"),
     ("object_storage_port", 0, "A-D2"),
-    ("manager_address", "127.0.0.1:1", "A-D3"),
     ("kv_address", "127.0.0.1:1", "5h"),
 ])
 def test_out_of_slice_daemon_options_raise(tmp_path, option, value, item):

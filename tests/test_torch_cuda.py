@@ -332,6 +332,47 @@ def test_scorer_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(s, MLPScorer(mlp, device="cpu").predict(x), atol=2e-2)
 
 
+@pytest.mark.parametrize("rows", [5, 64, 74, 300])
+def test_scorer_graph_replays_the_forward_bit_for_bit(cuda, rows):
+    """The captured ranked forward (a rung below, at and past the
+    pre-captured ones) gives what ``score_ranked`` gives op by op, also
+    with four threads replaying the same rung at once."""
+    import threading
+
+    from dragonfly2_torch.trainer.serving import bucket_rows, score_ranked
+
+    mlp = init_mlp(torch.Generator().manual_seed(0), [19, 128, 128, 1])
+    scorer = MLPScorer(mlp, device="cuda")
+    rng = np.random.default_rng(rows)
+    inputs = [rng.random((rows, 19)).astype(np.float32) for _ in range(4)]
+    seg = np.repeat(np.arange(rows // 5 + 1), 5)[:rows]
+
+    def eager(x):
+        packed = np.full((bucket_rows(rows), 20), seg[-1] + 1, np.float32)
+        packed[:rows, :-1], packed[:rows, -1] = x, seg
+        with torch.no_grad():
+            s, order = score_ranked(scorer._mlp, torch.from_numpy(packed).cuda())
+        return s.cpu().numpy()[:rows], order.cpu().numpy()[:rows]
+
+    got = [None] * 4
+
+    def replay(k):
+        for _ in range(20):
+            got[k] = scorer.predict_ranked(inputs[k], seg)
+
+    threads = [threading.Thread(target=replay, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for x, (s, order) in zip(inputs, got):
+        want_s, want_order = eager(x)
+        np.testing.assert_array_equal(s, want_s)
+        np.testing.assert_array_equal(order, want_order)
+        assert order.dtype == np.int64
+    assert bucket_rows(rows) in scorer._graphs
+
+
 def test_engine_on_the_card_matches_the_cpu(cuda):
     rng = np.random.default_rng(1)
     engines = [

@@ -19,10 +19,16 @@ from dragonfly2_tpu.schema import synth as j_synth
 from dragonfly2_tpu.schema import wire as j_wire
 from dragonfly2_tpu.schema.features import MLP_FEATURE_DIM
 from dragonfly2_tpu.trainer import ingest as j_ingest
+from torch_reference_native import load_reference_native
 
 torch.set_num_threads(1)
 
 HIDDEN = (16, 16)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_library():
+    load_reference_native()
 
 
 def _numpy(tree):

@@ -11,7 +11,7 @@ runs the five legs of ``chip_smoke.py`` and its encoder-gradient leg
 trainer leg feeds its Train stream through plain messages and uploads
 through plain requests; the preheat leg's job goes out through a plain
 request), then the server leg, whose scheduler and trainer servers talk
-gRPC, push telemetry and serve /metrics, then the resume phase's crash
+gRPC to the port's manager, push telemetry to its plane and serve /metrics, then the resume phase's crash
 drill (two spawned fits SIGKILLed by a fault rule), the federation
 phase, the native phase and the mesh phase (a gloo group of one) and the
 download leg (a seed peer and two peers of the port's daemons, a 2 MiB
@@ -179,8 +179,8 @@ def test_port_runs_with_jax_and_reference_blocked():
     # every module of the port was imported (92 with the scheduler and
     # trainer servers, 96 with the sequence-parallel plane, 101 with the
     # telemetry plane and federation, 104 with the native decoder and the
-    # sharded trainer, 123 with the client)
-    assert _run_child(BLOCKED, every_module=True) >= 123
+    # sharded trainer, 123 with the client, 136 with the manager)
+    assert _run_child(BLOCKED, every_module=True) >= 136
 
 
 def test_no_port_source_names_the_reference_build():

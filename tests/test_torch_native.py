@@ -34,10 +34,16 @@ from dragonfly2_tpu.trainer import train as j_train
 from dragonfly2_tpu.trainer import training as j_training
 from dragonfly2_tpu.trainer.storage import TrainerStorage as JStorage
 from dragonfly2_tpu.utils.idgen import host_id_v2
+from torch_reference_native import load_reference_native
 
 torch.set_num_threads(1)
 
 PAIR_TOL = dict(rtol=1e-6, atol=1e-7)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_library():
+    load_reference_native()
 
 
 def _concat_uploads(path, *rec_lists, tmp_path):

@@ -3388,12 +3388,16 @@ DOWNLOAD_WORK = Path(__file__).resolve().parent / "build" / "download_leg"
 # the burst: one seed peer and 7 peers, one process each, pulling one 1 GiB
 # object at once (a node pool pulling an image layer or a model shard at a
 # rollout); then an image of 4 layers of 64 MiB preheated through the job
-# worker
+# worker and pulled through one peer's registry proxy, and a fresh image of
+# the same shape pulled by every peer at once, each through its own proxy
 DOWNLOAD_PEERS = 7
 DOWNLOAD_FILE_MIB = 1024
 DOWNLOAD_LAYERS, DOWNLOAD_LAYER_MIB = 4, 64
 DOWNLOAD_PROBE_INTERVAL_S = 2.0
 IMAGE_PATH = "/v2/leg/app"  # the registry stand-in's repository
+FRESH_IMAGE_PATH = "/v2/leg/fresh"  # the image no peer holds before its pull
+# the proxy's one rule: layer blobs ride P2P, manifests go to the registry
+PROXY_RULES = [{"regex": "/v2/.*/blobs/"}]
 
 
 def _origin_process(conn, root):
@@ -3473,11 +3477,13 @@ def _seeded_file(path: Path, mib: int, rng: np.random.Generator) -> str:
     return h.hexdigest()
 
 
-def _image(root: Path, layers: int, layer_mib: int, rng: np.random.Generator) -> "tuple[list[str], dict]":
-    """A registry stand-in's files under ``root``: an OCI index over a
-    ``linux/arm64`` and a ``linux/amd64`` manifest, the latter of
-    ``layers`` seeded layers → (layer digests, digest → sha256)."""
-    repo = root / IMAGE_PATH.lstrip("/")
+def _image(root: Path, layers: int, layer_mib: int, rng: np.random.Generator,
+           path: str = IMAGE_PATH) -> "tuple[list[str], dict]":
+    """A registry stand-in's files under ``root`` for the repository at
+    ``path``: an OCI index (``manifests/v1``) over a ``linux/arm64`` and a
+    ``linux/amd64`` manifest, the latter of ``layers`` seeded layers →
+    (layer digests, digest → sha256)."""
+    repo = root / path.lstrip("/")
     digests = []
     for i in range(layers):
         tmp = repo / "blobs" / f"layer-{i}"
@@ -3568,17 +3574,29 @@ class _DaemonProcs:
     def address(self, name: str) -> str:
         return self.procs[name][1]
 
-    def traffic(self, name: str) -> "dict[str, float]":
-        """Piece bytes the daemon wrote, by traffic type, from its /metrics."""
+    def counts(self, name: str, metric: str, label: str = "") -> "dict[str, float]":
+        """The daemon's samples of ``metric`` from its /metrics, by the
+        value of ``label`` (``""`` for an unlabelled series)."""
         status, _, body, _ = http_get(f"http://{self.procs[name][2]}/metrics")
         check(status == 200, f"daemon {name}: /metrics answered {status}")
         out = {}
         for line in body.decode().splitlines():
             m = _SAMPLE.match(line)
-            if m and m.group(1) == "dragonfly_daemon_piece_traffic_bytes_total":
+            if m and m.group(1) == metric:
                 labels = dict(_LABEL.findall(m.group(2) or ""))
-                out[labels.get("traffic_type", "")] = float(m.group(3))
+                out[labels.get(label, "")] = float(m.group(3))
         return out
+
+    def traffic(self, name: str) -> "dict[str, float]":
+        """Piece bytes the daemon wrote, by traffic type, from its /metrics."""
+        return self.counts(name, "dragonfly_daemon_piece_traffic_bytes_total", "traffic_type")
+
+    def events(self, name: str, kind: str) -> list:
+        """The daemon's flight-recorder events of type ``kind``, from its
+        /debug/ring."""
+        status, _, body, _ = http_get(f"http://{self.procs[name][2]}/debug/ring")
+        check(status == 200, f"daemon {name}: /debug/ring answered {status}")
+        return [e for ring in json.loads(body)["rings"].values() for e in ring if e["type"] == kind]
 
     def stop(self) -> None:
         import signal
@@ -3593,6 +3611,48 @@ class _DaemonProcs:
                 proc.kill()
                 proc.wait()
             proc.stdout.close()
+
+
+_PROXY_TOTAL = "dragonfly_daemon_proxy_request_total"
+
+
+def _proxy_pull(proxy: str, base: str, repo: str) -> dict:
+    """Pull the image at ``base`` + ``repo`` as a container runtime does,
+    through a daemon's registry proxy at ``proxy`` (``host:port``), on one
+    keep-alive connection: the index, the ``linux/amd64`` manifest, then
+    every layer in order, each hashed as it streams → {"wall_s", "layers":
+    {digest: sha256}, "via_p2p": [header per layer], "task_ids": [...]}."""
+    import http.client
+
+    host, port = proxy.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=300)
+
+    def get(path: str):
+        conn.request("GET", f"{base}{repo}{path}")
+        resp = conn.getresponse()
+        if resp.status != 200:
+            check(False, f"the proxy at {proxy} answered {resp.status} for {repo}{path}: {resp.read()[:200]!r}")
+        return resp
+
+    try:
+        t = time.perf_counter()
+        index = json.loads(get("/manifests/v1").read())
+        amd64 = next(m["digest"] for m in index["manifests"]
+                     if (m["platform"]["os"], m["platform"]["architecture"]) == ("linux", "amd64"))
+        manifest = json.loads(get(f"/manifests/{amd64}").read())
+        out = {"layers": {}, "via_p2p": [], "task_ids": []}
+        for layer in manifest["layers"]:
+            resp = get(f"/blobs/{layer['digest']}")
+            h = hashlib.sha256()
+            while chunk := resp.read(1 << 20):
+                h.update(chunk)
+            out["layers"][layer["digest"]] = h.hexdigest()
+            out["via_p2p"].append(resp.getheader("X-Dragonfly-Via-P2P"))
+            out["task_ids"].append(resp.getheader("X-Dragonfly-Task-Id", ""))
+        out["wall_s"] = time.perf_counter() - t
+        return out
+    finally:
+        conn.close()
 
 
 def _sha256_file(path) -> str:
@@ -3633,13 +3693,25 @@ def download_leg(
     ``layers`` layers of ``layer_mib`` MiB) through the scheduler's job
     worker, which resolves the manifest with the port's source client and
     has the seed peer fetch every layer; then one peer ``dfget``s a layer.
+    Every daemon serves its registry proxy (``proxy_port``, one rule:
+    ``PROXY_RULES``, layer blobs through P2P). A peer that holds none of
+    the preheated image pulls it through its own proxy (the index, the
+    ``linux/amd64`` manifest, every layer); then every peer pulls at once,
+    each through its own proxy, a fresh image of the same shape made from
+    ``seed + 1`` (a node pool pulling a new image).
 
     Checks: every output's sha256 is the origin's; every decision was
     served by the card's ``MLPScorer`` (``model_kind()`` ``mlp``, no
     demotion below the ``serving`` rung); origin egress below ``peers + 1``
     times the file; at least one peer took ≥ 90 % of its bytes from peers;
     at least ``peers`` download records written; the engine holds every
-    probed pair; the preheated layer's pull cost the origin 0 bytes."""
+    probed pair; the preheated layer's pull cost the origin 0 bytes. Of the
+    proxy pulls: every layer's sha256 is the origin's; the preheated
+    image's layers cost the origin 0 bytes and rode the preheat's tasks;
+    the fresh image's blob egress is below ``peers + 1`` times the image;
+    every blob request rode P2P (the daemons' ``route="p2p"`` counts, no
+    shed, no ``daemon.proxy_fallback`` event) and every manifest request
+    went direct."""
     import multiprocessing
     import urllib.request
 
@@ -3671,6 +3743,7 @@ def download_leg(
         files = DOWNLOAD_WORK / "origin"
         file_sha = _seeded_file(files / "blob.bin", file_mib, rng)
         digests, layer_sha = _image(files, layers, layer_mib, rng)
+        _, fresh_sha = _image(files, layers, layer_mib, np.random.default_rng(seed + 1), path=FRESH_IMAGE_PATH)
         ctx = multiprocessing.get_context("spawn")
         here, there = ctx.Pipe()
         origin = ctx.Process(target=_origin_process, args=(there, str(files)), daemon=True)
@@ -3740,10 +3813,13 @@ def download_leg(
 
         t0 = time.perf_counter()
         # no static scheduler list ('' is YAML's empty string on the command line)
-        common = {"scheduler_address": "''", "manager_address": mgr_addr, "probe_interval": probe_interval}
+        common = {"scheduler_address": "''", "manager_address": mgr_addr, "probe_interval": probe_interval,
+                  "proxy_rules": json.dumps(PROXY_RULES)}
         if piece_length:
             common["piece_length"] = piece_length
-        procs.start({n: dict(common, host_type="super" if n == "seed" else "normal") for n in names})
+        proxies = {n: f"127.0.0.1:{_free_port()}" for n in names}
+        procs.start({n: dict(common, host_type="super" if n == "seed" else "normal",
+                             proxy_port=proxies[n].rsplit(":", 1)[1]) for n in names})
         while len(srv.resource.host_manager.all()) < len(names):
             check(time.perf_counter() - t0 < 60, "the daemons' hosts were not all announced")
             time.sleep(0.05)
@@ -3886,6 +3962,65 @@ def download_leg(
               f" the layer pull cost the origin {out['preheat']['layer_pull_origin_bytes']} bytes")
         check(out["preheat"]["layer_pull_origin_bytes"] == 0, "the preheated layer's pull reached the origin")
         check(not [r for r in log if r["served"] is None], "a decision after the burst was demoted")
+
+        # the registry proxy: the preheated image through one peer's proxy,
+        # then the fresh image through every peer's at once
+        image_bytes = layers * (layer_mib << 20)
+        n_log = len(log)
+
+        def proxy_step(step: str, repo: str, pullers: list, want: dict) -> dict:
+            before, routes0 = sent(), {n: procs.counts(n, _PROXY_TOTAL, "route") for n in pullers}
+            t = time.perf_counter()
+            with ThreadPoolExecutor(len(pullers)) as pool:
+                pulls = dict(zip(pullers, pool.map(lambda n: _proxy_pull(proxies[n], base, repo), pullers)))
+            wall = time.perf_counter() - t
+            after = sent()
+            for n, pull in pulls.items():
+                check(pull["layers"] == want, f"download[{device}]: {step}: {n}'s layers are not the origin's")
+            routes = {r: sum(procs.counts(n, _PROXY_TOTAL, "route").get(r, 0.0) - routes0[n].get(r, 0.0)
+                             for n in pullers) for r in ("p2p", "direct")}
+            walls = sorted(p["wall_s"] for p in pulls.values())
+            step_out = {
+                "peers": len(pullers), "wall_s": wall, "peer_wall_p50_s": float(np.percentile(walls, 50)),
+                "peer_wall_max_s": walls[-1], "aggregate_mib_per_s": len(pullers) * image_bytes / (1 << 20) / wall,
+                "origin_blob_bytes": sum(after.get(k, 0) - before.get(k, 0) for k in after
+                                         if k.startswith(f"{repo}/blobs/")),
+                "routes": routes, "via_p2p": sorted({v for p in pulls.values() for v in p["via_p2p"]}),
+                "task_ids": sorted({i for p in pulls.values() for i in p["task_ids"]}),
+            }
+            step_out["origin_egress_x"] = step_out["origin_blob_bytes"] / image_bytes
+            print(f"download[{device}]: proxy, {step}: {len(pullers)} peer(s) × {layers} layers of {layer_mib}"
+                  f" MiB in {wall:.2f} s ({step_out['aggregate_mib_per_s']:.1f} MiB/s); peer wall p50"
+                  f" {step_out['peer_wall_p50_s']:.2f} s, max {step_out['peer_wall_max_s']:.2f} s; origin blob bytes"
+                  f" {step_out['origin_blob_bytes']} ({step_out['origin_egress_x']:.3f}× the image); requests by route"
+                  f" {routes}")
+            check(routes == {"p2p": len(pullers) * layers, "direct": len(pullers) * 2.0}
+                  and step_out["via_p2p"] == ["1"],
+                  f"download[{device}]: {step}: not every blob request rode P2P, or a manifest did: {step_out}")
+            return step_out
+
+        puller = names[-1]  # a peer that holds no layer of the preheated image
+        out["proxy_preheated"] = proxy_step("preheated image", IMAGE_PATH, [puller], layer_sha)
+        check(out["proxy_preheated"]["origin_blob_bytes"] == 0,
+              f"download[{device}]: the preheated image's pull through the proxy reached the origin")
+        check(out["proxy_preheated"]["task_ids"] == sorted(result["triggered"]),
+              f"download[{device}]: the proxy's tasks are not the preheat's: {out['proxy_preheated']['task_ids']}")
+        out["proxy_fresh"] = proxy_step("fresh image, every peer at once", FRESH_IMAGE_PATH, names[1:], fresh_sha)
+        check(out["proxy_fresh"]["origin_egress_x"] < peers + 1,
+              f"download[{device}]: the fresh image's egress is {out['proxy_fresh']['origin_egress_x']:.3f}×"
+              f" the image, not below {peers + 1}×")
+        shed = {n: procs.counts(n, "dragonfly_daemon_p2p_inflight_shed_total").get("", 0.0) for n in names}
+        fallbacks = {n: len(procs.events(n, "daemon.proxy_fallback")) for n in names}
+        proxied = log[n_log:]
+        out["proxy_decisions"] = len(proxied)
+        print(f"download[{device}]: proxy: {len(proxied)} decisions, rung {evaluator._rung!r},"
+              f" {sum(r['served'] is None for r in proxied)} demoted; in-flight sheds {shed};"
+              f" proxy_fallback events {fallbacks}")
+        check(not any(shed.values()) and not any(fallbacks.values()),
+              f"download[{device}]: a proxy pull left the swarm: sheds {shed}, fallbacks {fallbacks}")
+        check(proxied and not [r for r in proxied if r["served"] is None] and evaluator._rung == "serving"
+              and service.model_kind() == "mlp",
+              f"download[{device}]: the proxy pulls' decisions were not all served by the MLP")
 
         # records and probes
         srv.storage.flush()

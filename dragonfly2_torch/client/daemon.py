@@ -12,11 +12,14 @@ either daemon. With ``manager_address`` the daemon takes its schedulers
 from the manager (``utils/dynconfig.DaemonDynconfig``, searcher-scoped,
 with a disk cache under ``data_dir``), follows the list as it changes,
 pushes its telemetry there, and a seed peer (``host_type="super"``)
-registers and keeps itself alive with ``UpdateSeedPeer``. Three options
-enable planes this package does not port yet, and ``Daemon.start`` raises
-``NotImplementedError`` naming the ROADMAP item when one is set
-(:data:`NOT_PORTED`): the HTTP proxy and the object storage gateway (A-D2)
-and fleet membership over the shared KV (5h).
+registers and keeps itself alive with ``UpdateSeedPeer``. With
+``proxy_port >= 0`` the daemon serves the registry proxy
+(``client/proxy.py`` over ``client/transport.py``), as the reference
+does. Two options enable planes this package does not port yet, and
+``Daemon.start`` raises ``NotImplementedError`` naming the ROADMAP item
+when one is set (:data:`NOT_PORTED`): the object storage gateway (A-D2
+(b)) and fleet membership over the shared KV (5h). The cloud source
+clients (A-D2 (a)) raise where ``client/source.py`` is asked for one.
 """
 
 from __future__ import annotations
@@ -48,10 +51,8 @@ logger = dflog.get("client.daemon")
 
 # (option, the value test that enables it, what it is, the ROADMAP item)
 NOT_PORTED = (
-    ("proxy_port", lambda v: v >= 0, "the HTTP proxy (proxy.py, transport.py)",
-     "queue A item A-D2"),
     ("object_storage_port", lambda v: v >= 0,
-     "the object storage gateway (objectstorage.py, dfstore.py)", "queue A item A-D2"),
+     "the object storage gateway (objectstorage.py, dfstore.py)", "queue A item A-D2 (b)"),
     ("kv_address", bool, "scheduler-fleet membership (scheduler/fleet.py)",
      "queue A item 5h"),
 )
@@ -209,6 +210,7 @@ class Daemon:
         self._threads: list[threading.Thread] = []
         self.gc = GC()
         self.task_manager: TaskManager | None = None
+        self.proxy = None
         # constructed here, not in start(): probe_once() is a public
         # single-round entry point and must work without a running
         # probe loop (per-host echo budget tied to the probe cadence —
@@ -407,7 +409,34 @@ class Daemon:
                 collect_sections=_sections,
             )
             self._telemetry_reporter.start()
+        # announce before the proxy opens for business: a request through
+        # it may register a peer task at once, which requires a known host
         self.announce_host()
+
+        if self.cfg.proxy_port >= 0:
+            from dragonfly2_torch.client.proxy import ProxyServer, RegistryMirror
+            from dragonfly2_torch.client.transport import P2PTransport, ProxyRule
+
+            rules = [
+                r if isinstance(r, ProxyRule) else ProxyRule(**r)
+                for r in self.cfg.proxy_rules
+            ]
+            issuer = None
+            if self.cfg.proxy_mitm:
+                issuer = self._load_spoofing_issuer()
+            self.proxy = ProxyServer(
+                P2PTransport(
+                    self.task_manager,
+                    rules=rules,
+                    max_inflight=self.cfg.p2p_max_inflight,
+                ),
+                mirror=RegistryMirror(self.cfg.registry_mirror),
+                address=self.cfg.proxy_host,
+                port=self.cfg.proxy_port,
+                issuer=issuer,
+                intercept=self.cfg.proxy_mitm_hosts or None,
+            )
+            self.proxy.start()
 
         if self.cfg.metrics_port >= 0:
             from dragonfly2_torch.client import metrics  # noqa: F401
@@ -470,6 +499,8 @@ class Daemon:
         if getattr(self, "shaper", None) is not None:
             self.shaper.stop()
         self.gc.stop()
+        if self.proxy is not None:
+            self.proxy.stop()
         if self._server is not None:
             self._server.stop(grace=1).wait()
         self.upload.stop()
@@ -566,6 +597,32 @@ class Daemon:
             ),
             scheduler_cluster_id=self.cfg.scheduler_cluster_id,
         )
+
+    def _load_spoofing_issuer(self):
+        """CA for HTTPS interception, persisted across restarts so
+        clients only provision trust once (reference proxy CA cert
+        config)."""
+        import os
+
+        from dragonfly2_torch.utils.issuer import CertificateAuthority, SpoofingIssuer
+
+        ca_dir = os.path.join(self.cfg.data_dir, "ca")
+        crt, key = os.path.join(ca_dir, "ca.crt"), os.path.join(ca_dir, "ca.key")
+        if os.path.exists(crt) and os.path.exists(key):
+            with open(crt, "rb") as f1, open(key, "rb") as f2:
+                ca = CertificateAuthority.load(f1.read(), f2.read())
+        else:
+            os.makedirs(ca_dir, exist_ok=True)
+            ca = CertificateAuthority(f"dragonfly2 proxy CA ({self.cfg.hostname})")
+            with open(crt, "wb") as f:
+                f.write(ca.cert_pem)
+            # the CA key must never be world-readable, not even between
+            # create and chmod — open with the final mode
+            fd = os.open(key, os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o600)
+            with os.fdopen(fd, "wb") as f:
+                f.write(ca.key_pem)
+        logger.info("proxy MITM enabled; CA at %s", crt)
+        return SpoofingIssuer(ca)
 
     def announce_host(self) -> None:
         # every scheduler must know this host: tasks pin to different

@@ -9,7 +9,7 @@ registry mirrors pkg/source's loader; plugins register at import time.
 http(s) and file are implemented here. The reference's s3 (SigV4), oss,
 hdfs (WebHDFS) and oras (OCI registry artifacts) clients live in its
 ``source_cloud.py``, which this package does not port yet: those schemes
-raise ``NotImplementedError`` naming ROADMAP queue A item A-D2.
+raise ``NotImplementedError`` naming ROADMAP queue A item A-D2 (a).
 """
 
 from __future__ import annotations
@@ -247,5 +247,5 @@ _LAZY_CLOUD = {
 def _load_cloud(scheme: str) -> SourceClient:
     raise NotImplementedError(
         f"the {scheme}:// source client ({_LAZY_CLOUD[scheme]} of source_cloud.py)"
-        " is not ported yet (ROADMAP queue A item A-D2)"
+        " is not ported yet (ROADMAP queue A item A-D2 (a))"
     )

@@ -1,7 +1,8 @@
 """The reference's ``tests/test_data_plane.py``, case for case, on the port's
-modules (``dragonfly2_torch``). The reference's last three cases (the proxy transport's in-flight bound and the
-``tools.stress`` data-plane soak and race) wait for the modules they drive
-(ROADMAP queue A items A-D2 and 13).
+modules (``dragonfly2_torch``). The proxy transport's in-flight bound is
+held in ``tests/test_torch_proxy.py`` with the rest of the transport; the
+reference's last two cases (the ``tools.stress`` data-plane soak and race)
+wait for the module they drive (ROADMAP queue A item 13).
 
 Zero-copy data plane (docs/data-plane.md): the sendfile
 upload loop, the readiness-based transfer pool, content-addressed piece

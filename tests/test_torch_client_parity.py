@@ -547,7 +547,6 @@ def test_download_records_match_the_reference(tmp_path):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("proxy_port", 0, "A-D2"),
     ("object_storage_port", 0, "A-D2"),
     ("kv_address", "127.0.0.1:1", "5h"),
 ])

@@ -15,7 +15,9 @@ gRPC to the port's manager, push telemetry to its plane and serve /metrics, then
 drill (two spawned fits SIGKILLed by a fault rule), the federation
 phase, the native phase and the mesh phase (a gloo group of one) and the
 download leg (a seed peer and two peers of the port's daemons, a 2 MiB
-origin, 64 KiB pieces), and
+origin, 64 KiB pieces, and images of 2 × 1 MiB layers pulled through the
+daemons' registry proxies: the preheated one by one peer, a fresh one by
+both at once), and
 checks that the native decoder it loaded is its own build; the other also refuses gRPC and protobuf, imports only
 ``chip_smoke`` and runs the five legs again, never the servers."""
 
@@ -137,6 +139,10 @@ if {servers!r}:
     dl = chip_smoke.download_leg("cpu", peers=2, file_mib=2, piece_length=64 * 1024, layers=2, layer_mib=1)
     assert dl["burst"]["origin_egress_x"] < 3 and dl["burst"]["demoted"] == 0, dl
     assert dl["records"] >= 2 and dl["preheat"]["layer_pull_origin_bytes"] == 0, dl
+    hot, fresh = dl["proxy_preheated"], dl["proxy_fresh"]
+    assert hot["origin_blob_bytes"] == 0 and hot["routes"] == {{"p2p": 2, "direct": 2}}, dl
+    assert fresh["origin_egress_x"] < 3 and fresh["routes"] == {{"p2p": 4, "direct": 4}}, dl
+    assert hot["via_p2p"] == fresh["via_p2p"] == ["1"] and dl["proxy_decisions"] > 0, dl
 else:
     assert not any(n.startswith("dragonfly2_torch.scheduler.server") for n in sys.modules)
 loaded = sorted(
@@ -179,8 +185,9 @@ def test_port_runs_with_jax_and_reference_blocked():
     # every module of the port was imported (92 with the scheduler and
     # trainer servers, 96 with the sequence-parallel plane, 101 with the
     # telemetry plane and federation, 104 with the native decoder and the
-    # sharded trainer, 123 with the client, 136 with the manager)
-    assert _run_child(BLOCKED, every_module=True) >= 136
+    # sharded trainer, 123 with the client, 136 with the manager, 137 with
+    # the order-sweep tool, 139 with the registry proxy and its transport)
+    assert _run_child(BLOCKED, every_module=True) >= 139
 
 
 def test_no_port_source_names_the_reference_build():

@@ -3398,6 +3398,48 @@ IMAGE_PATH = "/v2/leg/app"  # the registry stand-in's repository
 FRESH_IMAGE_PATH = "/v2/leg/fresh"  # the image no peer holds before its pull
 # the proxy's one rule: layer blobs ride P2P, manifests go to the registry
 PROXY_RULES = [{"regex": "/v2/.*/blobs/"}]
+# then the object step (a training job writes a 256 MiB checkpoint or model
+# shard through one peer's object-storage gateway with seed-on-write, the
+# other peers load it at once, each through its own gateway) and the S3
+# step (every peer dfgets a 256 MiB object from an S3 bucket at once)
+DOWNLOAD_OBJECT_MIB = 256
+DOWNLOAD_S3_MIB = 256
+OBJECT_BUCKET, OBJECT_KEY = "leg", "shard-0"
+S3_BUCKET, S3_KEY = "leg", "model-0.bin"
+# the leg's S3 credentials: every daemon gets them in its environment, as
+# a deployment's daemon set would; the stand-in refuses any other
+S3_ACCESS_KEY, S3_SECRET_KEY = "AKIADOWNLOADLEG", "download-leg-secret"
+_FLOW_BYTES = "dragonfly_flow_bytes_total"
+
+
+def _send_file(handler, path: str, body: bool, sent: dict, lock) -> None:
+    """Answer ``handler``'s request with the file at ``path`` (its
+    ``Range``, if any, as a 206) and, when ``body``, send it through
+    ``socket.sendfile``, adding the bytes sent to ``sent`` under the
+    request's URL path."""
+    import os
+    import urllib.parse
+
+    size = os.path.getsize(path)
+    lo, hi, status = 0, size - 1, 200
+    rng = handler.headers.get("Range")
+    if rng:
+        a, _, b = rng.removeprefix("bytes=").partition("-")
+        lo, hi, status = int(a), min(int(b), size - 1) if b else size - 1, 206
+    handler.send_response(status)
+    handler.send_header("Content-Length", str(hi - lo + 1))
+    handler.send_header("Accept-Ranges", "bytes")
+    if status == 206:
+        handler.send_header("Content-Range", f"bytes {lo}-{hi}/{size}")
+    handler.end_headers()
+    if not body:
+        return
+    handler.wfile.flush()
+    with open(path, "rb") as f:
+        n = handler.connection.sendfile(f, lo, hi - lo + 1)
+    key = urllib.parse.urlsplit(handler.path).path
+    with lock:
+        sent[key] = sent.get(key, 0) + n
 
 
 def _origin_process(conn, root):
@@ -3428,25 +3470,7 @@ def _origin_process(conn, root):
             if ".." in self.path or not os.path.isfile(path):
                 self.send_error(404)
                 return
-            size = os.path.getsize(path)
-            lo, hi, status = 0, size - 1, 200
-            rng = self.headers.get("Range")
-            if rng:
-                a, _, b = rng.removeprefix("bytes=").partition("-")
-                lo, hi, status = int(a), min(int(b), size - 1) if b else size - 1, 206
-            self.send_response(status)
-            self.send_header("Content-Length", str(hi - lo + 1))
-            self.send_header("Accept-Ranges", "bytes")
-            if status == 206:
-                self.send_header("Content-Range", f"bytes {lo}-{hi}/{size}")
-            self.end_headers()
-            if not body:
-                return
-            self.wfile.flush()
-            with open(path, "rb") as f:
-                n = self.connection.sendfile(f, lo, hi - lo + 1)
-            with lock:
-                sent[self.path] = sent.get(self.path, 0) + n
+            _send_file(self, path, body, sent, lock)
 
         def do_HEAD(self):
             self._serve(False)
@@ -3455,6 +3479,75 @@ def _origin_process(conn, root):
             self._serve(True)
 
     srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Origin)
+    srv.daemon_threads = True
+    conn.send(srv.server_address[1])
+    conn.close()
+    srv.serve_forever()
+
+
+def _s3_process(conn, root, access_key):
+    """An S3 stand-in in its own interpreter: the objects under ``root`` as
+    ``<bucket>/<key>``, path-style. HEAD, GET with ``Range`` (``_send_file``,
+    its bytes counted per path) and ListObjectsV2 (``GET
+    /<bucket>?list-type=2&prefix=``). A request whose
+    ``Authorization`` is not SigV4 with ``access_key``'s credential for the
+    ``s3`` service gets 403, counted. ``GET /_sent`` (unsigned) answers
+    {"sent": {path: bytes}, "refused": n}. Sends its port over ``conn``,
+    then serves until killed."""
+    import http.server
+    import os
+    import urllib.parse
+
+    sent, refused = {}, [0]
+    lock = threading.Lock()
+    signed = re.compile(rf"^AWS4-HMAC-SHA256 Credential={re.escape(access_key)}/\d{{8}}/[^/]+/s3/aws4_request,"
+                        r" SignedHeaders=[a-z0-9;-]+, Signature=[0-9a-f]{64}$")
+
+    class S3(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _answer(self, status: int, data: bytes = b"") -> None:
+            self.send_response(status)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def _serve(self, body: bool):
+            parts = urllib.parse.urlsplit(self.path)
+            if parts.path == "/_sent":
+                with lock:
+                    data = json.dumps({"sent": sent, "refused": refused[0]}).encode()
+                self._answer(200, data)
+                return
+            if not signed.match(self.headers.get("Authorization", "")):
+                with lock:
+                    refused[0] += 1
+                self._answer(403, b"<Error><Code>AccessDenied</Code></Error>")
+                return
+            bucket, _, key = parts.path.lstrip("/").partition("/")
+            query = urllib.parse.parse_qs(parts.query)
+            if not key and "list-type" in query:
+                prefix = query.get("prefix", [""])[0]
+                base = os.path.join(root, bucket)
+                keys = sorted(os.path.relpath(os.path.join(d, f), base) for d, _, fs in os.walk(base) for f in fs)
+                contents = "".join(f"<Contents><Key>{k}</Key></Contents>" for k in keys if k.startswith(prefix))
+                self._answer(200, f'<ListBucketResult xmlns="http://s3.amazonaws.com/doc/2006-03-01/">{contents}'
+                                  f"</ListBucketResult>".encode())
+                return
+            path = os.path.join(root, bucket, urllib.parse.unquote(key))
+            if ".." in parts.path or not key or not os.path.isfile(path):
+                self._answer(404, b"<Error><Code>NoSuchKey</Code></Error>")
+                return
+            _send_file(self, path, body, sent, lock)
+
+        def do_HEAD(self):
+            self._serve(False)
+
+        def do_GET(self):
+            self._serve(True)
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), S3)
     srv.daemon_threads = True
     conn.send(srv.server_address[1])
     conn.close()
@@ -3533,12 +3626,14 @@ class _DaemonProcs:
         self.work = work
         self.procs = {}  # name → (Popen, dfdaemon address, metrics address)
 
-    def start(self, specs: "dict[str, dict]", timeout: float = 120.0) -> None:
+    def start(self, specs: "dict[str, dict]", timeout: float = 120.0, env: "dict | None" = None) -> None:
+        """``env``: variables every daemon gets in its environment besides
+        the script's own."""
         import os
         import selectors
 
         env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
-                   PYTHONPATH=str(Path(__file__).resolve().parent))
+                   PYTHONPATH=str(Path(__file__).resolve().parent), **(env or {}))
         sel = selectors.DefaultSelector()
         for name, overrides in specs.items():
             metrics = _free_port()
@@ -3560,23 +3655,26 @@ class _DaemonProcs:
             check(left > 0, f"daemons {sorted(waiting)} not ready in {timeout:.0f} s")
             for key, _ in sel.select(left):
                 name = key.data
-                line = key.fileobj.readline()
-                if not line:
-                    sel.unregister(key.fileobj)
-                    tail = (self.work / f"{name}.log").read_text()[-2000:]
-                    check(False, f"daemon {name} exited before READY:\\n{tail}")
-                if line.startswith("READY "):
-                    proc, _, metrics = self.procs[name]
-                    self.procs[name] = (proc, line.split()[2], metrics)
-                    sel.unregister(key.fileobj)
-                    waiting.discard(name)
+                # the runner prints its address lines (METRICS, GATEWAY)
+                # and READY back to back once the daemon is up, and the
+                # text buffer may take them in one read: read to READY
+                while not (line := key.fileobj.readline()).startswith("READY "):
+                    if not line:
+                        sel.unregister(key.fileobj)
+                        tail = (self.work / f"{name}.log").read_text()[-2000:]
+                        check(False, f"daemon {name} exited before READY:\\n{tail}")
+                proc, _, metrics = self.procs[name]
+                self.procs[name] = (proc, line.split()[2], metrics)
+                sel.unregister(key.fileobj)
+                waiting.discard(name)
 
     def address(self, name: str) -> str:
         return self.procs[name][1]
 
-    def counts(self, name: str, metric: str, label: str = "") -> "dict[str, float]":
-        """The daemon's samples of ``metric`` from its /metrics, by the
-        value of ``label`` (``""`` for an unlabelled series)."""
+    def counts(self, name: str, metric: str, label: str = "", **where: str) -> "dict[str, float]":
+        """The daemon's samples of ``metric`` from its /metrics whose labels
+        hold ``where``, by the value of ``label`` (``""`` for an unlabelled
+        series)."""
         status, _, body, _ = http_get(f"http://{self.procs[name][2]}/metrics")
         check(status == 200, f"daemon {name}: /metrics answered {status}")
         out = {}
@@ -3584,7 +3682,8 @@ class _DaemonProcs:
             m = _SAMPLE.match(line)
             if m and m.group(1) == metric:
                 labels = dict(_LABEL.findall(m.group(2) or ""))
-                out[labels.get(label, "")] = float(m.group(3))
+                if all(labels.get(k) == v for k, v in where.items()):
+                    out[labels.get(label, "")] = float(m.group(3))
         return out
 
     def traffic(self, name: str) -> "dict[str, float]":
@@ -3655,6 +3754,32 @@ def _proxy_pull(proxy: str, base: str, repo: str) -> dict:
         conn.close()
 
 
+def _object_get(gateway: str, bucket: str, key: str) -> dict:
+    """GET an object through a daemon's object-storage gateway at
+    ``gateway`` (``host:port``), hashed as it streams, as a node loading a
+    shard reads it → {"wall_s", "sha256", "bytes", "via_p2p", "task_id"}."""
+    import http.client
+    import urllib.parse
+
+    host, port = gateway.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=300)
+    try:
+        t = time.perf_counter()
+        conn.request("GET", f"/buckets/{bucket}/objects/{urllib.parse.quote(key)}")
+        resp = conn.getresponse()
+        if resp.status != 200:
+            check(False, f"the gateway at {gateway} answered {resp.status} for {bucket}/{key}: {resp.read()[:200]!r}")
+        h, n = hashlib.sha256(), 0
+        while chunk := resp.read(1 << 20):
+            h.update(chunk)
+            n += len(chunk)
+        return {"wall_s": time.perf_counter() - t, "sha256": h.hexdigest(), "bytes": n,
+                "via_p2p": resp.getheader("X-Dragonfly-Via-P2P"),
+                "task_id": resp.getheader("X-Dragonfly-Task-Id", "")}
+    finally:
+        conn.close()
+
+
 def _sha256_file(path) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:
@@ -3666,7 +3791,7 @@ def _sha256_file(path) -> str:
 def download_leg(
     device, peers=DOWNLOAD_PEERS, file_mib=DOWNLOAD_FILE_MIB, piece_length=0,
     layers=DOWNLOAD_LAYERS, layer_mib=DOWNLOAD_LAYER_MIB, probe_interval=DOWNLOAD_PROBE_INTERVAL_S,
-    seed=0,
+    object_mib=DOWNLOAD_OBJECT_MIB, s3_mib=DOWNLOAD_S3_MIB, seed=0,
 ) -> dict:
     """The P2P download path end to end: the port's ``ManagerServer`` as
     shipped (``manager_server``), the port's ``SchedulerServer``
@@ -3700,6 +3825,23 @@ def download_leg(
     each through its own proxy, a fresh image of the same shape made from
     ``seed + 1`` (a node pool pulling a new image).
 
+    Every daemon also serves its object-storage gateway
+    (``object_storage_port``) over one ``object_storage_dir`` (the shared
+    NFS/S3 stand-in), and has ``DF_S3_ACCESS_KEY``, ``DF_S3_SECRET_KEY``
+    and ``DF_S3_ENDPOINT`` in its environment, as a deployment's daemon set
+    would. The object step: one peer runs ``python -m
+    dragonfly2_torch.client.dfstore mb`` and ``cp`` of an ``object_mib`` MiB
+    object made from ``seed + 2`` into ``df://leg/shard-0`` through its own
+    gateway with seed-on-write (a training job writing a model shard); once
+    the scheduler holds the writer's import, every other peer GETs it at
+    once through its own gateway (a pool of nodes loading the shard), and
+    one reader runs a ranged ``cp`` of the middle third. The S3 step: an S3
+    stand-in in its own process (``_s3_process``: path-style HEAD, GET with
+    ``Range``, ListObjectsV2; 403 to any request not signed with the leg's
+    key) holds an ``s3_mib`` MiB object made from ``seed + 3``; the leg
+    lists the bucket through the port's S3 client, then every peer
+    ``dfget``s ``s3://leg/model-0.bin`` at once.
+
     Checks: every output's sha256 is the origin's; every decision was
     served by the card's ``MLPScorer`` (``model_kind()`` ``mlp``, no
     demotion below the ``serving`` rung); origin egress below ``peers + 1``
@@ -3711,11 +3853,20 @@ def download_leg(
     the fresh image's blob egress is below ``peers + 1`` times the image;
     every blob request rode P2P (the daemons' ``route="p2p"`` counts, no
     shed, no ``daemon.proxy_fallback`` event) and every manifest request
-    went direct."""
+    went direct. Of the object step: every reader's sha256 is the written
+    bytes' and the range's its slice's; the readers' daemons account 0
+    ``origin`` bytes on the ``object`` plane (``flow_bytes_total`` from
+    their /metrics); no ``daemon.object_fallback`` in any daemon's
+    /debug/ring; every decision of the step (the object's task among them)
+    served by the card's MLP, none demoted. Of the S3 step: the listing
+    holds the object; every output's sha256 is the stand-in's; the
+    stand-in's egress below ``peers + 1`` times the object; no request
+    refused with 403; every decision served by the card's MLP, none
+    demoted."""
     import multiprocessing
     import urllib.request
 
-    from dragonfly2_torch.client import dfcache, dfget
+    from dragonfly2_torch.client import dfcache, dfget, source
     from dragonfly2_torch.scheduler import server as sched_server
     from dragonfly2_torch.scheduler import serving as serving_mod
     from dragonfly2_torch.scheduler.server import SchedulerServer, SchedulerServerConfig
@@ -3725,15 +3876,16 @@ def download_leg(
     names = ["seed"] + [f"peer-{i}" for i in range(peers)]
     out = {"peers": peers, "file_mib": file_mib}
     procs = _DaemonProcs(DOWNLOAD_WORK / "daemons")
-    origin = mgr = ops_channel = srv = None
+    origin = s3 = mgr = ops_channel = srv = None
     decide_ms, log = [], []
 
     class _Evaluator(_ServerRecordingEvaluator):
-        """The recording evaluator, keeping every decision in order."""
+        """The recording evaluator, keeping every decision in order with
+        its child's task."""
 
         def evaluate_parents(self, parents, child, total_piece_count):
             ranked = super().evaluate_parents(parents, child, total_piece_count)
-            log.append(self.decisions[child.id])
+            log.append(dict(self.decisions[child.id], task=child.task.id))
             return ranked
 
     try:
@@ -3751,6 +3903,17 @@ def download_leg(
         there.close()
         base = f"http://127.0.0.1:{here.recv()}"
         here.close()
+        s3_root = DOWNLOAD_WORK / "s3"
+        s3_sha = _seeded_file(s3_root / S3_BUCKET / S3_KEY, s3_mib, np.random.default_rng(seed + 3))
+        here, there = ctx.Pipe()
+        s3 = ctx.Process(target=_s3_process, args=(there, str(s3_root), S3_ACCESS_KEY), daemon=True)
+        s3.start()
+        there.close()
+        s3_endpoint = f"http://127.0.0.1:{here.recv()}"
+        here.close()
+        objects_dir = DOWNLOAD_WORK / "objects"  # every gateway's backend
+        object_src = DOWNLOAD_WORK / "object.bin"
+        object_sha = _seeded_file(object_src, object_mib, np.random.default_rng(seed + 2))
 
         def sent() -> dict:
             with urllib.request.urlopen(f"{base}/_sent", timeout=30) as r:
@@ -3818,8 +3981,13 @@ def download_leg(
         if piece_length:
             common["piece_length"] = piece_length
         proxies = {n: f"127.0.0.1:{_free_port()}" for n in names}
+        gateways = {n: f"127.0.0.1:{_free_port()}" for n in names}
         procs.start({n: dict(common, host_type="super" if n == "seed" else "normal",
-                             proxy_port=proxies[n].rsplit(":", 1)[1]) for n in names})
+                             proxy_port=proxies[n].rsplit(":", 1)[1],
+                             object_storage_port=gateways[n].rsplit(":", 1)[1],
+                             object_storage_dir=str(objects_dir)) for n in names},
+                    env={"DF_S3_ACCESS_KEY": S3_ACCESS_KEY, "DF_S3_SECRET_KEY": S3_SECRET_KEY,
+                         "DF_S3_ENDPOINT": s3_endpoint})
         while len(srv.resource.host_manager.all()) < len(names):
             check(time.perf_counter() - t0 < 60, "the daemons' hosts were not all announced")
             time.sleep(0.05)
@@ -4022,6 +4190,154 @@ def download_leg(
               and service.model_kind() == "mlp",
               f"download[{device}]: the proxy pulls' decisions were not all served by the MLP")
 
+        # the object step: a training job writes a model shard through one
+        # peer's gateway with seed-on-write; the other peers load it at once,
+        # each through its own gateway, and one of them reads a range
+        import os
+
+        from dragonfly2_torch.utils.idgen import URLMeta, task_id_v1
+
+        cli_env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                       PYTHONPATH=str(Path(__file__).resolve().parent))
+
+        def dfstore(name: str, *args: str) -> None:
+            done = subprocess.run(
+                [sys.executable, "-m", "dragonfly2_torch.client.dfstore", "--endpoint", gateways[name], *args],
+                capture_output=True, text=True, timeout=600, cwd=str(Path(__file__).resolve().parent), env=cli_env)
+            check(done.returncode == 0, f"download[{device}]: dfstore {' '.join(args)} on {name} exited"
+                                        f" {done.returncode}: {done.stderr[-2000:]}")
+
+        def object_origin(name: str) -> float:
+            return procs.counts(name, _FLOW_BYTES, "provenance", plane="object").get("origin", 0.0)
+
+        object_size = object_mib << 20
+        writer, readers = names[1], names[2:]
+        n_log = len(log)
+        origin0 = {n: object_origin(n) for n in readers}
+        # each dfstore is a process of its own: the mb's wall is mostly the
+        # interpreter's start, which the cp's wall holds too
+        t = time.perf_counter()
+        dfstore(writer, "mb", f"df://{OBJECT_BUCKET}")
+        mb_s = time.perf_counter() - t
+        t = time.perf_counter()
+        dfstore(writer, "cp", str(object_src), f"df://{OBJECT_BUCKET}/{OBJECT_KEY}")
+        put_s = time.perf_counter() - t
+        object_task = task_id_v1(f"file://{objects_dir}/{OBJECT_BUCKET}/{OBJECT_KEY}",
+                                 URLMeta(digest=f"sha256:{object_sha}"))
+        writer_host = next(h.id for h in srv.resource.host_manager.all() if h.hostname == writer)
+        # the writer's import is the shard's first parent: the readers ask
+        # once the scheduler holds it
+        while not any(p.task.id == object_task and p.host.id == writer_host
+                      and p.fsm.is_state(res.PEER_STATE_SUCCEEDED) for p in srv.resource.peer_manager.all()):
+            check(time.perf_counter() - t < put_s + 60, f"download[{device}]: the scheduler never held the writer's import")
+            time.sleep(0.05)
+        t = time.perf_counter()
+        with ThreadPoolExecutor(len(readers)) as pool:
+            gets = dict(zip(readers, pool.map(
+                lambda n: _object_get(gateways[n], OBJECT_BUCKET, OBJECT_KEY), readers)))
+        wall = time.perf_counter() - t
+        lo, hi = object_size // 3, 2 * object_size // 3 - 1
+        ranged_out = DOWNLOAD_WORK / "daemons" / "object-range.out"
+        t = time.perf_counter()
+        dfstore(readers[0], "cp", f"df://{OBJECT_BUCKET}/{OBJECT_KEY}", str(ranged_out), "--range", f"bytes={lo}-{hi}")
+        ranged_s = time.perf_counter() - t
+        with open(object_src, "rb") as f:
+            f.seek(lo)
+            range_want = hashlib.sha256(f.read(hi - lo + 1)).hexdigest()
+        range_sha = _sha256_file(ranged_out)
+        check(range_sha == range_want, f"download[{device}]: the ranged cp is not the object's bytes {lo}-{hi}")
+        for n, got in gets.items():
+            check(got["sha256"] == object_sha and got["bytes"] == object_size,
+                  f"download[{device}]: {n}'s read of the shard is not the written bytes")
+        walls = sorted(g["wall_s"] for g in gets.values())
+        step = log[n_log:]
+        out["object"] = {
+            "object_mib": object_mib, "readers": len(readers), "sha256": object_sha,
+            "reader_sha256": sorted({g["sha256"] for g in gets.values()}),
+            "range_sha256": range_sha, "range_want_sha256": range_want, "mb_s": mb_s, "put_s": put_s, "wall_s": wall,
+            "peer_wall_p50_s": float(np.percentile(walls, 50)), "peer_wall_max_s": walls[-1],
+            "aggregate_mib_per_s": len(readers) * object_mib / wall, "ranged_cp_s": ranged_s,
+            "reader_origin_bytes": {n: object_origin(n) - origin0[n] for n in readers},
+            "via_p2p": sorted({g["via_p2p"] for g in gets.values()}),
+            "task_ids": sorted({g["task_id"] for g in gets.values()}),
+            "fallbacks": {n: len(procs.events(n, "daemon.object_fallback")) for n in names},
+            "decisions": len(step), "object_task_decisions": sum(r["task"] == object_task for r in step),
+            "demoted": sum(r["served"] is None for r in step),
+        }
+        o = out["object"]
+        print(f"download[{device}]: object: dfstore mb {mb_s:.2f} s, cp of {object_mib} MiB through {writer}'s"
+              f" gateway (seed-on-write) {put_s:.2f} s (walls of the CLI processes);"
+              f" {len(readers)} readers at once in {wall:.2f} s"
+              f" ({o['aggregate_mib_per_s']:.1f} MiB/s), each p50 {o['peer_wall_p50_s']:.2f} s, max"
+              f" {o['peer_wall_max_s']:.2f} s; the ranged cp of {(hi - lo + 1) / (1 << 20):.2f} MiB in"
+              f" {ranged_s:.2f} s;"
+              f" the readers' object-plane origin bytes {o['reader_origin_bytes']}; object_fallback events"
+              f" {o['fallbacks']}; {o['decisions']} decisions ({o['object_task_decisions']} on the shard's task),"
+              f" {o['demoted']} demoted")
+        check(o["task_ids"] == [object_task] and o["via_p2p"] == ["1"],
+              f"download[{device}]: the readers did not ride the writer's task: {o}")
+        check(not any(o["reader_origin_bytes"].values()),
+              f"download[{device}]: a reader's gateway read reached the backend: {o['reader_origin_bytes']}")
+        check(not any(o["fallbacks"].values()), f"download[{device}]: an object GET left the swarm: {o['fallbacks']}")
+        check(o["object_task_decisions"] > 0 and not o["demoted"] and evaluator._rung == "serving"
+              and service.model_kind() == "mlp",
+              f"download[{device}]: the object step's decisions were not all served by the MLP: {o}")
+
+        # the S3 step: every peer dfgets one object of an S3 bucket at once;
+        # the daemons sign with the credentials in their environment
+        s3_size = s3_mib << 20
+        s3_url = f"s3://{S3_BUCKET}/{S3_KEY}"
+        listed = source.client_for(s3_url).list(f"s3://{S3_BUCKET}/", headers={
+            "X-Dragonfly-S3-Access-Key": S3_ACCESS_KEY, "X-Dragonfly-S3-Secret-Key": S3_SECRET_KEY,
+            "X-Dragonfly-S3-Endpoint": s3_endpoint})
+        check([(e.name, e.url, e.is_dir) for e in listed] == [(S3_KEY, s3_url, False)],
+              f"download[{device}]: the S3 listing gave {listed}")
+        with urllib.request.urlopen(f"{s3_endpoint}/_sent", timeout=30) as r:
+            s3_before = json.loads(r.read())
+        n_log = len(log)
+        outputs = {n: DOWNLOAD_WORK / "daemons" / f"{n}.s3.out" for n in names[1:]}
+        walls = {}
+
+        def s3_pull(name):
+            t = time.perf_counter()
+            dfget.download(procs.address(name), s3_url, str(outputs[name]))
+            walls[name] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        with ThreadPoolExecutor(peers) as pool:
+            list(pool.map(s3_pull, names[1:]))
+        wall = time.perf_counter() - t
+        with ThreadPoolExecutor(peers) as pool:
+            shas = dict(zip(names[1:], pool.map(lambda n: _sha256_file(outputs[n]), names[1:])))
+        for n, sha in shas.items():
+            check(sha == s3_sha, f"download[{device}]: {n}'s {s3_url} is not the bucket's bytes")
+        with urllib.request.urlopen(f"{s3_endpoint}/_sent", timeout=30) as r:
+            s3_after = json.loads(r.read())
+        key_path = f"/{S3_BUCKET}/{S3_KEY}"
+        step = log[n_log:]
+        wall_list = sorted(walls.values())
+        out["s3"] = {
+            "object_mib": s3_mib, "peers": peers, "sha256": s3_sha, "peer_sha256": sorted(set(shas.values())),
+            "listed": len(listed), "wall_s": wall,
+            "peer_wall_p50_s": float(np.percentile(wall_list, 50)), "peer_wall_max_s": wall_list[-1],
+            "aggregate_mib_per_s": peers * s3_mib / wall,
+            "egress_bytes": s3_after["sent"].get(key_path, 0) - s3_before["sent"].get(key_path, 0),
+            "refused": s3_after["refused"], "decisions": len(step),
+            "demoted": sum(r["served"] is None for r in step),
+        }
+        o = out["s3"]
+        o["egress_x"] = o["egress_bytes"] / s3_size
+        print(f"download[{device}]: s3: {peers} × {s3_mib} MiB from {s3_url} at once in {wall:.2f} s"
+              f" ({o['aggregate_mib_per_s']:.1f} MiB/s), each p50 {o['peer_wall_p50_s']:.2f} s, max"
+              f" {o['peer_wall_max_s']:.2f} s; the stand-in's egress {o['egress_bytes']} bytes"
+              f" ({o['egress_x']:.3f}× the object); {o['refused']} refused with 403; {o['decisions']} decisions,"
+              f" {o['demoted']} demoted")
+        check(o["egress_x"] < peers + 1, f"download[{device}]: the S3 egress is {o['egress_x']:.3f}× the object")
+        check(o["refused"] == 0, f"download[{device}]: the S3 stand-in refused {o['refused']} requests")
+        check(o["decisions"] > 0 and not o["demoted"] and evaluator._rung == "serving"
+              and service.model_kind() == "mlp",
+              f"download[{device}]: the S3 step's decisions were not all served by the MLP: {o}")
+
         # records and probes
         srv.storage.flush()
         out["records"] = len(srv.storage.list_download())
@@ -4042,9 +4358,10 @@ def download_leg(
             ops_channel.close()
         if mgr is not None:
             mgr.stop()
-        if origin is not None:
-            origin.kill()
-            origin.join()
+        for proc in (origin, s3):
+            if proc is not None:
+                proc.kill()
+                proc.join()
         shutil.rmtree(DOWNLOAD_WORK, ignore_errors=True)
     return out
 

@@ -25,11 +25,22 @@ placement and the preheat plane; and the scheduler and trainer servers
 (``scheduler.server``, ``trainer.server``, ``python -m
 dragonfly2_torch.scheduler`` / ``python -m dragonfly2_torch.trainer``),
 which daemons and the manager reach over gRPC on the reference's wire; and
-the dfdaemon's download path (``client``: the daemon, seed peer or peer,
-``python -m dragonfly2_torch.client.daemon``, with the ``dfget`` and
-``dfcache`` CLIs).
+the dfdaemon (``client``: the daemon, seed peer or peer, ``python -m
+dragonfly2_torch.client.daemon``, with its registry proxy and
+object-storage gateway, the ``dfget``, ``dfcache`` and ``dfstore`` CLIs
+and the http(s), file, s3, oss, hdfs and oras source clients). The
+package loads torch only with a module that needs it.
 """
 
-from dragonfly2_torch.device import compute_dtype, resolve_device
-
 __all__ = ["compute_dtype", "resolve_device"]
+
+
+def __getattr__(name):
+    # torch loads with the first module that needs it, not with the
+    # package: the CLIs that move bytes (dfstore, dfget, dfcache) never do,
+    # and importing torch was most of a dfstore process's wall
+    if name in __all__:
+        from dragonfly2_torch import device
+
+        return getattr(device, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -14,12 +14,14 @@ with a disk cache under ``data_dir``), follows the list as it changes,
 pushes its telemetry there, and a seed peer (``host_type="super"``)
 registers and keeps itself alive with ``UpdateSeedPeer``. With
 ``proxy_port >= 0`` the daemon serves the registry proxy
-(``client/proxy.py`` over ``client/transport.py``), as the reference
-does. Two options enable planes this package does not port yet, and
-``Daemon.start`` raises ``NotImplementedError`` naming the ROADMAP item
-when one is set (:data:`NOT_PORTED`): the object storage gateway (A-D2
-(b)) and fleet membership over the shared KV (5h). The cloud source
-clients (A-D2 (a)) raise where ``client/source.py`` is asked for one.
+(``client/proxy.py`` over ``client/transport.py``), and with
+``object_storage_port >= 0`` and an ``object_storage_dir`` the
+object-storage gateway (``client/objectstorage.py``, which ``dfstore``
+speaks) over a transport of its own on the ``object`` plane, as the
+reference does. One option enables a plane this package does not port
+yet, and ``Daemon.start`` raises ``NotImplementedError`` naming the
+ROADMAP item when it is set (:data:`NOT_PORTED`): fleet membership over
+the shared KV (5h).
 """
 
 from __future__ import annotations
@@ -51,8 +53,6 @@ logger = dflog.get("client.daemon")
 
 # (option, the value test that enables it, what it is, the ROADMAP item)
 NOT_PORTED = (
-    ("object_storage_port", lambda v: v >= 0,
-     "the object storage gateway (objectstorage.py, dfstore.py)", "queue A item A-D2 (b)"),
     ("kv_address", bool, "scheduler-fleet membership (scheduler/fleet.py)",
      "queue A item 5h"),
 )
@@ -211,6 +211,7 @@ class Daemon:
         self.gc = GC()
         self.task_manager: TaskManager | None = None
         self.proxy = None
+        self.object_gateway = None
         # constructed here, not in start(): probe_once() is a public
         # single-round entry point and must work without a running
         # probe loop (per-host echo budget tied to the probe cadence —
@@ -409,8 +410,8 @@ class Daemon:
                 collect_sections=_sections,
             )
             self._telemetry_reporter.start()
-        # announce before the proxy opens for business: a request through
-        # it may register a peer task at once, which requires a known host
+        # announce before the proxy/gateway open for business: a gateway
+        # PUT may AnnounceTask immediately, which requires a known host
         self.announce_host()
 
         if self.cfg.proxy_port >= 0:
@@ -437,6 +438,30 @@ class Daemon:
                 intercept=self.cfg.proxy_mitm_hosts or None,
             )
             self.proxy.start()
+
+        if self.cfg.object_storage_port >= 0 and self.cfg.object_storage_dir:
+            import re as _re
+
+            from dragonfly2_torch.client.objectstorage import ObjectStorageGateway
+            from dragonfly2_torch.client.transport import P2PTransport, ProxyRule
+            from dragonfly2_torch.manager.objectstorage import FSObjectStorage
+
+            backend_root = str(self.cfg.object_storage_dir)
+            backend = FSObjectStorage(backend_root)
+            # gateway GETs always ride P2P: one rule covering the backend
+            transport = P2PTransport(
+                self.task_manager,
+                rules=[ProxyRule(regex=_re.escape(f"file://{backend_root}"))],
+            )
+            self.object_gateway = ObjectStorageGateway(
+                backend,
+                transport=transport,
+                importer=self._import_object,
+                url_for=lambda bucket, key: f"file://{backend_root}/{bucket}/{key}",
+                address=self.cfg.object_storage_host,
+                port=self.cfg.object_storage_port,
+            )
+            self.object_gateway.start()
 
         if self.cfg.metrics_port >= 0:
             from dragonfly2_torch.client import metrics  # noqa: F401
@@ -501,11 +526,39 @@ class Daemon:
         self.gc.stop()
         if self.proxy is not None:
             self.proxy.stop()
+        if self.object_gateway is not None:
+            self.object_gateway.stop()
         if self._server is not None:
             self._server.stop(grace=1).wait()
         self.upload.stop()
         if getattr(self, "_selector", None) is not None:
             self._selector.close()
+
+    def _import_object(self, url: str, data: bytes, digest: str = "") -> None:
+        """Register object bytes as a completed local task so this daemon
+        P2P-serves it without a backend fetch (the gateway's seed-on-write
+        replication mode). The digest is part of the task id, so an
+        overwrite seeds a fresh task instead of colliding with the old
+        content's swarm."""
+        import io
+
+        from dragonfly2_torch.utils import flows
+        from dragonfly2_torch.utils.idgen import URLMeta, task_id_v1
+
+        task_id = task_id_v1(url, URLMeta(digest=digest))
+        # seed-on-write tasks belong to the object plane: later uploads
+        # of these pieces to child peers attribute there
+        flows.set_task_plane(task_id, "object")
+        if self.storage.find_completed_task(task_id) is not None:
+            return
+        self.task_manager.import_completed_task(
+            task_id,
+            url,
+            io.BytesIO(data).read,
+            len(data),
+            piece_length=self.cfg.piece_length,
+            task_type=common_pb2.TASK_TYPE_DFSTORE,
+        )
 
     def _register_seed_peer(self) -> None:
         client = glue.ServiceClient(self._manager_channel, MANAGER_SERVICE)
@@ -748,6 +801,15 @@ class _DaemonRunAdapter:
     def serve(self) -> str:
         self.daemon.start()
         host = self.daemon.cfg.listen.rsplit(":", 1)[0]
+        if self.daemon.object_gateway is not None:
+            # surfaced as a "GATEWAY <name> <addr>" line by the runner so
+            # scripts that start the daemon can reach it — advertise the
+            # gateway's OWN bind host, which may differ from the gRPC
+            # listen host
+            self.gateway_addr = (
+                f"{self.daemon.cfg.object_storage_host}:"
+                f"{self.daemon.object_gateway.port}"
+            )
         return f"{host}:{self.daemon.port}"
 
     def stop(self) -> None:

@@ -6,10 +6,9 @@ content length, range support, download, metadata, recursive list) with
 clients under pkg/source/clients/{httpprotocol,...}. Scheme → client
 registry mirrors pkg/source's loader; plugins register at import time.
 
-http(s) and file are implemented here. The reference's s3 (SigV4), oss,
-hdfs (WebHDFS) and oras (OCI registry artifacts) clients live in its
-``source_cloud.py``, which this package does not port yet: those schemes
-raise ``NotImplementedError`` naming ROADMAP queue A item A-D2 (a).
+http(s) and file are implemented here; s3 (SigV4), oss, hdfs
+(WebHDFS), and oras (OCI registry artifacts) live in source_cloud.py —
+real REST clients, no SDKs.
 """
 
 from __future__ import annotations
@@ -235,7 +234,9 @@ register_client("https", HTTPSourceClient())
 register_client("file", FileSourceClient())
 
 
-# the reference's cloud clients (its source_cloud.py), by scheme
+# cloud clients register lazily on first use — importing source_cloud
+# here would re-enter it while partially initialized when a caller
+# imports source_cloud first (it imports this module for the base types)
 _LAZY_CLOUD = {
     "s3": "S3SourceClient",
     "oss": "OSSSourceClient",
@@ -245,7 +246,8 @@ _LAZY_CLOUD = {
 
 
 def _load_cloud(scheme: str) -> SourceClient:
-    raise NotImplementedError(
-        f"the {scheme}:// source client ({_LAZY_CLOUD[scheme]} of source_cloud.py)"
-        " is not ported yet (ROADMAP queue A item A-D2 (a))"
-    )
+    from dragonfly2_torch.client import source_cloud as sc
+
+    client = getattr(sc, _LAZY_CLOUD[scheme])()
+    register_client(scheme, client)
+    return client

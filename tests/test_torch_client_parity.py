@@ -6,7 +6,7 @@ under one scripted clock, the host-stat overrides, the piece-metadata
 synchronizer across packages, the wire between the two packages' daemons
 (piece fetches, P2P downloads and dfget, both ways), the download records a
 port daemon's download writes against a reference daemon's, and the daemon
-options and source schemes the port leaves out."""
+option the port leaves out."""
 
 from __future__ import annotations
 
@@ -547,7 +547,6 @@ def test_download_records_match_the_reference(tmp_path):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("object_storage_port", 0, "A-D2"),
     ("kv_address", "127.0.0.1:1", "5h"),
 ])
 def test_out_of_slice_daemon_options_raise(tmp_path, option, value, item):
@@ -558,9 +557,3 @@ def test_out_of_slice_daemon_options_raise(tmp_path, option, value, item):
     # raised before anything started: no gRPC server, no task manager
     assert d._server is None and d.task_manager is None
     d.upload.stop()
-
-
-@pytest.mark.parametrize("scheme", ["s3", "oss", "hdfs", "oras"])
-def test_cloud_schemes_raise(scheme):
-    with pytest.raises(NotImplementedError, match="A-D2"):
-        t_source.client_for(f"{scheme}://bucket/key")

@@ -17,7 +17,9 @@ phase, the native phase and the mesh phase (a gloo group of one) and the
 download leg (a seed peer and two peers of the port's daemons, a 2 MiB
 origin, 64 KiB pieces, and images of 2 × 1 MiB layers pulled through the
 daemons' registry proxies: the preheated one by one peer, a fresh one by
-both at once), and
+both at once; then a 1 MiB object written with dfstore through one
+peer's object-storage gateway and read through the other's, whole and as
+a range, and a 1 MiB object of an S3 stand-in pulled by both peers), and
 checks that the native decoder it loaded is its own build; the other also refuses gRPC and protobuf, imports only
 ``chip_smoke`` and runs the five legs again, never the servers."""
 
@@ -136,13 +138,22 @@ if {servers!r}:
     assert nat["streamed"] and nat["prefix_equal"] and nat["graph_equal"], nat
     mesh = chip_smoke.mesh_phase("cpu", hosts=128, probes=16, group_records=400, gnn_epochs=100)
     assert mesh["backend"] == "gloo" and mesh["embed_err"] <= 1e-5, mesh
-    dl = chip_smoke.download_leg("cpu", peers=2, file_mib=2, piece_length=64 * 1024, layers=2, layer_mib=1)
+    dl = chip_smoke.download_leg("cpu", peers=2, file_mib=2, piece_length=64 * 1024, layers=2, layer_mib=1,
+                                 object_mib=1, s3_mib=1)
     assert dl["burst"]["origin_egress_x"] < 3 and dl["burst"]["demoted"] == 0, dl
     assert dl["records"] >= 2 and dl["preheat"]["layer_pull_origin_bytes"] == 0, dl
     hot, fresh = dl["proxy_preheated"], dl["proxy_fresh"]
     assert hot["origin_blob_bytes"] == 0 and hot["routes"] == {{"p2p": 2, "direct": 2}}, dl
     assert fresh["origin_egress_x"] < 3 and fresh["routes"] == {{"p2p": 4, "direct": 4}}, dl
     assert hot["via_p2p"] == fresh["via_p2p"] == ["1"] and dl["proxy_decisions"] > 0, dl
+    obj, s3 = dl["object"], dl["s3"]
+    assert obj["reader_sha256"] == [obj["sha256"]] and obj["range_sha256"] == obj["range_want_sha256"], dl
+    assert obj["via_p2p"] == ["1"] and obj["readers"] == 1, dl
+    assert not any(obj["reader_origin_bytes"].values()) and not any(obj["fallbacks"].values()), dl
+    assert obj["object_task_decisions"] > 0 and obj["demoted"] == 0, dl
+    assert s3["peer_sha256"] == [s3["sha256"]] and s3["listed"] == 1, dl
+    assert s3["egress_x"] < 3 and s3["refused"] == 0, dl
+    assert s3["decisions"] > 0 and s3["demoted"] == 0, dl
 else:
     assert not any(n.startswith("dragonfly2_torch.scheduler.server") for n in sys.modules)
 loaded = sorted(
@@ -186,8 +197,10 @@ def test_port_runs_with_jax_and_reference_blocked():
     # trainer servers, 96 with the sequence-parallel plane, 101 with the
     # telemetry plane and federation, 104 with the native decoder and the
     # sharded trainer, 123 with the client, 136 with the manager, 137 with
-    # the order-sweep tool, 139 with the registry proxy and its transport)
-    assert _run_child(BLOCKED, every_module=True) >= 139
+    # the order-sweep tool, 139 with the registry proxy and its transport,
+    # 142 with the cloud source clients, the object-storage gateway and
+    # dfstore)
+    assert _run_child(BLOCKED, every_module=True) >= 142
 
 
 def test_no_port_source_names_the_reference_build():

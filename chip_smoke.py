@@ -103,16 +103,18 @@ Phases (any failed check raises and the script exits non-zero):
    /metrics, the certificate authority when ``cryptography`` is there),
    and the daemons' side in 4 processes of its own (started with ``spawn``):
    10,000 hosts announce and sync 16 seeded probes each (160,000 edges)
-   through ``SyncProbes``; 16 tasks × 256 peers run their ``AnnouncePeer``
+   through ``SyncProbes``; 12 tasks × 256 peers run their ``AnnouncePeer``
    streams at 64 at once (a back-to-source seed per task, then children
    scheduled on earlier peers through ``Scheduling`` → ``MLEvaluator`` →
    ``ScoringService`` on a seeded MLP the refresher installed); the
    announcer uploads the records and the probe snapshot to the trainer,
    whose fits land three ``CreateModel``. Each upload — the seeded MLP's
    too — lands as an inactive version that a poll must not install; the
-   leg activates it with ``UpdateModel`` as an operator would, and the
-   next poll installs it (activation → installed timed); then
-   128 more children are scored by the trained GNN with the GRU behind
+   leg activates the seeded MLP with gRPC ``UpdateModel`` and the three
+   trained models over the manager's REST front (``PUT
+   /api/v1/models/:id/versions/:v/state``), as an operator would, and the
+   next poll installs them (activation → installed timed); then
+   64 more children are scored by the trained GNN with the GRU behind
    bad-node detection. Every decision must be a legal parent set or a
    legitimate back-to-source, none may drop below the serving rung after
    the warm-up, each order is ``rank_order`` of its card scores, and every
@@ -128,9 +130,10 @@ Phases (any failed check raises and the script exits non-zero):
    OpenMetrics, every line parsed) and the leg's count, /healthz must
    answer 200 with every service ``ok`` and each /debug endpoint 200 with
    JSON; ``build_payload`` ms, payload bytes and scrape ms are printed;
-   the plane's snapshot must name both reporters, the manager's /healthz
-   carry the SLO section, and ``IssueCertificate`` sign a CSR whose chain
-   verifies against the CA;
+   the plane's snapshot must name both reporters, and so must the REST
+   front's ``GET /api/v1/telemetry``, whose ``GET /`` must serve the
+   port's console page; the manager's /healthz carry the SLO section, and
+   ``IssueCertificate`` sign a CSR whose chain verifies against the CA;
 7a. native phase: the native CSV decoder (``csrc/dfnative.cc``, built with
    g++ at first use, its seconds printed): decode MiB/s of one 100 MiB
    download CSV through ``decode_pairs_file`` and through
@@ -156,12 +159,16 @@ Phases (any failed check raises and the script exits non-zero):
    into the topology engine through ``SyncProbes``) with no static
    scheduler list: each finds the scheduler through the manager's
    ``ListSchedulers`` (the searcher keeps a decoy cluster's scheduler
-   from them), and the seed peer registers with ``UpdateSeedPeer``; all
+   from them; the operator scopes the default cluster and creates the
+   decoy over the manager's REST front), and the seed peer registers
+   with ``UpdateSeedPeer``; all
    against an origin in
    a process of its own serving a seeded 1 GiB file: the 7 peers ``dfget``
    it at once, ``dfcache`` stats and exports it on one peer, and an image
    preheat job (an OCI index → the ``linux/amd64`` manifest of 4 layers of
-   64 MiB) runs through the scheduler's job worker, whose manifest fetch
+   64 MiB), created with ``POST /oapi/v1/jobs`` under a personal access
+   token minted over REST and read back with ``GET /oapi/v1/jobs/:id``,
+   runs through the scheduler's job worker, whose manifest fetch
    goes through the port's source client, before one peer pulls a layer.
    Every output's sha256 must be the origin's, every decision served by
    the card's MLP on the ``serving`` rung, origin egress below 8× the file,
@@ -197,6 +204,7 @@ import io
 import json
 import random
 import re
+import secrets
 import shutil
 import statistics
 import subprocess
@@ -1027,14 +1035,63 @@ class _Manager:
             return SimpleNamespace(id=len(self.jobs))
 
 
+class _Rest:
+    """An operator's client of the manager's REST front: JSON in and out
+    under a bearer token, each request logged as (method, route, status,
+    ms). A status other than 200 fails the leg: no step falls back to the
+    database or to gRPC."""
+
+    def __init__(self, addr: str, token: str):
+        self.addr, self.token = addr, token
+        self.log = []
+
+    def call(self, method: str, path: str, body=None, token=None, route=None, raw=False):
+        """``route`` names the request in the log (a path without its ids);
+        ``token=""`` sends none → the JSON body (``raw``: the bytes)."""
+        import urllib.error
+        import urllib.request
+
+        token = self.token if token is None else token
+        req = urllib.request.Request(
+            f"http://{self.addr}{path}", method=method,
+            data=None if body is None else json.dumps(body).encode(),
+            headers={"Authorization": f"Bearer {token}"} if token else {},
+        )
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                status, data = resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            status, data = e.code, e.read()
+        self.log.append((method, route or path, status, (time.perf_counter() - t0) * 1e3))
+        check(status == 200, f"REST {method} {path} answered {status}: {data[:300]!r}")
+        return data if raw else json.loads(data)
+
+    def summary(self, label: str) -> dict:
+        """Prints and returns the requests' count, total ms and statuses,
+        and each route's ms."""
+        statuses, routes = {}, {}
+        for method, route, status, ms in self.log:
+            statuses[status] = statuses.get(status, 0) + 1
+            key = f"{method} {route}"
+            routes[key] = routes.get(key, 0.0) + ms
+        out = {"requests": len(self.log), "ms": sum(ms for *_, ms in self.log), "statuses": statuses,
+               "routes_ms": routes}
+        print(f"{label}: REST: {out['requests']} requests to the manager's front in {out['ms']:.2f} ms,"
+              f" statuses {statuses}; " + ", ".join(f"{k} {v:.2f} ms" for k, v in routes.items()))
+        return out
+
+
 def manager_server(work: Path):
     """The port's ``ManagerServer`` as shipped, in this process: sqlite and
     the ``fs`` object storage under ``work``, the read-through cache at its
-    30 s, the telemetry plane, ``/metrics`` on a port of its own, and the
-    certificate authority when the ``cryptography`` package is there (its
-    absence is printed, never skipped in silence) → (server, its gRPC
-    address, the operator's channel to it, that channel's client of the
-    manager service, manager_pb2); the caller closes the channel."""
+    30 s, the telemetry plane, the REST front and console on a port of
+    their own with one operator token of the admin role, ``/metrics`` on
+    another, and the certificate authority when the ``cryptography``
+    package is there (its absence is printed, never skipped in silence) →
+    (server, its gRPC address, the operator's channel to it, that
+    channel's client of the manager service, manager_pb2, the operator's
+    ``_Rest`` client of the REST address); the caller closes the channel."""
     import importlib.util
 
     from dragonfly2_torch.manager.server import ManagerServer, ManagerServerConfig
@@ -1043,16 +1100,29 @@ def manager_server(work: Path):
     certs = importlib.util.find_spec("cryptography") is not None
     if not certs:
         print("manager: the cryptography package is missing here; the manager runs with issue_certs=False")
-    mgr = ManagerServer(ManagerServerConfig(data_dir=str(work), metrics_port=0, issue_certs=certs))
+    token = secrets.token_urlsafe(24)
+    mgr = ManagerServer(ManagerServerConfig(data_dir=str(work), metrics_port=0, issue_certs=certs,
+                                            rest_port=0, rest_tokens={token: "admin"}))
     addr = mgr.serve()
+    check(mgr.rest_addr is not None, "the manager serves no REST front")
     channel = glue.dial(addr)
-    return mgr, addr, channel, glue.ServiceClient(channel, glue.MANAGER_SERVICE), protos.load("manager_pb2")
+    return (mgr, addr, channel, glue.ServiceClient(channel, glue.MANAGER_SERVICE), protos.load("manager_pb2"),
+            _Rest(mgr.rest_addr, token))
 
 
 def activate(ops, pb2, model_id: str, version: int) -> None:
     """``UpdateModel(state="active")``, as an operator activates a version."""
     got = ops.UpdateModel(pb2.UpdateModelRequest(model_id=model_id, version=version, state="active"))
     check(got.state == "active" and got.version == version, f"{model_id} v{version} is not active: {got}")
+
+
+def activate_over_rest(rest: _Rest, model_id: str, version: int) -> None:
+    """``PUT /api/v1/models/:model_id/versions/:version/state``, as an
+    operator activates a version through the REST front."""
+    got = rest.call("PUT", f"/api/v1/models/{model_id}/versions/{version}/state", {"state": "active"},
+                    route="/api/v1/models/:model_id/versions/:version/state")
+    check(got["state"] == "active" and (got["model_id"], got["version"]) == (model_id, version),
+          f"{model_id} v{version} is not active: {got}")
 
 
 def plane_view(plane, service: str, instance: str) -> dict:
@@ -2847,17 +2917,28 @@ def scrape_checks(name: str, metrics_addr: str, held: dict, own: dict, before: d
             "pushed_series": len(pushed), "pushed_agree": agree}
 
 
-def manager_checks(mgr, addr: str, reporters: set) -> dict:
+def manager_checks(mgr, addr: str, reporters: set, rest: _Rest) -> dict:
     """The port's manager after a leg: its telemetry plane's snapshot names
-    every reporter in ``reporters`` ((service, instance) pairs) live, its
-    /healthz answers 200 with the plane's SLO section, its /metrics parses,
-    and, when it runs the certificate authority, ``IssueCertificate`` signs
-    a CSR into a chain that verifies against the CA. → ms of each."""
+    every reporter in ``reporters`` ((service, instance) pairs) live, and
+    the REST front's ``GET /api/v1/telemetry`` names the same reporters as
+    the plane that the gRPC pushes fold into; ``GET /`` serves the port's
+    console page byte for byte; its /healthz answers 200 with the plane's
+    SLO section, its /metrics parses, and, when it runs the certificate
+    authority, ``IssueCertificate`` signs a CSR into a chain that verifies
+    against the CA. → ms of each."""
+    from dragonfly2_torch.manager.console import index_html
+
     t0 = time.perf_counter()
     snap = mgr.telemetry.snapshot()
     snapshot_ms = (time.perf_counter() - t0) * 1e3
     live = {(r["service"], r["instance"]) for r in snap["services"] if not r["stale"]}
     check(reporters <= live, f"manager: the plane's snapshot lacks {reporters - live}")
+    over_rest = rest.call("GET", "/api/v1/telemetry", token="")
+    named = {(r["service"], r["instance"]) for r in over_rest["services"]}
+    check(named == {(r["service"], r["instance"]) for r in snap["services"]} and reporters <= named,
+          f"manager: the REST snapshot names {sorted(named)}, the plane {sorted(live)}")
+    check(rest.call("GET", "/", token="", raw=True) == index_html(),
+          "manager: the REST front's console is not the port's index.html")
     status, _, body, health_ms = http_get(f"http://{mgr.metrics_addr}/healthz")
     health = json.loads(body)
     check(status == 200 and health["status"] == "ok" and set(health["slo"]["slos"]) >= {"download_success"},
@@ -2971,7 +3052,7 @@ def server_leg(
     try:
         shutil.rmtree(SERVER_WORK, ignore_errors=True)
         SERVER_WORK.mkdir(parents=True)
-        mgr, mgr_addr, ops_channel, ops, pb2 = manager_server(SERVER_WORK / "manager")
+        mgr, mgr_addr, ops_channel, ops, pb2, rest = manager_server(SERVER_WORK / "manager")
         seed_blob = serialize_params(init_mlp(torch.Generator().manual_seed(seed), MLP_DIMS))
         up = ops.CreateModel(pb2.CreateModelRequest(model_id="mlp-seeded", type="mlp", weights=seed_blob))
         check((up.version, up.state) == (1, "inactive"), f"the seeded MLP landed as {up.version} {up.state}")
@@ -3248,7 +3329,7 @@ def server_leg(
               and r.loaded_gru_version is None, "a poll installed an inactive trained model")
         t0 = time.perf_counter()
         for t in ups:
-            activate(ops, pb2, ups[t].model_id, ups[t].version)
+            activate_over_rest(rest, ups[t].model_id, ups[t].version)
         check(r.refresh_once(), "the refresher installed nothing")
         sync(device)
         install_ms = (time.perf_counter() - t0) * 1e3
@@ -3263,7 +3344,7 @@ def server_leg(
             f"server[{device}]: announcer → TrainerServer over gRPC: {out['upload_mib']:.2f} MiB of blocks"
             f" ({len(labels)} pairs, {topology_rows} topology rows) streamed in {upload_s:.2f}s;"
             f" round_s={round_s:.1f} (upload → three CreateModel, landed inactive); install_ms={install_ms:.1f}"
-            f" (three UpdateModel activations → the next poll installed them)"
+            f" (three REST activations → the next poll installed them)"
         )
 
         # phase 2: more children, on the trained GNN with the GRU filter
@@ -3327,7 +3408,9 @@ def server_leg(
             )
             st.update(scrape_checks(name, servers[name].metrics_addr, held, own[name], before))
             out["telemetry"][name] = st
-        out["manager"] = manager_checks(mgr, mgr_addr, {(name, rep.instance) for name, rep in reporters.items()})
+        out["manager"] = manager_checks(mgr, mgr_addr, {(name, rep.instance) for name, rep in reporters.items()},
+                                        rest)
+        out["rest"] = rest.summary(f"server[{device}]")
 
         # every served call rescored on the CPU
         cpu = {"seeded": MLPScorer(deserialize_params_auto(seed_blob), device="cpu"),
@@ -3808,14 +3891,18 @@ def download_leg(
     seed peer registers there with ``UpdateSeedPeer``. The manager holds a
     second scheduler cluster, scoped to another IDC, with a scheduler of
     its own on a closed port (the cluster settings an operator makes
-    through the console, written to the manager's database): the searcher
+    through the console, sent to the manager's REST front: a ``PATCH`` of
+    the default cluster's scopes and a ``POST`` of the decoy): the searcher
     must keep it from the daemons, and ``ListSchedulers`` for the daemons'
     address must read back the one live scheduler before the burst. An origin in its own process
     serves a ``file_mib`` MiB file made from ``seed`` and counts its bytes.
     Traffic: every peer ``dfget``s the file at once (the burst); ``dfcache``
-    stats and exports the task on one peer; a ``CreateJob`` on the manager
-    preheats an image (an OCI index → its ``linux/amd64`` manifest of
-    ``layers`` layers of ``layer_mib`` MiB) through the scheduler's job
+    stats and exports the task on one peer; a ``POST /oapi/v1/jobs`` on the
+    manager's REST front, under a personal access token of an admin user
+    minted there (signup, promotion, ``POST
+    /api/v1/personal-access-tokens``), preheats an image (an OCI index →
+    its ``linux/amd64`` manifest of ``layers`` layers of ``layer_mib``
+    MiB) through the scheduler's job
     worker, which resolves the manifest with the port's source client and
     has the seed peer fetch every layer; then one peer ``dfget``s a layer.
     Every daemon serves its registry proxy (``proxy_port``, one rule:
@@ -3867,6 +3954,7 @@ def download_leg(
     import urllib.request
 
     from dragonfly2_torch.client import dfcache, dfget, source
+    from dragonfly2_torch.manager.auth import _hash_password
     from dragonfly2_torch.scheduler import server as sched_server
     from dragonfly2_torch.scheduler import serving as serving_mod
     from dragonfly2_torch.scheduler.server import SchedulerServer, SchedulerServerConfig
@@ -3919,16 +4007,17 @@ def download_leg(
             with urllib.request.urlopen(f"{base}/_sent", timeout=30) as r:
                 return json.loads(r.read())
 
-        mgr, mgr_addr, ops_channel, ops, pb2 = manager_server(DOWNLOAD_WORK / "manager")
-        # the operator's cluster settings: the default cluster takes the
-        # loopback's peers; a decoy cluster in another IDC has a scheduler
-        # on a closed loopback port that no daemon may be handed
-        mgr.db.execute("UPDATE scheduler_clusters SET scopes = ? WHERE id = ?",
-                       (json.dumps({"cidrs": ["127.0.0.0/8"]}), mgr.service.default_cluster_id))
-        now = time.time()
-        decoy = mgr.db.execute(
-            "INSERT INTO scheduler_clusters (name, scopes, created_at, updated_at) VALUES ('decoy', ?, ?, ?)",
-            (json.dumps({"idc": "decoy-idc"}), now, now)).lastrowid
+        mgr, mgr_addr, ops_channel, ops, pb2, rest = manager_server(DOWNLOAD_WORK / "manager")
+        # the operator's cluster settings, through the REST front: the
+        # default cluster takes the loopback's peers; a decoy cluster in
+        # another IDC has a scheduler on a closed loopback port that no
+        # daemon may be handed (it registers over gRPC, as a scheduler does)
+        default_id = mgr.service.default_cluster_id
+        scoped = rest.call("PATCH", f"/api/v1/scheduler-clusters/{default_id}",
+                           {"scopes": {"cidrs": ["127.0.0.0/8"]}}, route="/api/v1/scheduler-clusters/:id")
+        check(json.loads(scoped["scopes"]) == {"cidrs": ["127.0.0.0/8"]}, f"the default cluster's scopes: {scoped}")
+        decoy = rest.call("POST", "/api/v1/scheduler-clusters",
+                          {"name": "decoy", "scopes": {"idc": "decoy-idc"}})["id"]
         ops.UpdateScheduler(pb2.UpdateSchedulerRequest(hostname="decoy", ip="127.0.0.1", port=_free_port(),
                                                        idc="decoy-idc", scheduler_cluster_id=decoy))
         blob = serialize_params(init_mlp(torch.Generator().manual_seed(seed), MLP_DIMS))
@@ -4092,14 +4181,27 @@ def download_leg(
         dfcache.export_file(procs.address(peer0), url, str(exported), local_only=True)
         check(_sha256_file(exported) == file_sha, "dfcache export is not the origin's bytes")
 
-        # image preheat through the job worker, then one peer pulls a layer
+        # image preheat through the job worker, then one peer pulls a layer;
+        # the job goes in over the open API under a personal access token
+        # of an admin user, minted over REST
+        user = rest.call("POST", "/api/v1/users/signup", {"name": "preheater", "password": secrets.token_hex(8)},
+                         token="")
+        # what the signup's password hash (PBKDF2-SHA256, 100,000 rounds)
+        # costs alone in this process, beside the request's wall
+        t = time.perf_counter()
+        _hash_password("leg", secrets.token_hex(16))
+        out["password_hash_ms"] = (time.perf_counter() - t) * 1e3
+        rest.call("PUT", f"/api/v1/users/{user['id']}/roles/admin", {}, route="/api/v1/users/:id/roles/admin")
+        pat = rest.call("POST", "/api/v1/personal-access-tokens", {"user_id": user["id"], "name": "preheat"})
         before = sent()
         t0 = time.perf_counter()
-        job = ops.CreateJob(pb2.CreateJobRequest(type="preheat", args_json=json.dumps(
-            {"type": "image", "url": f"{base}{IMAGE_PATH}/manifests/v1", "platform": "linux/amd64"})))
+        job = rest.call("POST", "/oapi/v1/jobs", {"type": "preheat", "args": {
+            "type": "image", "url": f"{base}{IMAGE_PATH}/manifests/v1", "platform": "linux/amd64"}},
+            token=pat["token"])
+        check(job["scheduler_cluster_id"] == default_id, f"the preheat job went to cluster {job}")
         check(srv.job_worker.poll_once() == 1, "the job worker leased no job")
-        job = ops.GetJob(pb2.GetJobRequest(id=job.id))
-        state, result = job.state, json.loads(job.result_json)
+        job = rest.call("GET", f"/oapi/v1/jobs/{job['id']}", token=pat["token"], route="/oapi/v1/jobs/:id")
+        state, result = job["state"], json.loads(job["result"])
         check(state == "succeeded" and result.get("layers") == layers and result.get("count") == layers,
               f"the image preheat job: {state} {result}")
         seed_host = next(h.id for h in srv.resource.host_manager.all() if h.hostname == "seed")
@@ -4130,6 +4232,8 @@ def download_leg(
               f" the layer pull cost the origin {out['preheat']['layer_pull_origin_bytes']} bytes")
         check(out["preheat"]["layer_pull_origin_bytes"] == 0, "the preheated layer's pull reached the origin")
         check(not [r for r in log if r["served"] is None], "a decision after the burst was demoted")
+        out["rest"] = rest.summary(f"download[{device}]")
+        print(f"download[{device}]: the signup's password hash alone took {out['password_hash_ms']:.2f} ms")
 
         # the registry proxy: the preheated image through one peer's proxy,
         # then the fresh image through every peer's at once
@@ -4548,15 +4652,16 @@ def main() -> int:
     # depth only: the trainer leg's upload at 1 file of 100 MiB (11 before
     # the server leg), its GRU at the newest 10,000 sequences (40,000) and
     # its waves on the trained models at 1 (3); the server leg keeps its
-    # cluster (10,000 hosts x 16 probes) and cuts its traffic to 16 tasks
-    # x 256 peers in phase 1 (40 x 256) and 128 children in phase 2 (256)
+    # cluster (10,000 hosts x 16 probes) and cuts its traffic to 12 tasks
+    # x 256 peers in phase 1 (40 x 256, then 16 x 256) and 64 children in
+    # phase 2 (256, then 128)
     trainer = leg("trainer", trainer_leg, "cuda", manager=manager, files=1, gru_max_sequences=10_000,
                   serve=dict(tasks=40, peers=256, wave_size=256, waves=1, warmup=1))
     # the crash drill cuts the GNN fit to 4 epochs (60 in the round)
     resume = leg("resume", resume_phase, "cuda")
     federation = leg("federation", federation_phase, "cuda")
     preheat = leg("preheat", preheat_leg, "cuda", manager)
-    server = leg("server", server_leg, "cuda", tasks=16, phase2=128)
+    server = leg("server", server_leg, "cuda", tasks=12, phase2=64)
     native_csv = leg("native", native_phase, "cuda")
     mesh = leg("mesh", mesh_phase, "cuda")
     check(mesh["backend"] == "nccl", f"the mesh phase ran over {mesh['backend']}, not NCCL")

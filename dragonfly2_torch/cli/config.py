@@ -125,12 +125,6 @@ def check_ported(cfg) -> None:
             "fleet membership and swarm replication are not ported"
             " (ROADMAP queue A item 5h): leave fleet_enabled False"
         )
-    if getattr(cfg, "rest_port", -1) >= 0:
-        raise NotImplementedError(
-            "the manager's REST API and console (manager/rest.py, auth.py,"
-            " console/) are not ported (ROADMAP queue A item A-D3b): leave"
-            " rest_port -1"
-        )
     if getattr(cfg, "kv_port", -1) >= 0:
         raise NotImplementedError(
             "the manager's embedded RESP KV server (utils/kvserver.py) is not"

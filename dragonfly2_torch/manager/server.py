@@ -2,15 +2,16 @@
 ``manager/server.py``; upstream manager/manager.go:87-330): the sqlite
 registry behind its read-through cache, the object-storage-backed model
 registry, the gRPC service with the telemetry plane and the Diagnose RPC
-on one port, ``/metrics`` with the SLO section on ``/healthz``, and the
-Serve/Stop lifecycle.
+on one port, the REST API and web console when ``rest_port >= 0``,
+``/metrics`` with the SLO section on ``/healthz``, and the Serve/Stop
+lifecycle.
 
-The config keeps the reference's every key and default. Two options enable
-parts this package does not port, and the server raises
-``NotImplementedError`` naming the ROADMAP item when one is set
-(``cli/config.check_ported``): ``rest_port >= 0`` (the REST API and
-console, A-D3b) and ``kv_port >= 0`` (the embedded RESP KV server, 5h).
-The manager holds no tensors: it has no device argument."""
+The config keeps the reference's every key and default. One option
+enables a part this package does not port, and the server raises
+``NotImplementedError`` naming the ROADMAP item when it is set
+(``cli/config.check_ported``): ``kv_port >= 0`` (the embedded RESP KV
+server, 5h). The manager holds no tensors: it has no device argument,
+and neither it nor its REST front imports torch."""
 
 from __future__ import annotations
 
@@ -32,8 +33,7 @@ logger = dflog.get("manager.server")
 class ManagerServerConfig:
     data_dir: str = "/tmp/dragonfly2-manager"
     listen: str = "127.0.0.1:0"
-    # REST API (manager/router): -1 = disabled, 0 = ephemeral port; not
-    # ported (ROADMAP queue A item A-D3b), so anything but -1 raises
+    # REST API (manager/router): -1 = disabled, 0 = ephemeral port
     rest_port: int = -1
     rest_host: str = "127.0.0.1"
     # bearer tokens accepted by the REST API, role per token
@@ -112,6 +112,8 @@ class ManagerServer:
         self.telemetry = TelemetryPlane()
         self.service.telemetry = self.telemetry
         self._grpc = None
+        self._rest = None
+        self.rest_addr: str | None = None
         self._metrics = None
 
     @staticmethod
@@ -168,6 +170,17 @@ class ManagerServer:
         )
         host = self.cfg.listen.rsplit(":", 1)[0]
         addr = f"{host}:{port}"
+        if self.cfg.rest_port >= 0:
+            from dragonfly2_torch.manager.rest import RestServer
+
+            self._rest = RestServer(
+                self.service,
+                host=self.cfg.rest_host,
+                port=self.cfg.rest_port,
+                tokens=self.cfg.rest_tokens,
+            )
+            self.rest_addr = self._rest.start()
+            logger.info("manager REST on %s", self.rest_addr)
         if self.cfg.metrics_port >= 0:
             from dragonfly2_torch.manager import metrics  # noqa: F401 — register series
             from dragonfly2_torch.utils.metrics import MetricsServer, default_registry
@@ -188,6 +201,8 @@ class ManagerServer:
     def stop(self) -> None:
         if self._metrics is not None:
             self._metrics.stop()
+        if self._rest is not None:
+            self._rest.stop()
         if self._grpc is not None:
             self._grpc.stop(grace=2).wait(5)
         self.db.close()

@@ -11,10 +11,12 @@ runs the five legs of ``chip_smoke.py`` and its encoder-gradient leg
 trainer leg feeds its Train stream through plain messages and uploads
 through plain requests; the preheat leg's job goes out through a plain
 request), then the server leg, whose scheduler and trainer servers talk
-gRPC to the port's manager, push telemetry to its plane and serve /metrics, then the resume phase's crash
+gRPC to the port's manager, push telemetry to its plane and serve /metrics,
+and whose trained models are activated over the manager's REST front, then the resume phase's crash
 drill (two spawned fits SIGKILLed by a fault rule), the federation
 phase, the native phase and the mesh phase (a gloo group of one) and the
-download leg (a seed peer and two peers of the port's daemons, a 2 MiB
+download leg (the cluster settings and the image preheat sent to the
+manager's REST front, a seed peer and two peers of the port's daemons, a 2 MiB
 origin, 64 KiB pieces, and images of 2 × 1 MiB layers pulled through the
 daemons' registry proxies: the preheated one by one peer, a fresh one by
 both at once; then a 1 MiB object written with dfstore through one
@@ -125,6 +127,8 @@ if {servers!r}:
     assert live["edges"] == 2048 and live["phase1"]["decisions"] == 512, live
     assert live["phase2"]["decisions"] == 16 and live["phase2"]["served"] > 0, live
     assert set(live["telemetry"]) == {{"scheduler", "trainer"}}, live
+    # three activations, the telemetry snapshot and the console, over REST
+    assert live["rest"]["requests"] == 5 and live["rest"]["statuses"] == {{200: 5}}, live["rest"]
     drill = chip_smoke.resume_phase("cpu", hosts=64, probes=8, group_records=200, mlp_batch=64)
     assert drill["gnn"]["resumed_epochs"] == drill["mlp"]["resumed_epochs"] == 2, drill
     fed = chip_smoke.federation_phase(
@@ -142,6 +146,9 @@ if {servers!r}:
                                  object_mib=1, s3_mib=1)
     assert dl["burst"]["origin_egress_x"] < 3 and dl["burst"]["demoted"] == 0, dl
     assert dl["records"] >= 2 and dl["preheat"]["layer_pull_origin_bytes"] == 0, dl
+    # the cluster settings, the token's signup, promotion and minting, the
+    # preheat job and its read-back, over REST
+    assert dl["rest"]["requests"] == 7 and dl["rest"]["statuses"] == {{200: 7}}, dl["rest"]
     hot, fresh = dl["proxy_preheated"], dl["proxy_fresh"]
     assert hot["origin_blob_bytes"] == 0 and hot["routes"] == {{"p2p": 2, "direct": 2}}, dl
     assert fresh["origin_egress_x"] < 3 and fresh["routes"] == {{"p2p": 4, "direct": 4}}, dl
@@ -199,8 +206,25 @@ def test_port_runs_with_jax_and_reference_blocked():
     # sharded trainer, 123 with the client, 136 with the manager, 137 with
     # the order-sweep tool, 139 with the registry proxy and its transport,
     # 142 with the cloud source clients, the object-storage gateway and
-    # dfstore)
-    assert _run_child(BLOCKED, every_module=True) >= 142
+    # dfstore, 145 with the manager's REST front, auth and console)
+    assert _run_child(BLOCKED, every_module=True) >= 145
+
+
+def test_the_rest_front_loads_no_torch():
+    """The manager binary starts without torch: its REST front, auth and
+    console import neither torch nor, with them blocked, jax or the
+    reference."""
+    code = (
+        "import sys\n"
+        + _CHILD.split("import torch\n")[0].format(blocked=BLOCKED, every_module=False, servers=False)
+        + "import dragonfly2_torch.manager.server, dragonfly2_torch.manager.rest\n"
+        "import dragonfly2_torch.manager.auth, dragonfly2_torch.manager.console\n"
+        "assert 'torch' not in sys.modules, sorted(n for n in sys.modules if n.startswith('torch'))\n"
+        "print('NO TORCH')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "NO TORCH", proc.stdout + proc.stderr
 
 
 def test_no_port_source_names_the_reference_build():

@@ -16,16 +16,20 @@
   case, each run on both packages with the same outcome.
 - The searcher picks the same cluster for every peer of a seeded set.
 - The server: ``ManagerServerConfig`` keeps the reference's keys and
-  defaults; ``rest_port`` and ``kv_port`` raise ``NotImplementedError``
-  naming their ROADMAP items, and so does ``ManagerService(fleet_kv=...)``;
-  ``python -m dragonfly2_torch.manager`` starts, and a served manager
-  answers gRPC, /metrics and /healthz with the SLO section."""
+  defaults; ``kv_port`` raises ``NotImplementedError`` naming its ROADMAP
+  item, and so does ``ManagerService(fleet_kv=...)``; ``python -m
+  dragonfly2_torch.manager`` starts (with ``rest_port=0`` it prints its
+  ``REST manager`` line before ``READY``), and a served manager answers
+  gRPC, /metrics and /healthz with the SLO section, and with
+  ``rest_port=0`` its REST API and console, whose writes reach gRPC
+  readers through the read-through cache at once."""
 
 import dataclasses
 import random
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -476,7 +480,7 @@ def test_server_config_keeps_the_reference_keys_and_defaults():
     assert t_server.ManagerServerConfig().issue_certs is True
 
 
-@pytest.mark.parametrize("option,item", [("rest_port", "A-D3b"), ("kv_port", "5h")])
+@pytest.mark.parametrize("option,item", [("kv_port", "5h")])
 def test_out_of_slice_manager_options_raise(tmp_path, option, item):
     cfg = t_server.ManagerServerConfig(data_dir=str(tmp_path / "m"), issue_certs=False, **{option: 0})
     with pytest.raises(NotImplementedError, match=rf"{option} -1|ROADMAP queue A item {item}") as e:
@@ -535,6 +539,74 @@ def test_the_binary_starts(tmp_path):
         resp = t_glue.ServiceClient(channel, t_glue.MANAGER_SERVICE).ListSchedulers(mp.ListSchedulersRequest())
         assert list(resp.schedulers) == []
         channel.close()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+def test_a_served_manager_answers_rest_and_the_console(tmp_path):
+    """``rest_port=0`` starts the REST front beside gRPC: the console at /,
+    the API under the configured tokens, and a PATCH of a cluster's scopes
+    over REST reaching ``ListSchedulers`` at once through the 30 s cache."""
+    import json
+
+    from dragonfly2_torch.manager.console import index_html
+
+    srv = t_server.ManagerServer(t_server.ManagerServerConfig(
+        data_dir=str(tmp_path / "m"), rest_port=0, rest_tokens={"op": "admin"}, issue_certs=False))
+    addr = srv.serve()
+    try:
+        assert srv.rest_addr and srv.rest_addr.startswith("127.0.0.1:")
+        assert isinstance(srv.db, t_cache.CachedDatabase) and srv._rest.api.db is srv.db
+
+        def call(method, path, body=None, token="op"):
+            req = urllib.request.Request(
+                f"http://{srv.rest_addr}{path}", method=method,
+                data=None if body is None else json.dumps(body).encode(),
+                headers={"Authorization": f"Bearer {token}"} if token else {})
+            try:
+                with urllib.request.urlopen(req, timeout=10) as r:
+                    return r.status, r.read()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read()
+
+        assert call("GET", "/", token=None) == (200, index_html())
+        assert call("GET", "/api/v1/scheduler-clusters", token=None)[0] == 401
+        channel = t_glue.dial(addr)
+        client = t_glue.ServiceClient(channel, t_glue.MANAGER_SERVICE)
+        client.UpdateScheduler(mp.UpdateSchedulerRequest(hostname="s", ip="127.0.0.1", port=1, idc="a"))
+        # the first poll fills the cache; the REST write must invalidate it
+        assert len(client.ListSchedulers(mp.ListSchedulersRequest(ip="127.0.0.1")).schedulers) == 1
+        status, decoy = call("POST", "/api/v1/scheduler-clusters", {"name": "b", "scopes": {"idc": "b"}})
+        assert status == 200
+        client.UpdateScheduler(mp.UpdateSchedulerRequest(hostname="sb", ip="127.0.0.2", port=2, idc="b",
+                                                         scheduler_cluster_id=json.loads(decoy)["id"]))
+        status, _ = call("PATCH", f"/api/v1/scheduler-clusters/{srv.service.default_cluster_id}",
+                         {"scopes": {"idc": "a"}})
+        assert status == 200
+        got = client.ListSchedulers(mp.ListSchedulersRequest(ip="127.0.0.1", idc="b")).schedulers
+        assert [s.hostname for s in got] == ["sb"]
+        channel.close()
+        status, body = call("GET", "/api/v1/telemetry", token=None)
+        assert status == 200 and json.loads(body)["services"] == []
+    finally:
+        srv.stop()
+    with pytest.raises(OSError):
+        urllib.request.urlopen(f"http://{srv.rest_addr}/healthy", timeout=2)
+
+
+def test_the_binary_prints_its_rest_line_before_ready(tmp_path):
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dragonfly2_torch.manager", "--set", f"data_dir={tmp_path / 'm'}",
+         "--set", "issue_certs=false", "--set", "rest_port=0"],
+        cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        rest_line, ready = proc.stdout.readline(), proc.stdout.readline()
+        assert rest_line.startswith("REST manager "), rest_line + proc.stderr.read()
+        assert ready.startswith("READY manager "), ready
+        with urllib.request.urlopen(f"http://{rest_line.split()[2]}/healthy", timeout=10) as r:
+            assert r.status == 200
     finally:
         proc.terminate()
         proc.wait(timeout=30)

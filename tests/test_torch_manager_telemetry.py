@@ -12,7 +12,15 @@ at every checkpoint, the same snapshot (inventory, swarms, shards,
 trainers, daemons, cluster rollup, SLO states and burn rates) and the
 same /healthz section. ``quantile_from_buckets`` must agree on seeded
 histograms, and the port's ``TelemetryService`` must answer the port's
-reporter over gRPC and refuse a bad payload as the reference does."""
+reporter over gRPC and refuse a bad payload as the reference does.
+
+Live, as the reference's ``tests/test_telemetry.py`` end-to-end case runs
+it: the port's daemon, two schedulers and a trainer push to the port's
+``ManagerServer``, whose REST front's ``GET /api/v1/telemetry`` shows
+them, their shards and swarms, and the SLO burn that downloads of a dead
+origin drive, which /healthz and the flight recorder carry too (the
+reference's dfstat and dfdoctor, tools the port has not taken yet, are
+left out)."""
 
 import json
 import time
@@ -221,3 +229,93 @@ def test_the_service_takes_the_port_reporter_and_refuses_bad_payloads():
     finally:
         channel.close()
         server.stop(0)
+
+
+def test_the_rest_snapshot_shows_the_port_reporters(tmp_path):
+    import os
+    import urllib.request
+
+    from dragonfly2_torch.client import dfget
+    from dragonfly2_torch.client.daemon import Daemon, DaemonConfig
+    from dragonfly2_torch.manager.server import ManagerServer, ManagerServerConfig
+    from dragonfly2_torch.scheduler.server import SchedulerServer, SchedulerServerConfig
+    from dragonfly2_torch.trainer.server import TrainerServer, TrainerServerConfig
+    from dragonfly2_torch.utils import flight
+
+    manager = ManagerServer(ManagerServerConfig(
+        data_dir=str(tmp_path / "manager"), rest_port=0, metrics_port=0, db_cache_ttl=0.0, issue_certs=False))
+    maddr = manager.serve()
+    schedulers, daemon, trainer = [], None, None
+    try:
+        for name in ("sch-a", "sch-b"):
+            s = SchedulerServer(SchedulerServerConfig(
+                data_dir=str(tmp_path / name), manager_address=maddr, hostname=name, device="cpu",
+                telemetry_interval=0.25, topology_backend="off"))
+            s.serve()
+            schedulers.append(s)
+        trainer = TrainerServer(TrainerServerConfig(
+            data_dir=str(tmp_path / "trainer"), manager_address=maddr, device="cpu", telemetry_interval=0.25))
+        trainer.serve()
+        daemon = Daemon(DaemonConfig(
+            data_dir=str(tmp_path / "daemon"), scheduler_address=",".join(f"127.0.0.1:{s.port}" for s in schedulers),
+            manager_address=maddr, hostname="d1", telemetry_interval=0.25, piece_length=16 * 1024,
+            announce_interval=60.0))
+        daemon.start()
+
+        def snapshot():
+            with urllib.request.urlopen(f"http://{manager.rest_addr}/api/v1/telemetry", timeout=10) as resp:
+                assert resp.status == 200
+                return json.loads(resp.read())
+
+        def wait_for(ready, what):
+            deadline = time.monotonic() + 30.0
+            while True:
+                snap = snapshot()
+                if ready(snap):
+                    return snap
+                assert time.monotonic() < deadline, f"{what}: {snap}"
+                time.sleep(0.1)
+
+        # first pushes land: baselines established
+        wait_for(lambda snap: len(snap["services"]) == 4, "four reporters")
+        payload = os.urandom(48 * 1024)
+        origin = tmp_path / "origin.bin"
+        origin.write_bytes(payload)
+        out = tmp_path / "out.bin"
+        dfget.download(f"127.0.0.1:{daemon.port}", f"file://{origin}", str(out))
+        assert out.read_bytes() == payload
+        for i in range(4):  # the injected fault: a dead origin
+            with pytest.raises(Exception):
+                dfget.download(f"127.0.0.1:{daemon.port}", f"file://{tmp_path}/no-such-origin-{i}.bin",
+                               str(tmp_path / f"fail-{i}.bin"))
+        time.sleep(1.0)  # two+ push intervals: deltas + SLO evaluation
+        snap = wait_for(lambda snap: {s["name"]: s for s in snap["slos"]}["download_success"]["breached"]
+                        and any(sw["peers"] >= 1 for sw in snap["swarms"]), "the burn and the swarm")
+        by_service = {}
+        for svc in snap["services"]:
+            by_service.setdefault(svc["service"], []).append(svc)
+        assert len(by_service["scheduler"]) == 2
+        assert len(by_service["trainer"]) == 1
+        assert len(by_service["daemon"]) == 1
+        assert all(not s["stale"] for s in snap["services"])
+        assert {(s["service"], s["instance"]) for s in snap["services"]} == {
+            (s["service"], s["instance"]) for s in manager.telemetry.snapshot()["services"]}
+        assert len(snap["shards"]) == 2
+        assert sum(sh["schedule_ops_per_s"]["1m"] for sh in snap["shards"]) > 0
+        assert any(sw["peers"] >= 1 for sw in snap["swarms"])
+        slos = {s["name"]: s for s in snap["slos"]}
+        assert slos["download_success"]["breached"], slos["download_success"]
+        with urllib.request.urlopen(f"http://{manager.metrics_addr}/healthz", timeout=5) as resp:
+            assert resp.status == 200
+            health = json.loads(resp.read())
+        assert "download_success" in health["slo"]["breached"]
+        events = flight.snapshot(["manager"]).get("manager", [])
+        assert any(e["type"] == "manager.slo_burn" and e.get("slo") == "download_success" for e in events)
+    finally:
+        if daemon is not None:
+            daemon.stop()
+        if trainer is not None:
+            trainer.stop()
+        for s in schedulers:
+            s.stop()
+        manager.stop()

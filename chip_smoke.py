@@ -53,9 +53,10 @@ Phases (any failed check raises and the script exits non-zero):
    ~40,000 topology records) fed through
    ``TrainerService.Train`` in 128 MiB chunks; ``Training`` as the trainer
    server builds it from its defaults fits the MLP on the streamed path
-   (pinned buffers, a side-stream copy stage, 2 passes), the GNN (60
-   epochs) and the GRU (its newest 10,000 sequences in ``main``,
-   ``GRU_MAX_SEQUENCES`` at the leg's default) at once on the card and
+   (pinned buffers, a side-stream copy stage, 2 passes), the GNN (40
+   epochs in ``main``, 60 at the leg's default) and the GRU (its newest
+   10,000 sequences in ``main``, ``GRU_MAX_SEQUENCES`` at the leg's
+   default) at once on the card and
    uploads all three through
    ``CreateModel`` to the in-process manager shortcut (``_Manager``); each
    holdout mse must beat the
@@ -69,15 +70,17 @@ Phases (any failed check raises and the script exits non-zero):
    and a reduced GRU fit are held against the CPU's (``FIT_TOL``,
    ``GRU_FIT_TOL``), and ~20 superbatches are traced for the device's
    idle share. The round runs with a ``checkpoint_dir``: the GNN fit
-   snapshots each of its 60 epochs (timed), and no snapshot directory
+   snapshots each of its epochs (timed), and no snapshot directory
    may be left after the round;
 5a. resume phase: the crash drill of the fits — ``train_gnn`` on the
    serve leg's probe graph and ``train_mlp`` at [19, 128, 128, 1] on the
-   trainer leg's pairs, 4 epochs each, in two spawned processes on the
+   trainer leg's pairs, 3 epochs each in ``main`` (4 at the phase's
+   default), in two spawned processes on the
    card with a ``checkpoint_dir`` and ``DF_FAULTS=trainer.fit_step=abort#2``:
    each must die by SIGKILL, the newest snapshot restored onto the card
    must equal what the child saved bit for bit, and the fit resumed here
-   runs 2 epochs and lands on an uninterrupted card run (MLP within 1e-6;
+   runs the epochs after the second and lands on an uninterrupted card
+   run (MLP within 1e-6;
    GNN within two uninterrupted runs' difference, 1e-6 where that is 0);
 5b. federation phase: the trainer leg's upload group as 4 scheduler
    hosts' shards (3 binary, 1 CSV, decoded by the native decoder) in
@@ -90,7 +93,8 @@ Phases (any failed check raises and the script exits non-zero):
 6. preheat leg: a ``DemandWindow`` at its defaults (1,024 tasks × 32
    buckets of 10 s) with 8 rising series among flat ones; one
    ``PreheatPlanner`` sweep fits the GRU demand forecaster inline on the
-   card, forecasts every series, plans the rising ones and sends one
+   card (4 epochs in ``main``, the forecaster's 8 at the leg's default),
+   forecasts every series, plans the rising ones and sends one
    ``CreateJob`` to the in-process manager shortcut carrying their task ids
    and ``recommend_seeds_by_rtt`` over the 10,000-host engine; the forecast
    on the card is held against its numpy version (``FORECAST_TOL``), and
@@ -103,7 +107,7 @@ Phases (any failed check raises and the script exits non-zero):
    /metrics, the certificate authority when ``cryptography`` is there),
    and the daemons' side in 4 processes of its own (started with ``spawn``):
    10,000 hosts announce and sync 16 seeded probes each (160,000 edges)
-   through ``SyncProbes``; 12 tasks × 256 peers run their ``AnnouncePeer``
+   through ``SyncProbes``; 8 tasks × 256 peers run their ``AnnouncePeer``
    streams at 64 at once (a back-to-source seed per task, then children
    scheduled on earlier peers through ``Scheduling`` → ``MLEvaluator`` →
    ``ScoringService`` on a seeded MLP the refresher installed); the
@@ -114,7 +118,7 @@ Phases (any failed check raises and the script exits non-zero):
    trained models over the manager's REST front (``PUT
    /api/v1/models/:id/versions/:v/state``), as an operator would, and the
    next poll installs them (activation → installed timed); then
-   64 more children are scored by the trained GNN with the GRU behind
+   32 more children are scored by the trained GNN with the GRU behind
    bad-node detection. Every decision must be a legal parent set or a
    legitimate back-to-source, none may drop below the serving rung after
    the warm-up, each order is ``rank_order`` of its card scores, and every
@@ -175,6 +179,24 @@ Phases (any failed check raises and the script exits non-zero):
    one peer ≥ 90% of its bytes from peers, ≥ 7 download records, every
    probed pair in the engine, and the preheated layer's pull 0 origin
    bytes;
+7d. fleet leg: the scheduler fleet — the port's ``ManagerServer`` with
+   its embedded RESP KV server, 3 schedulers, each ``python -m
+   dragonfly2_torch.scheduler`` in its own process on the card
+   (``algorithm="ml"``, ``fleet_enabled`` with leases of 3 s renewed
+   every 1 s, swarm replication every 0.25 s, the seeded MLP uploaded
+   inactive and activated through the manager), a seed peer and 7 peers
+   of the port's daemons following the leases (``kv_address``), and a
+   1 GiB origin: the fleet must form (3 leases, ``ListSchedulers`` and
+   every daemon's ``fleet_members`` reading them); 6 peers pull the file
+   at once and the task's ring owner gets a real SIGKILL mid-burst, once
+   its replica at the settled epoch holds 2 or more peers; the last
+   peer pulls it after the kill and must land on the ring successor,
+   which must have adopted the dead owner's swarm (the receipt
+   ``swarm:adopt:<task>``), name a parent of the dead owner's era and
+   serve the decision with its MLP on the card; no failover may fall back
+   to the origin and every blackout must stay below 12 s; a third
+   scheduler gets SIGTERM and its lease must be gone within the 3 s
+   lease, after which ``ListSchedulers`` names the successor alone;
 8. encoder leg at full width: the piece-sequence transformer (model_dim
    256, 4 heads, 4 layers) on B = 2, T = 8192 with flash attention, against
    the plain ``local_attention``: once in bfloat16, which must launch
@@ -1082,13 +1104,15 @@ class _Rest:
         return out
 
 
-def manager_server(work: Path):
+def manager_server(work: Path, kv_port: int = -1):
     """The port's ``ManagerServer`` as shipped, in this process: sqlite and
     the ``fs`` object storage under ``work``, the read-through cache at its
     30 s, the telemetry plane, the REST front and console on a port of
     their own with one operator token of the admin role, ``/metrics`` on
-    another, and the certificate authority when the ``cryptography``
-    package is there (its absence is printed, never skipped in silence) →
+    another, the embedded RESP KV server when ``kv_port >= 0`` (the
+    address at ``kv_addr``), and the certificate authority when the
+    ``cryptography`` package is there (its absence is printed, never
+    skipped in silence) →
     (server, its gRPC address, the operator's channel to it, that
     channel's client of the manager service, manager_pb2, the operator's
     ``_Rest`` client of the REST address); the caller closes the channel."""
@@ -1102,7 +1126,7 @@ def manager_server(work: Path):
         print("manager: the cryptography package is missing here; the manager runs with issue_certs=False")
     token = secrets.token_urlsafe(24)
     mgr = ManagerServer(ManagerServerConfig(data_dir=str(work), metrics_port=0, issue_certs=certs,
-                                            rest_port=0, rest_tokens={token: "admin"}))
+                                            rest_port=0, rest_tokens={token: "admin"}, kv_port=kv_port))
     addr = mgr.serve()
     check(mgr.rest_addr is not None, "the manager serves no REST front")
     channel = glue.dial(addr)
@@ -2499,7 +2523,7 @@ def demand_window(tasks: int, hot: int, now: float, rng: np.random.Generator, **
 
 def preheat_leg(
     device, manager, tasks=1024, hot=PREHEAT_HOT, hosts=10_000, probes=16,
-    candidates=PREHEAT_CANDIDATES, seed=0, **window_kw,
+    candidates=PREHEAT_CANDIDATES, forecast_epochs=None, seed=0, **window_kw,
 ) -> dict:
     """The preheat plane on ``device``: a ``DemandWindow`` (1,024 tasks ×
     32 buckets of 10 s at its defaults) holding ``hot`` rising series among
@@ -2511,7 +2535,9 @@ def preheat_leg(
     forecast of every series on ``device`` is then timed and held against
     the plain numpy version (``FORECAST_TOL``). Last, ``recommend_seeds``
     ranks ``candidates`` hosts with the GNN ``manager`` holds (the trainer
-    leg's, over the same probe graph), against the same on the CPU."""
+    leg's, over the same probe graph), against the same on the CPU.
+    ``forecast_epochs`` cuts the forecaster's fit (``DemandForecaster``'s
+    8 epochs when None)."""
     device = torch.device(device)
     rng = np.random.default_rng(seed)
     ids, fed, _, _ = probe_graph(hosts, probes, rng)
@@ -2521,7 +2547,8 @@ def preheat_leg(
     topology = NetworkTopology(KVStore(), resource.host_manager, engine=eng)
     now = PROBED_AT
     window, hot_ids = demand_window(tasks, hot, now, rng, **window_kw)
-    forecaster = DemandForecaster(window.window_buckets, device=device, seed=seed)
+    forecaster = DemandForecaster(window.window_buckets, device=device, seed=seed,
+                                  **({} if forecast_epochs is None else {"epochs": forecast_epochs}))
     planner = preheat_planner.PreheatPlanner(
         window, forecaster, manager_client=manager, topology=topology, cluster_id=1,
         budget_per_sweep=hot, requests=PlainRequests(),
@@ -3703,11 +3730,15 @@ class _DaemonProcs:
     holds a CUDA context, and the daemons see no card:
     ``CUDA_VISIBLE_DEVICES`` is empty), at ``DaemonConfig``'s defaults but
     for ``overrides``; each serves /metrics on a port of its own.
-    ``start`` returns once every daemon printed its ``READY`` line."""
+    ``start`` returns once every daemon printed its ``READY`` line. With
+    ``module="dragonfly2_torch.scheduler"`` and ``card=True`` the processes
+    are the port's scheduler binaries, which see the card."""
 
-    def __init__(self, work: Path):
+    def __init__(self, work: Path, module: str = "dragonfly2_torch.client.daemon", card: bool = False):
         self.work = work
-        self.procs = {}  # name → (Popen, dfdaemon address, metrics address)
+        self.module = module
+        self.card = card
+        self.procs = {}  # name → (Popen, gRPC address, metrics address)
 
     def start(self, specs: "dict[str, dict]", timeout: float = 120.0, env: "dict | None" = None) -> None:
         """``env``: variables every daemon gets in its environment besides
@@ -3715,12 +3746,13 @@ class _DaemonProcs:
         import os
         import selectors
 
-        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
-                   PYTHONPATH=str(Path(__file__).resolve().parent), **(env or {}))
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent), **(env or {}))
+        if not self.card:
+            env["CUDA_VISIBLE_DEVICES"] = ""
         sel = selectors.DefaultSelector()
         for name, overrides in specs.items():
             metrics = _free_port()
-            args = [sys.executable, "-m", "dragonfly2_torch.client.daemon",
+            args = [sys.executable, "-m", self.module,
                     "--set", f"data_dir={self.work / name}", "--set", f"hostname={name}",
                     "--set", f"metrics_port={metrics}"]
             for k, v in overrides.items():
@@ -3745,7 +3777,7 @@ class _DaemonProcs:
                     if not line:
                         sel.unregister(key.fileobj)
                         tail = (self.work / f"{name}.log").read_text()[-2000:]
-                        check(False, f"daemon {name} exited before READY:\\n{tail}")
+                        check(False, f"{name} exited before READY:\\n{tail}")
                 proc, _, metrics = self.procs[name]
                 self.procs[name] = (proc, line.split()[2], metrics)
                 sel.unregister(key.fileobj)
@@ -3776,9 +3808,18 @@ class _DaemonProcs:
     def events(self, name: str, kind: str) -> list:
         """The daemon's flight-recorder events of type ``kind``, from its
         /debug/ring."""
-        status, _, body, _ = http_get(f"http://{self.procs[name][2]}/debug/ring")
-        check(status == 200, f"daemon {name}: /debug/ring answered {status}")
-        return [e for ring in json.loads(body)["rings"].values() for e in ring if e["type"] == kind]
+        return [e for ring in self.debug(name, "/debug/ring")["rings"].values() for e in ring if e["type"] == kind]
+
+    def debug(self, name: str, path: str) -> dict:
+        """The JSON a process's /debug endpoint at ``path`` answers."""
+        status, _, body, _ = http_get(f"http://{self.procs[name][2]}{path}")
+        check(status == 200, f"{name}: {path} answered {status}")
+        return json.loads(body)
+
+    def kill(self, name: str, sig) -> None:
+        """Send ``sig`` to one process (a real signal: SIGKILL leaves it no
+        last word)."""
+        self.procs[name][0].send_signal(sig)
 
     def stop(self) -> None:
         import signal
@@ -4470,6 +4511,388 @@ def download_leg(
     return out
 
 
+FLEET_WORK = Path(__file__).resolve().parent / "build" / "fleet_leg"
+# the scheduler fleet: the shard-kill soak's 3 schedulers behind one hash
+# ring (the reference's tools/stress.py --chaos --shard-kill), each its own
+# process on the card, leased in the manager's embedded KV
+FLEET_SCHEDULERS = 3
+# every flight event of the leg's processes kept: a 1 GiB pull's pieces
+# would push the peers' decisions out of the default 512-event rings
+FLEET_FLIGHT_RING = 65536
+# the peer states in which a parent is fed, so a scheduler may hand it out
+# (a Pending or Received* peer is a bad node to the candidate filter)
+FLEET_FED_STATES = ("Running", "BackToSource", "Succeeded")
+
+
+def _diagnose(addr: str) -> dict:
+    """A server's Diagnose snapshot over gRPC (its flight probes under
+    ``["runtime"]["probes"]``)."""
+    from dragonfly2_torch.rpc import glue, protos
+
+    channel = glue.dial(addr)
+    try:
+        reply = glue.ServiceClient(channel, glue.DIAGNOSE_SERVICE).Diagnose(
+            protos.load("diagnose_pb2").DiagnoseRequest(include_stacks=False))
+        return json.loads(reply.snapshot_json)
+    finally:
+        channel.close()
+
+
+def _blackouts(events) -> "list[float]":
+    """A daemon's announce-plane outages in ms from its
+    ``daemon.peer_decision`` events, as its conductor times them: from a
+    peer's first ``stream_error`` to its next decision."""
+    started, out = {}, []
+    for e in sorted(events, key=lambda e: e["ts_ns"]):
+        if e["decision"] == "stream_error":
+            started.setdefault(e["peer_id"], e["ts_ns"])
+        elif e["decision"] != "schedule_timeout" and e["peer_id"] in started:
+            out.append((e["ts_ns"] - started.pop(e["peer_id"])) / 1e6)
+    return out
+
+
+def fleet_leg(
+    device, peers=DOWNLOAD_PEERS, file_mib=DOWNLOAD_FILE_MIB, piece_length=0, schedulers=FLEET_SCHEDULERS,
+    lease_ttl=None, renew=None, poll=None, piece_delay_ms=0, seed=0,
+) -> dict:
+    """The scheduler fleet failing over a SIGKILLed member. The port's
+    ``ManagerServer`` as shipped with its embedded RESP KV server
+    (``kv_port=0``); ``schedulers`` schedulers, each ``python -m
+    dragonfly2_torch.scheduler`` in its own process (``algorithm="ml"`` on
+    ``device``, seed peers enabled, ``fleet_enabled`` over the manager's
+    KV, registered with the manager), with ``FleetConfig`` and
+    ``ReplicationConfig`` at their defaults (lease 3 s, renew 1 s, poll
+    1 s, grace 10 s; a flush every 0.25 s of up to 64 tasks, backlog
+    1,024, replicas kept 600 s) unless ``lease_ttl``, ``renew`` or
+    ``poll`` is given; each installs the seeded MLP ``[19, 128, 128, 1]``,
+    uploaded inactive (which no poll may install) and activated through
+    the manager. Then a seed peer and ``peers`` peers of the port's
+    daemons (``_DaemonProcs``) with the manager's and the KV's addresses
+    and no static scheduler list. An origin in its own process serves a
+    ``file_mib`` MiB file made from ``seed``.
+
+    1. The fleet forms: ``read_members`` over RESP gives the schedulers'
+       addresses, ``ListSchedulers`` for the daemons' address returns
+       exactly those, and every daemon's /metrics reads ``fleet_members``
+       equal to their count.
+    2. The owner dies mid-burst: the file's task is owned by scheduler V
+       on the ring, S is its ring successor and T the third. Every peer
+       but the last ``dfget``s the file at once; once the KV holds V's
+       replica of the task at the settled epoch with at least 2 peers in
+       it, one of them fed (``FLEET_FED_STATES``) with pieces on record,
+       V's process gets SIGKILL (a pull of the burst still running). A
+       replica caught before any peer was fed would leave S no parent to
+       hand out: a peer busy pulling reads no announce error and never
+       re-registers, so S knows the burst's peers as the replica left
+       them.
+       Then the last peer, which had not asked for the file, ``dfget``s
+       it: its register lands on S once V's lease is gone.
+    3. A member leaves gracefully: T gets SIGTERM; its lease must be gone
+       before one ``lease_ttl`` has passed, and ``ListSchedulers`` then
+       returns S alone.
+
+    Checks: every output's sha256 is the origin's; origin egress below
+    ``peers + 1`` times the file; the adoption receipt
+    ``swarm:adopt:<task>`` reads ``adopted`` by S with V as the victim;
+    the late peer takes ≥ 90 % of its bytes from peers, its decision at S
+    (``scheduler.schedule`` in S's /debug/ring) names a parent of V's
+    replica, and every decision it got was served on S's ``serving`` rung
+    (``scheduler.evaluate_explain``) by S's MLP (Diagnose:
+    ``scheduler.serving`` and ``scheduler.device``), with no wave demoted
+    and no rung dropped on S; no daemon counts a
+    ``fleet_failover_resume_total{kind="fallback"}``; and every blackout
+    (each daemon's ``daemon.peer_decision`` events, as many as its
+    ``fleet_blackout_milliseconds`` counted) is below ``lease_ttl +
+    poll_interval + 8`` s. ``piece_delay_ms`` slows every piece a daemon
+    reads (a fault rule), so that a tiny rehearsal's burst outlives the
+    kill."""
+    import multiprocessing
+    import os
+    import signal
+    import urllib.request
+
+    from dragonfly2_torch.client import dfget
+    from dragonfly2_torch.rpc import glue
+    from dragonfly2_torch.scheduler import fleet
+    from dragonfly2_torch.scheduler.swarm_replication import ReplicationConfig
+    from dragonfly2_torch.utils import kvstore
+    from dragonfly2_torch.utils.idgen import URLMeta
+
+    device = torch.device(device)
+    given = {"lease_ttl": lease_ttl, "renew_interval": renew, "poll_interval": poll}
+    cfg = fleet.FleetConfig(**{k: v for k, v in given.items() if v is not None})
+    repl = ReplicationConfig()
+    bound_ms = (cfg.lease_ttl + cfg.poll_interval + 8.0) * 1e3
+    rng = np.random.default_rng(seed)
+    names = ["seed"] + [f"peer-{i}" for i in range(peers)]
+    burst, late = names[1:-1], names[-1]
+    sched_names = [f"sched-{i}" for i in range(schedulers)]
+    out = {"schedulers": schedulers, "peers": peers, "file_mib": file_mib, "lease_ttl": cfg.lease_ttl,
+           "renew_interval": cfg.renew_interval, "poll_interval": cfg.poll_interval, "grace_s": cfg.grace_s,
+           "replication": {k: getattr(repl, k) for k in ReplicationConfig.__slots__}}
+    daemons = _DaemonProcs(FLEET_WORK / "daemons")
+    scheds = _DaemonProcs(FLEET_WORK / "schedulers", module="dragonfly2_torch.scheduler", card=device.type == "cuda")
+    origin = mgr = ops_channel = kv = pool = None
+    try:
+        t_leg = time.perf_counter()
+        shutil.rmtree(FLEET_WORK, ignore_errors=True)
+        for d in ("daemons", "schedulers"):
+            (FLEET_WORK / d).mkdir(parents=True)
+        files = FLEET_WORK / "origin"
+        file_sha = _seeded_file(files / "blob.bin", file_mib, rng)
+        ctx = multiprocessing.get_context("spawn")
+        here, there = ctx.Pipe()
+        origin = ctx.Process(target=_origin_process, args=(there, str(files)), daemon=True)
+        origin.start()
+        there.close()
+        base = f"http://127.0.0.1:{here.recv()}"
+        here.close()
+
+        mgr, mgr_addr, ops_channel, ops, pb2, _ = manager_server(FLEET_WORK / "manager", kv_port=0)
+        check(mgr.kv_addr is not None and mgr.service.fleet_kv is not None, "the manager embeds no KV server")
+        kv = kvstore.RemoteKVStore(mgr.kv_addr)
+        blob = serialize_params(init_mlp(torch.Generator().manual_seed(seed), MLP_DIMS))
+        up = ops.CreateModel(pb2.CreateModelRequest(model_id="mlp-seeded", type="mlp", weights=blob))
+        check((up.version, up.state) == (1, "inactive"), f"the seeded MLP landed as {up.version} {up.state}")
+        lease = {f"fleet_{k}": v for k, v in given.items() if v is not None}
+        t0 = time.perf_counter()
+        scheds.start({n: dict(algorithm="ml", device=device.type, manager_address=mgr_addr, kv_address=mgr.kv_addr,
+                              fleet_enabled="true", seed_peer_enabled="true", model_refresh_interval=1.0,
+                              job_poll_interval=3600.0, **lease) for n in sched_names},
+                     timeout=300.0, env={"DF_FLIGHT_RING": str(FLEET_FLIGHT_RING)})
+        out["schedulers_up_s"] = time.perf_counter() - t0
+        addrs = {n: scheds.address(n) for n in sched_names}
+        members = sorted(addrs.values())
+        by_addr = {a: n for n, a in addrs.items()}
+        # the refresher polled once at serve: nothing active to install
+        for n in sched_names:
+            kind = _diagnose(addrs[n])["runtime"]["probes"]["scheduler.serving"]["model_kind"]
+            check(kind == "", f"fleet[{device}]: {n} installed the inactive seeded MLP ({kind!r})")
+        t0 = time.perf_counter()
+        activate(ops, pb2, "mlp-seeded", 1)
+        installed, probes = {}, {}
+        while len(installed) < len(sched_names):
+            check(time.perf_counter() - t0 < 120, f"fleet[{device}]: the activated MLP reached only {sorted(installed)}")
+            for n in sched_names:
+                if n not in installed:
+                    probes[n] = _diagnose(addrs[n])["runtime"]["probes"]
+                    if probes[n]["scheduler.serving"]["model_kind"] == "mlp":
+                        installed[n] = (time.perf_counter() - t0) * 1e3
+            time.sleep(0.05)
+        out["activation_to_install_ms"] = installed
+        for n in sched_names:
+            if device.type == "cuda":
+                check(probes[n].get("scheduler.device", {}).get("device", "").startswith("cuda"),
+                      f"fleet[{device}]: {n} serves off the card: {probes[n].get('scheduler.device')}")
+        print(f"fleet[{device}]: {schedulers} schedulers up in {out['schedulers_up_s']:.2f} s; the seeded MLP"
+              f" uploaded inactive, not installed by a poll; activated → installed in"
+              f" {', '.join(f'{n} {ms:.1f} ms' for n, ms in installed.items())}")
+
+        # 1. the fleet forms
+        check(fleet.read_members(kv) == members, f"fleet[{device}]: the leases read {fleet.read_members(kv)}")
+        listed = ops.ListSchedulers(pb2.ListSchedulersRequest(ip="127.0.0.1"))
+        check(sorted(f"{s.ip}:{s.port}" for s in listed.schedulers) == members,
+              f"fleet[{device}]: ListSchedulers gave {listed}")
+        common = {"scheduler_address": "''", "manager_address": mgr_addr, "kv_address": mgr.kv_addr}
+        if poll is not None:
+            common["fleet_poll_interval"] = poll
+        if piece_length:
+            common["piece_length"] = piece_length
+        env = {"DF_FLIGHT_RING": str(FLEET_FLIGHT_RING)}
+        if piece_delay_ms:
+            env["DF_FAULTS"] = f"daemon.piece_read=delay:{piece_delay_ms}"
+        t0 = time.perf_counter()
+        daemons.start({n: dict(common, host_type="super" if n == "seed" else "normal") for n in names}, env=env)
+        for n in sched_names:
+            while _diagnose(addrs[n])["runtime"]["probes"]["scheduler.resource"]["hosts"] < len(names):
+                check(time.perf_counter() - t0 < 60, f"fleet[{device}]: {n} was not told of every daemon's host")
+                time.sleep(0.05)
+        out["daemons_up_s"] = time.perf_counter() - t0
+        seen = {n: daemons.counts(n, "dragonfly_fleet_members").get("") for n in names}
+        check(all(v == schedulers for v in seen.values()), f"fleet[{device}]: the daemons' fleet_members {seen}")
+        print(f"fleet[{device}]: the fleet formed: {len(members)} leases {members}; ListSchedulers gives them;"
+              f" {len(names)} daemons up in {out['daemons_up_s']:.2f} s, each reading fleet_members {schedulers}")
+
+        # 2. the owner dies mid-burst
+        url = f"{base}/blob.bin"
+        task_id = task_id_v1(url, URLMeta())
+        order = [by_addr[a] for a in glue.ConsistentHashRing(members).successors(task_id)]
+        victim, successor, other = order[0], order[1], order[2]
+        out.update(victim=victim, successor=successor, other=other)
+        mem = {}
+        outputs = {n: FLEET_WORK / "daemons" / f"{n}.out" for n in names[1:]}
+        walls = {}
+
+        def pull(name):
+            t = time.perf_counter()
+            dfget.download(daemons.address(name), url, str(outputs[name]))
+            walls[name] = time.perf_counter() - t
+
+        def device_memory(n):
+            return _diagnose(addrs[n])["runtime"]["probes"].get("scheduler.device", {}).get("max_memory_allocated")
+
+        pool = ThreadPoolExecutor(len(burst) + 1)
+        t_burst = time.perf_counter()
+        pulls = {n: pool.submit(pull, n) for n in burst}
+        key = kvstore.make_swarm_replica_key(task_id)
+        while True:
+            check(time.perf_counter() - t_burst < 300, f"fleet[{device}]: no replica of {victim}'s at the epoch")
+            epoch, owner, data = kv.hmget(key, ["epoch", "owner", "data"])
+            if data is not None and owner == addrs[victim] and int(epoch) == int(kv.get(fleet.FLEET_EPOCH_KEY) or 0):
+                replica = {p: (v["state"], v["pieces"]) for p, v in json.loads(data)["obs"]["peers"].items()}
+                fed = [p for p, (state, pieces) in replica.items() if state in FLEET_FED_STATES and pieces > 0]
+                if len(replica) >= 2 and fed:
+                    break
+            time.sleep(0.01)
+        mem[victim] = device_memory(victim)
+        running = [n for n, f in pulls.items() if not f.done()]
+        kill_ns, t_kill = time.time_ns(), time.perf_counter()
+        scheds.kill(victim, signal.SIGKILL)
+        pulls[late] = pool.submit(pull, late)
+        check(running, f"fleet[{device}]: the burst ended before the kill")
+        out["kill"] = {"after_s": t_kill - t_burst, "replica_epoch": int(epoch), "replica_peers": len(replica),
+                       "replica": replica, "pulls_running": len(running)}
+        # read before the process is reaped: a killed process that held
+        # the card takes seconds to be torn down
+        while addrs[victim] in fleet.read_members(kv):
+            check(time.perf_counter() - t_kill < cfg.lease_ttl + 30, f"fleet[{device}]: {victim}'s lease never expired")
+            time.sleep(0.01)
+        out["kill_to_lease_gone_s"] = time.perf_counter() - t_kill
+        adopt_key = kvstore.make_swarm_adopt_key(task_id)
+        while kv.get(adopt_key) is None:
+            check(time.perf_counter() - t_kill < cfg.lease_ttl + cfg.poll_interval + 60,
+                  f"fleet[{device}]: no adoption receipt for the task")
+            time.sleep(0.01)
+        receipt = json.loads(kv.get(adopt_key))
+        check(scheds.procs[victim][0].wait(30) == -signal.SIGKILL, f"fleet[{device}]: {victim} did not die by SIGKILL")
+        out["kill"]["reaped_s"] = time.perf_counter() - t_kill
+        for n, f in pulls.items():
+            f.result()
+        pool.shutdown()
+        pool = None
+        burst_s = max(walls[n] for n in burst)
+        with ThreadPoolExecutor(len(outputs)) as shas_pool:
+            shas = dict(zip(outputs, shas_pool.map(lambda n: _sha256_file(outputs[n]), outputs)))
+        for n, sha in shas.items():
+            check(sha == file_sha, f"fleet[{device}]: {n}'s output is not the origin's bytes")
+        size = file_mib << 20
+        with urllib.request.urlopen(f"{base}/_sent", timeout=30) as r:
+            egress = json.loads(r.read()).get("/blob.bin", 0)
+        check(egress < (peers + 1) * size, f"fleet[{device}]: origin egress {egress} ≥ {peers + 1}× the file")
+        check(receipt["outcome"] == "adopted" and receipt["victim"] == addrs[victim]
+              and receipt["adopted_by"] == addrs[successor],
+              f"fleet[{device}]: the adoption receipt reads {({k: v for k, v in receipt.items() if k != 'payload'})}")
+        era = set(receipt["payload"]["obs"]["peers"])
+        adopted = scheds.events(successor, "scheduler.swarm_adopt_ok")
+        check(len(adopted) == 1 and adopted[0]["task_id"] == task_id, f"fleet[{device}]: {successor} adopted {adopted}")
+        # when the successor's own view dropped the dead member
+        seen_gone = [e for e in scheds.events(successor, "scheduler.fleet_reconcile") if addrs[victim] in e["left"]]
+        check(len(seen_gone) == 1, f"fleet[{device}]: {successor} saw {victim} leave {len(seen_gone)} times")
+        out["adopt"] = {"adopt_ms": receipt["adopt_ms"], "peers": len(era), "epoch": receipt["epoch"],
+                        "seq": receipt["seq"], "kill_to_reconcile_s": (seen_gone[0]["ts_ns"] - kill_ns) / 1e9,
+                        "kill_to_adopt_s": (adopted[0]["ts_ns"] - kill_ns) / 1e9}
+
+        # the late peer: its one peer id, its bytes, its decisions at S
+        late_events = sorted(daemons.events(late, "daemon.peer_decision"), key=lambda e: e["ts_ns"])
+        late_ids = {e["peer_id"] for e in late_events}
+        check(len(late_ids) == 1, f"fleet[{device}]: the late peer ran {sorted(late_ids)}")
+        late_id = late_ids.pop()
+        traffic = daemons.traffic(late)
+        late_share = traffic.get("remote_peer", 0.0) / max(sum(traffic.values()), 1.0)
+        decisions = [e for e in scheds.events(successor, "scheduler.schedule") if e["peer_id"] == late_id]
+        explained = [e for e in scheds.events(successor, "scheduler.evaluate_explain") if e["peer_id"] == late_id]
+        waves = scheds.events(successor, "scheduler.wave_evaluated")
+        falls = scheds.counts(successor, "dragonfly_scheduler_serving_fallback_total", "to")
+        s_probes = _diagnose(addrs[successor])["runtime"]["probes"]
+        to_source = scheds.events(successor, "scheduler.schedule_back_to_source")
+        out["late"] = {"peer_id": late_id, "wall_s": walls[late], "from_peers_share": late_share,
+                       "origin_bytes": traffic.get("back_to_source", 0.0), "decisions": len(decisions),
+                       "daemon_decisions": [e["decision"] for e in late_events], "traffic": traffic,
+                       "back_to_source": [e["reason"] for e in to_source if e["peer_id"] == late_id],
+                       "parents": decisions[0]["parent_ids"] if decisions else [],
+                       "rungs": sorted({e["rung"] for e in explained}),
+                       "successor_kind": s_probes["scheduler.serving"]["model_kind"],
+                       "successor_device": s_probes.get("scheduler.device", {}).get("device", "cpu")}
+        lt = out["late"]
+        check(late_share >= 0.9, f"fleet[{device}]: the late peer took {late_share:.4f} of its bytes from peers:"
+                                 f" {lt}; the replica at the kill {replica}")
+        check(decisions and set(decisions[0]["parent_ids"]) & era,
+              f"fleet[{device}]: the late peer's decision at {successor} names no parent of {victim}'s era: {lt}")
+        check(explained and lt["rungs"] == ["serving"] and lt["successor_kind"] == "mlp"
+              and lt["successor_device"].startswith(device.type),
+              f"fleet[{device}]: the late peer's decisions were not served by {successor}'s MLP on {device}: {lt}")
+        check(not any(w["demoted"] for w in waves) and not any(falls.values()),
+              f"fleet[{device}]: {successor} demoted a decision: waves {[w['demoted'] for w in waves]}, {falls}")
+
+        # every daemon's failovers: no fallback, every blackout bounded
+        resumes, blackouts = {}, {}
+        for n in names:
+            for kind, v in daemons.counts(n, "dragonfly_fleet_failover_resume_total", "kind").items():
+                resumes[kind] = resumes.get(kind, 0) + v
+            mine = _blackouts(daemons.events(n, "daemon.peer_decision"))
+            counted = daemons.counts(n, "dragonfly_fleet_blackout_milliseconds_count").get("", 0.0)
+            check(len(mine) == counted, f"fleet[{device}]: {n} counted {counted} blackouts, its ring holds {len(mine)}")
+            blackouts[n] = mine
+        every = sorted(b for v in blackouts.values() for b in v)
+        out["failover"] = {"resumes": resumes, "blackouts": len(every),
+                           "blackout_ms_p50": float(np.percentile(every, 50)) if every else 0.0,
+                           "blackout_ms_max": every[-1] if every else 0.0, "bound_ms": bound_ms}
+        fo = out["failover"]
+        check(not resumes.get("fallback"), f"fleet[{device}]: failovers fell back to the origin: {resumes}")
+        check(every and every[-1] < bound_ms, f"fleet[{device}]: blackouts {every} ms against {bound_ms:.0f} ms")
+        out["burst"] = {"wall_s": burst_s, "peer_wall_s": {n: walls[n] for n in burst},
+                        "aggregate_mib_per_s": len(burst) * file_mib / burst_s, "origin_egress_x": egress / size}
+        print(f"fleet[{device}]: burst of {len(burst)} × {file_mib} MiB in {burst_s:.2f} s"
+              f" ({out['burst']['aggregate_mib_per_s']:.1f} MiB/s), origin egress {egress / size:.3f}× the file;"
+              f" {victim} (the task's owner) SIGKILLed {out['kill']['after_s']:.2f} s in with {len(running)} pulls"
+              f" running and a replica of {len(replica)} peers at epoch {int(epoch)} ({len(fed)} fed); its lease gone"
+              f" {out['kill_to_lease_gone_s']:.2f} s after the kill (the process reaped after"
+              f" {out['kill']['reaped_s']:.2f} s); {successor} saw it leave {out['adopt']['kill_to_reconcile_s']:.2f} s"
+              f" and adopted {len(era)} peers {out['adopt']['kill_to_adopt_s']:.2f} s after it (adopt_ms"
+              f" {receipt['adopt_ms']})")
+        print(f"fleet[{device}]: the late peer pulled in {walls[late]:.2f} s, {late_share:.4f} of its bytes from"
+              f" peers, {lt['origin_bytes']:.0f} origin bytes; {len(decisions)} decisions at {successor}, parents"
+              f" {lt['parents']} of {victim}'s era, rung {lt['rungs']} on {lt['successor_kind']} ({lt['successor_device']});"
+              f" failovers {resumes}; {fo['blackouts']} blackouts p50 {fo['blackout_ms_p50']:.1f} ms, max"
+              f" {fo['blackout_ms_max']:.1f} ms (bound {bound_ms:.0f} ms)")
+
+        # 3. a member leaves gracefully
+        for n in (successor, other):
+            mem[n] = device_memory(n)
+        t_term = time.perf_counter()
+        scheds.kill(other, signal.SIGTERM)
+        while addrs[other] in fleet.read_members(kv):
+            check(time.perf_counter() - t_term < cfg.lease_ttl,
+                  f"fleet[{device}]: {other}'s lease outlived one lease_ttl after SIGTERM")
+            time.sleep(0.002)
+        out["sigterm_to_lease_gone_s"] = time.perf_counter() - t_term
+        check(scheds.procs[other][0].wait(60) == 0, f"fleet[{device}]: {other} did not stop cleanly on SIGTERM")
+        listed = ops.ListSchedulers(pb2.ListSchedulersRequest(ip="127.0.0.1"))
+        check([f"{s.ip}:{s.port}" for s in listed.schedulers] == [addrs[successor]],
+              f"fleet[{device}]: after {other} left, ListSchedulers gave {listed}")
+        out["max_memory_allocated"] = mem
+        out["wall_s"] = time.perf_counter() - t_leg
+        print(f"fleet[{device}]: {other} SIGTERMed: its lease gone in {out['sigterm_to_lease_gone_s']:.3f} s"
+              f" (ttl {cfg.lease_ttl} s), ListSchedulers gives {successor} alone; max_memory_allocated by"
+              f" scheduler {mem}; the leg {out['wall_s']:.1f} s")
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)
+        daemons.stop()
+        scheds.stop()
+        if kv is not None:
+            kv.close()
+        if ops_channel is not None:
+            ops_channel.close()
+        if mgr is not None:
+            mgr.stop()
+        if origin is not None:
+            origin.kill()
+            origin.join()
+        shutil.rmtree(FLEET_WORK, ignore_errors=True)
+    return out
+
+
 def encoder_inputs(batch: int, seq: int, in_dim: int, seed: int) -> torch.Tensor:
     """Seeded piece histories [B, T, F]: a piece's log cost and its position."""
     rng = np.random.default_rng(seed)
@@ -4650,22 +5073,29 @@ def main() -> int:
     manager = _Manager()
     # cut to the time limit on a slow host (the legs move 1.3-2x with it),
     # depth only: the trainer leg's upload at 1 file of 100 MiB (11 before
-    # the server leg), its GRU at the newest 10,000 sequences (40,000) and
-    # its waves on the trained models at 1 (3); the server leg keeps its
-    # cluster (10,000 hosts x 16 probes) and cuts its traffic to 12 tasks
-    # x 256 peers in phase 1 (40 x 256, then 16 x 256) and 64 children in
-    # phase 2 (256, then 128)
+    # the server leg), its GRU at the newest 10,000 sequences (40,000), its
+    # waves on the trained models at 1 (3) and, since the fleet leg (42.6 s
+    # alone in its first call on one H100 machine), its GNN at 40 epochs
+    # (60; at 30 the fit ended at 0.89 of its mean predictor's mse); the
+    # crash drill at 3 epochs (4) and the preheat sweep's first
+    # fit at 4 epochs (the forecaster's 8), since the fleet leg too; the
+    # server leg keeps its cluster (10,000 hosts x 16 probes) and cuts its
+    # traffic to 8 tasks x 256 peers in phase 1 (40, then 16, then 12
+    # tasks) and 32 children in phase 2 (256, then 128, then 64)
     trainer = leg("trainer", trainer_leg, "cuda", manager=manager, files=1, gru_max_sequences=10_000,
-                  serve=dict(tasks=40, peers=256, wave_size=256, waves=1, warmup=1))
-    # the crash drill cuts the GNN fit to 4 epochs (60 in the round)
-    resume = leg("resume", resume_phase, "cuda")
+                  gnn_epochs=40, serve=dict(tasks=40, peers=256, wave_size=256, waves=1, warmup=1))
+    # the crash drill cuts the GNN fit to 3 epochs (40 in the round)
+    resume = leg("resume", resume_phase, "cuda", epochs=3)
     federation = leg("federation", federation_phase, "cuda")
-    preheat = leg("preheat", preheat_leg, "cuda", manager)
-    server = leg("server", server_leg, "cuda", tasks=12, phase2=64)
+    preheat = leg("preheat", preheat_leg, "cuda", manager, forecast_epochs=4)
+    server = leg("server", server_leg, "cuda", tasks=8, phase2=32)
     native_csv = leg("native", native_phase, "cuda")
     mesh = leg("mesh", mesh_phase, "cuda")
     check(mesh["backend"] == "nccl", f"the mesh phase ran over {mesh['backend']}, not NCCL")
     download = leg("download", download_leg, "cuda")
+    # the scheduler fleet: 3 scheduler processes on the card, the owner
+    # of the burst's task SIGKILLed mid-burst, a second member SIGTERMed
+    fleet_run = leg("fleet", fleet_leg, "cuda")
     encoders = {
         kern: leg(f"encoder_{kern}", encoder_leg, "cuda", dtype=dtype, attention=True)
         for kern, dtype in (("sm90", torch.bfloat16), ("tf32x3", torch.float32))
@@ -4688,6 +5118,7 @@ def main() -> int:
         "preheat": preheat,
         "server": server,
         "download": download,
+        "fleet": fleet_run,
         "encoder": encoders,
         "encoder_grad": grad_legs,
         "tf32x3_d8_bf16": rows["tf32x3_d8_bf16"],

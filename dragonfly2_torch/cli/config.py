@@ -1,8 +1,6 @@
 """Config loading for service binaries (counterpart of the reference's
 ``cli/config.py``): YAML file + environment overrides onto dataclass
-configs (upstream cobra+viper yaml config per binary, cmd/*/cmd/root.go),
-and ``check_ported``, which refuses the server options the port leaves
-out.
+configs (upstream cobra+viper yaml config per binary, cmd/*/cmd/root.go).
 
 Precedence (last wins): dataclass defaults < YAML file < env vars <
 explicit CLI flags (applied by the caller).
@@ -114,19 +112,3 @@ def _hint(cls, name: str):
         return h
     return object  # containers / optionals → YAML parse
 
-
-def check_ported(cfg) -> None:
-    """A server config asking for a part the port leaves out raises
-    ``NotImplementedError`` naming its ROADMAP item — never a quiet
-    no-op (the scheduler's, the trainer's and the manager's servers call
-    this first)."""
-    if getattr(cfg, "fleet_enabled", False):
-        raise NotImplementedError(
-            "fleet membership and swarm replication are not ported"
-            " (ROADMAP queue A item 5h): leave fleet_enabled False"
-        )
-    if getattr(cfg, "kv_port", -1) >= 0:
-        raise NotImplementedError(
-            "the manager's embedded RESP KV server (utils/kvserver.py) is not"
-            " ported (ROADMAP queue A item 5h): leave kv_port -1"
-        )

@@ -18,10 +18,10 @@ registers and keeps itself alive with ``UpdateSeedPeer``. With
 ``object_storage_port >= 0`` and an ``object_storage_dir`` the
 object-storage gateway (``client/objectstorage.py``, which ``dfstore``
 speaks) over a transport of its own on the ``object`` plane, as the
-reference does. One option enables a plane this package does not port
-yet, and ``Daemon.start`` raises ``NotImplementedError`` naming the
-ROADMAP item when it is set (:data:`NOT_PORTED`): fleet membership over
-the shared KV (5h).
+reference does. With ``kv_address`` the daemon follows the scheduler
+fleet's leased members in the shared KV (``scheduler/fleet.FleetWatcher``,
+every ``fleet_poll_interval`` s): they feed its selector's ring, and the
+selector pulls them at once on a ``WRONG_SHARD`` refusal.
 """
 
 from __future__ import annotations
@@ -50,13 +50,6 @@ manager_pb2 = protos.load("manager_pb2")
 scheduler_pb2 = protos.load("scheduler_pb2")
 
 logger = dflog.get("client.daemon")
-
-# (option, the value test that enables it, what it is, the ROADMAP item)
-NOT_PORTED = (
-    ("kv_address", bool, "scheduler-fleet membership (scheduler/fleet.py)",
-     "queue A item 5h"),
-)
-
 
 @dataclass
 class DaemonConfig:
@@ -206,6 +199,8 @@ class Daemon:
         self._stop = threading.Event()
         self._dynconfig = None
         self._manager_channel = None
+        self._fleet_kv = None
+        self._fleet_watcher = None
         self._telemetry_reporter = None
         self._threads: list[threading.Thread] = []
         self.gc = GC()
@@ -252,13 +247,6 @@ class Daemon:
         )
 
     def start(self) -> None:
-        for option, enabled, what, item in NOT_PORTED:
-            value = getattr(self.cfg, option)
-            if enabled(value):
-                raise NotImplementedError(
-                    f"DaemonConfig.{option}={value!r} enables {what}, which this"
-                    f" package does not port yet (ROADMAP {item})"
-                )
         self.upload.start()
         addresses = [a for a in self.cfg.scheduler_address.split(",") if a.strip()]
         if self.cfg.manager_address:
@@ -305,6 +293,27 @@ class Daemon:
         # probe loop re-resolves the primary per round because dynconfig
         # membership changes can close any cached channel
         self._selector.primary()
+
+        if self.cfg.kv_address:
+            # live fleet membership (docs/fleet.md): the leased member
+            # set in the shared KV feeds the selector's ring, and the
+            # watcher doubles as the WRONG_SHARD retry's pull-now source
+            from dragonfly2_torch.scheduler.fleet import FleetWatcher
+            from dragonfly2_torch.utils import kvstore
+
+            self._fleet_kv = kvstore.RemoteKVStore(
+                self.cfg.kv_address, secret=self.cfg.kv_secret
+            )
+            self._fleet_watcher = FleetWatcher(
+                self._fleet_kv,
+                self._selector.update_addresses,
+                poll_interval=self.cfg.fleet_poll_interval,
+            )
+            self._selector.set_membership_source(self._fleet_watcher.read_members)
+            # adopt whatever is leased right now; the static list stays
+            # as bootstrap when no member has joined yet
+            self._fleet_watcher.poll_once()
+            self._fleet_watcher.start()
 
         from dragonfly2_torch.client.piece_manager import TrafficShaper
 
@@ -505,6 +514,10 @@ class Daemon:
         self._stop.set()
         if self._telemetry_reporter is not None:
             self._telemetry_reporter.stop()
+        if self._fleet_watcher is not None:
+            self._fleet_watcher.stop()
+        if self._fleet_kv is not None:
+            self._fleet_kv.close()
         if self._dynconfig is not None:
             self._dynconfig.stop()
         if self._manager_channel is not None:

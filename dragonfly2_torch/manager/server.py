@@ -3,22 +3,20 @@
 registry behind its read-through cache, the object-storage-backed model
 registry, the gRPC service with the telemetry plane and the Diagnose RPC
 on one port, the REST API and web console when ``rest_port >= 0``,
-``/metrics`` with the SLO section on ``/healthz``, and the Serve/Stop
-lifecycle.
+``/metrics`` with the SLO section on ``/healthz``, the embedded RESP KV
+server when ``kv_port >= 0`` (``utils/kvserver.KVServer``: the shared
+store of the scheduler fleet, whose leases scope ``ListSchedulers``),
+and the Serve/Stop lifecycle.
 
-The config keeps the reference's every key and default. One option
-enables a part this package does not port, and the server raises
-``NotImplementedError`` naming the ROADMAP item when it is set
-(``cli/config.check_ported``): ``kv_port >= 0`` (the embedded RESP KV
-server, 5h). The manager holds no tensors: it has no device argument,
-and neither it nor its REST front imports torch."""
+The config keeps the reference's every key and default. The manager
+holds no tensors: it has no device argument, and neither it nor its REST
+front imports torch."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from pathlib import Path
 
-from dragonfly2_torch.cli.config import check_ported
 from dragonfly2_torch.manager.database import Database
 from dragonfly2_torch.manager.models_registry import ModelRegistry
 from dragonfly2_torch.manager.objectstorage import new_object_storage
@@ -64,8 +62,7 @@ class ManagerServerConfig:
     # the runner's KV line. Loopback bind by default — exposing the KV
     # on the network is an explicit opt-in, and should come with
     # kv_secret so every connection must AUTH (requirepass semantics;
-    # schedulers pass the same value as their kv_secret). Not ported
-    # (ROADMAP queue A item 5h), so anything but -1 raises.
+    # schedulers pass the same value as their kv_secret).
     kv_port: int = -1
     kv_host: str = "127.0.0.1"
     kv_advertise_ip: str = "127.0.0.1"
@@ -81,7 +78,6 @@ class ManagerServerConfig:
 
 class ManagerServer:
     def __init__(self, config: ManagerServerConfig):
-        check_ported(config)
         self.cfg = config
         Path(config.data_dir).mkdir(parents=True, exist_ok=True)
         self.db = Database(str(Path(config.data_dir) / "manager.db"))
@@ -115,6 +111,8 @@ class ManagerServer:
         self._rest = None
         self.rest_addr: str | None = None
         self._metrics = None
+        self._kv = None
+        self.kv_addr: str | None = None
 
     @staticmethod
     def _load_ca(config):
@@ -195,10 +193,33 @@ class ManagerServer:
             )
             self.metrics_addr = self._metrics.start()
             logger.info("manager metrics on %s", self.metrics_addr)
+        if self.cfg.kv_port >= 0:
+            from dragonfly2_torch.utils.kvserver import KVServer
+
+            self._kv = KVServer(
+                host=self.cfg.kv_host, port=self.cfg.kv_port, secret=self.cfg.kv_secret
+            )
+            kv_port = self._kv.serve()
+            advertise = (
+                self.cfg.kv_advertise_ip
+                if self.cfg.kv_host in ("0.0.0.0", "::")
+                else self.cfg.kv_host
+            )
+            self.kv_addr = f"{advertise}:{kv_port}"
+            # scheduler-fleet view: the embedded KV is where fleet
+            # leases live, so the dynconfig scheduler list can scope to
+            # live members (ManagerService._fleet_members)
+            self.service.fleet_kv = self._kv.store
+            logger.info(
+                "manager kv (RESP) bound %s:%d, advertising %s",
+                self.cfg.kv_host, kv_port, self.kv_addr,
+            )
         logger.info("manager gRPC on %s", addr)
         return addr
 
     def stop(self) -> None:
+        if self._kv is not None:
+            self._kv.stop()
         if self._metrics is not None:
             self._metrics.stop()
         if self._rest is not None:

@@ -5,9 +5,9 @@ the job queue, the model registry RPCs the trainer and the scheduler
 consume, and certificate issuance — ``ManagerService``, the server half —
 and ``ManagerGrpcClientAdapter``, the trainer's uploader over gRPC.
 
-The scheduler-fleet view of ``ListSchedulers`` (leased members read from
-the shared KV) is not ported: ``fleet_kv`` raises ``NotImplementedError``
-(ROADMAP queue A item 5h)."""
+With ``fleet_kv`` (the manager's embedded RESP store, where the
+scheduler fleet keeps its leases) ``ListSchedulers`` is scoped to the
+schedulers that hold a live lease (``scheduler/fleet.read_members``)."""
 
 from __future__ import annotations
 
@@ -42,12 +42,6 @@ class ManagerService:
     ):
         from dragonfly2_torch.manager.searcher import new_searcher
 
-        if fleet_kv is not None:
-            raise NotImplementedError(
-                "ManagerService(fleet_kv=...) scopes ListSchedulers to the"
-                " scheduler fleet's leased members, which this package does not"
-                " port yet (ROADMAP queue A item 5h)"
-            )
         self.db = db
         self.models = models
         self.searcher = new_searcher()  # plugin seam (utils/dfplugin)
@@ -58,6 +52,13 @@ class ManagerService:
         # — dev mode only; production sets one)
         self.ca = ca
         self.ca_token = ca_token
+        # scheduler-fleet view (scheduler/fleet.py): a KV store holding
+        # the fleet's leased member set — when live leases exist, the
+        # dynconfig scheduler list is scoped to them, so daemons polling
+        # the manager also converge within one lease TTL of a member
+        # death instead of the 60s keepalive timeout. None/empty fleet →
+        # the keepalive-based registry stands alone (compat).
+        self.fleet_kv = fleet_kv
 
     # -- scheduler registry ------------------------------------------------
     def UpdateScheduler(self, request, context):
@@ -105,6 +106,26 @@ class ManagerService:
             scoped = [r for r in rows if r["scheduler_cluster_id"] == cluster.id]
             if scoped:
                 rows = scoped
+        live = self._fleet_members()
+        if live:
+            # fleet view in dynconfig: only members holding a live lease
+            # are handed to daemons. An empty/unreadable lease plane
+            # falls through to the keepalive registry — a KV outage must
+            # not strand every daemon schedulerless.
+            leased = [r for r in rows if f"{r['ip']}:{r['port']}" in live]
+            if leased:
+                rows = leased
+            elif rows:
+                # leases exist but match NO registered row: an
+                # address-mismatch misconfiguration (lease advertises a
+                # port the registration didn't carry) that silently
+                # disables fast convergence — say so instead
+                logger.warning(
+                    "fleet leases %s match no registered scheduler %s;"
+                    " serving the keepalive registry unscoped",
+                    sorted(live),
+                    sorted(f"{r['ip']}:{r['port']}" for r in rows),
+                )
         return manager_pb2.ListSchedulersResponse(
             schedulers=[
                 manager_pb2.Scheduler(
@@ -115,6 +136,17 @@ class ManagerService:
                 for r in rows
             ]
         )
+
+    def _fleet_members(self) -> "set[str] | None":
+        if self.fleet_kv is None:
+            return None
+        try:
+            from dragonfly2_torch.scheduler.fleet import read_members
+
+            return set(read_members(self.fleet_kv))
+        except Exception as e:
+            logger.warning("fleet membership read failed: %s", e)
+            return None
 
     def _match_cluster(self, request):
         if not (request.ip or request.idc or request.location):

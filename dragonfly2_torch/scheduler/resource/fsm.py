@@ -61,3 +61,17 @@ class FSM:
         cb = self.on_transition
         if cb is not None:
             cb(t.dst)
+
+    def force(self, state: str) -> None:
+        """Set the state directly, bypassing the transition table — for
+        seeding a shadow FSM from a replicated snapshot (swarm adoption),
+        where the peer's history happened on another scheduler and only
+        the resulting state is known. Fires ``on_transition`` like a
+        normal event, and only when the state changed, so observers (the
+        swarm ledger) stay in step."""
+        with self._lock:
+            changed = state != self._state
+            self._state = state
+        cb = self.on_transition
+        if changed and cb is not None:
+            cb(state)

@@ -10,9 +10,11 @@ card raises unless ``"cpu"`` is asked for). With a manager the server
 pushes its series to the manager's ``ReportTelemetry`` every
 ``telemetry_interval`` seconds (``utils/telemetry.py``), and with
 ``metrics_port >= 0`` it serves ``/metrics``, ``/healthz`` and
-``/debug/*`` (``utils/metrics.MetricsServer``). Left out of the port:
-fleet membership and swarm replication (``fleet_enabled`` raises
-``NotImplementedError``; ROADMAP queue A item 5h).
+``/debug/*`` (``utils/metrics.MetricsServer``). With ``fleet_enabled``
+it joins the scheduler fleet over the shared KV (``kv_address``) once
+its gRPC plane is up (``scheduler/fleet.py``), journals its swarms there
+and adopts a dead member's (``scheduler/swarm_replication.py``), and
+leaves the fleet first when it stops.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from dragonfly2_torch.scheduler.networktopology import NetworkTopology
 from dragonfly2_torch.scheduler.scheduling import Scheduling, SchedulingConfig
 from dragonfly2_torch.scheduler.service import SERVICE_NAME, SchedulerService
 from dragonfly2_torch.scheduler.storage import Storage
-from dragonfly2_torch.cli.config import check_ported
 from dragonfly2_torch.device import resolve_device
 from dragonfly2_torch.utils import dflog, flight, profiling
 from dragonfly2_torch.utils.gc import GC, GCTask
@@ -132,7 +133,7 @@ class SchedulerServerConfig:
     # AUTH secret for the shared KV (KVServer requirepass / Redis AUTH);
     # empty = unauthenticated (loopback/dev deployments)
     kv_secret: str = ""
-    # scheduler-fleet membership (not ported: True raises):
+    # scheduler-fleet membership (scheduler/fleet.py, docs/fleet.md):
     # register this scheduler under a heartbeat-renewed lease in the
     # shared KV so daemons/the manager follow LIVE membership and each
     # member refuses announces for shards it doesn't own (WRONG_SHARD).
@@ -179,7 +180,6 @@ class SchedulerServerConfig:
 class SchedulerServer:
     def __init__(self, config: SchedulerServerConfig):
         self.cfg = config
-        check_ported(config)
         # resolved first: a scheduler asked for the card on a machine
         # without one raises here, before any thread or socket exists
         self.device = resolve_device(config.device)
@@ -452,6 +452,8 @@ class SchedulerServer:
         self._grpc = None
         self.port: int | None = None
         self.telemetry_reporter = None
+        self.fleet = None
+        self.replication = None
         self._metrics = None
         self.metrics_addr = ""
 
@@ -486,6 +488,16 @@ class SchedulerServer:
         from dragonfly2_torch.scheduler import swarm as _swarm
 
         flight.register_probe("scheduler.swarm", _swarm.summary)
+        if self.device.type == "cuda":
+            import torch
+
+            # the card's allocator, beside the resource counts: what this
+            # member holds on the device, readable over Diagnose
+            flight.register_probe("scheduler.device", lambda: {
+                "device": str(self.device),
+                "memory_allocated": torch.cuda.memory_allocated(self.device),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(self.device),
+            })
         from dragonfly2_torch.rpc.diagnose import DiagnoseService
         from dragonfly2_torch.rpc.glue import DIAGNOSE_SERVICE
 
@@ -498,6 +510,69 @@ class SchedulerServer:
             ),
         )
         addr = f"{cfg.listen.rsplit(':', 1)[0]}:{self.port}"
+        if cfg.fleet_enabled:
+            # join the fleet only once the gRPC plane is up: a member
+            # that announces itself before it can serve would black-hole
+            # every shard the ring hands it
+            from dragonfly2_torch.scheduler.fleet import FleetConfig, FleetMembership
+
+            # the heartbeat gets its OWN connection when the KV is
+            # remote: RemoteKVStore serializes one in-flight command per
+            # socket, and a slow topology read holding that lock for up
+            # to the socket timeout (5s) would starve the renew past the
+            # lease TTL — a false member death, a WRONG_SHARD storm, and
+            # a rebalance back, all from someone else's slow query
+            fleet_kv = (
+                kvstore.RemoteKVStore(cfg.kv_address, secret=cfg.kv_secret)
+                if cfg.kv_address
+                else self.kvstore
+            )
+            self.fleet = FleetMembership(
+                fleet_kv,
+                f"{cfg.advertise_ip}:{cfg.advertise_port or self.port}",
+                FleetConfig(
+                    lease_ttl=cfg.fleet_lease_ttl,
+                    renew_interval=cfg.fleet_renew_interval,
+                    poll_interval=cfg.fleet_poll_interval,
+                    grace_s=cfg.fleet_grace_s,
+                ),
+            )
+            self.fleet.join()
+            self.service.fleet = self.fleet
+            self.service_v1.fleet = self.fleet
+            flight.register_probe("scheduler.fleet", self.fleet.snapshot)
+            if cfg.swarm_replication:
+                from dragonfly2_torch.scheduler.swarm_replication import (
+                    ReplicationConfig,
+                    SwarmReplicator,
+                )
+
+                # like the heartbeat, the flush burst gets its OWN
+                # connection when remote: a multi-task pipelined write
+                # must not hold the announce path's socket lock
+                repl_kv = (
+                    kvstore.RemoteKVStore(cfg.kv_address, secret=cfg.kv_secret)
+                    if cfg.kv_address
+                    else self.kvstore
+                )
+                self.replication = SwarmReplicator(
+                    repl_kv,
+                    f"{cfg.advertise_ip}:{cfg.advertise_port or self.port}",
+                    self.resource,
+                    fleet=self.fleet,
+                    config=ReplicationConfig(
+                        interval_s=cfg.swarm_replication_interval,
+                        max_tasks_per_flush=cfg.swarm_replication_max_tasks,
+                        backlog_cap=cfg.swarm_replication_backlog_cap,
+                        replica_ttl_s=cfg.swarm_replication_ttl_s,
+                    ),
+                )
+                self.replication.start()
+                self.service.replication = self.replication
+                self.service_v1.replication = self.replication
+                flight.register_probe(
+                    "scheduler.swarm_replication", self.replication.stats
+                )
         if self.topology_engine is not None:
             try:
                 # restart recovery: adopt the durable KV graph into the
@@ -620,6 +695,18 @@ class SchedulerServer:
         # storage → gc → announcer → clients → graceful grpc stop
         if self._metrics is not None:
             self._metrics.stop()
+        if self.replication is not None:
+            # before the fleet leave: the final flush stamps the current
+            # epoch while this member is still a voting reader of it
+            self.replication.stop()
+            if self.replication.kv is not self.kvstore:
+                self.replication.kv.close()
+        if self.fleet is not None:
+            # graceful leave FIRST: peers stop routing new shards here
+            # while the grpc grace period drains in-flight streams
+            self.fleet.leave()
+            if self.fleet.kv is not self.kvstore:
+                self.fleet.kv.close()  # the heartbeat's own RESP socket
         if self.telemetry_reporter is not None:
             self.telemetry_reporter.stop()
         if self.preheat_planner is not None:

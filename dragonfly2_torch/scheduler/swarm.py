@@ -2,8 +2,7 @@
 # report, and scheduling decision; keep each hook to one short lock
 # hold with no Prometheus touch (series flush lazily at sync time).
 """Swarm observatory: live per-task swarm DAG introspection (counterpart
-of the reference's ``scheduler/swarm.py``, without its replication
-surface, which serves fleet failover: ROADMAP queue A item 5h).
+of the reference's ``scheduler/swarm.py``).
 
 The scheduler's whole job is maintaining the swarm graph — which peer
 feeds which, how deep the tree runs, how much of each task the swarm
@@ -178,6 +177,10 @@ class _TaskView:
 _lock = threading.Lock()
 _tasks: dict[str, _TaskView] = {}
 _peer_total = [0]  # across tasks, bounded by _PEER_CAP
+# tasks mutated since the last drain_dirty() — the replication plane's
+# work queue. A set, so a task churning between flushes coalesces to
+# one write; adding under the already-held hook lock costs one hash.
+_dirty: set[str] = set()
 # monotone module totals (per-task counters die with their task view)
 _totals = {"reschedules": 0, "back_to_source": 0, "straggler_flags": 0,
            "stuck_flags": 0, "dropped_tasks": 0, "dropped_peers": 0}
@@ -199,6 +202,7 @@ def _ensure(task_id: str, peer_id: "str | None", now: float, state: str = "Pendi
         tv = _tasks[task_id] = _TaskView(now, total_pieces)
     elif total_pieces and total_pieces > tv.total_pieces:
         tv.total_pieces = total_pieces
+    _dirty.add(task_id)
     if peer_id is None:
         return tv, None
     pv = tv.peers.get(peer_id)
@@ -302,6 +306,7 @@ def on_reschedule(task_id: str, peer_id: str) -> None:
         tv.edges -= 1
         tv.reschedules += 1
         _totals["reschedules"] += 1
+        _dirty.add(task_id)
 
 
 def on_peer_gone(task_id: str, peer_id: str) -> None:
@@ -316,6 +321,7 @@ def on_peer_gone(task_id: str, peer_id: str) -> None:
         if pv is None:
             return
         _peer_total[0] -= 1
+        _dirty.add(task_id)
         if pv.parent is not None:
             tv.edges -= 1
         for child in tv.peers.values():
@@ -331,6 +337,90 @@ def on_task_gone(task_id: str) -> None:
         tv = _tasks.pop(task_id, None)
         if tv is not None:
             _peer_total[0] -= len(tv.peers)
+            _dirty.add(task_id)
+
+
+# -- replication surface (scheduler/swarm_replication.py) ---------------
+
+
+def task_ids() -> list[str]:
+    """Every task currently in the ledger. The replicator re-journals
+    them all when the settled fleet epoch advances: a replica's epoch
+    stamp is written at flush time, so without a re-stamp a quiet
+    task's replica would freeze at the old generation and be refused
+    as stale by the very successor it exists to seed."""
+    with _lock:
+        return list(_tasks)
+
+
+def drain_dirty() -> set[str]:
+    """Swap out the set of tasks mutated since the last drain. The
+    replicator's flush loop is the only caller; a churning task
+    coalesces to one entry per flush interval."""
+    global _dirty
+    with _lock:
+        out, _dirty = _dirty, set()
+        return out
+
+
+def export_task(task_id: str) -> "dict | None":
+    """The observatory's half of a replication payload: per-peer FSM
+    state, primary-parent edge, depth, piece count and seed-ness, plus
+    the task-level counters. ``None`` when the task left the ledger —
+    the replicator turns that into a replica delete."""
+    with _lock:
+        tv = _tasks.get(task_id)
+        if tv is None:
+            return None
+        return {
+            "peers": {
+                pid: {
+                    "state": pv.state,
+                    "parent": pv.parent,
+                    "depth": pv.depth,
+                    "pieces": pv.pieces,
+                    "seed": pv.seed,
+                }
+                for pid, pv in tv.peers.items()
+            },
+            "edges": tv.edges,
+            "total_pieces": tv.total_pieces,
+            "max_done": tv.max_done,
+            "back_to_source": tv.back_to_source,
+            "reschedules": tv.reschedules,
+        }
+
+
+def adopt_task(task_id: str, payload: dict) -> bool:
+    """Seed the ledger from an adopted replica (``export_task`` shape).
+    The edge counter is recomputed from the seeded parents rather than
+    trusted, so the conservation identity holds by construction even if
+    the wire payload lied. Returns False when the task cap refused the
+    adoption (peers past the peer cap are dropped individually)."""
+    now = time.monotonic()
+    with _lock:
+        tv, _ = _ensure(task_id, None, now,
+                        total_pieces=int(payload.get("total_pieces", 0)))
+        if tv is None:
+            return False
+        tv.max_done = max(tv.max_done, int(payload.get("max_done", 0)))
+        tv.back_to_source += int(payload.get("back_to_source", 0))
+        tv.reschedules += int(payload.get("reschedules", 0))
+        peers = payload.get("peers", {})
+        for pid, p in peers.items():
+            _, pv = _ensure(task_id, pid, now,
+                            state=str(p.get("state", "Pending")),
+                            seed=bool(p.get("seed", False)))
+            if pv is None:
+                continue
+            pv.state = str(p.get("state", "Pending"))
+            parent = p.get("parent")
+            pv.parent = parent if parent is None else str(parent)
+            pv.depth = int(p.get("depth", 0))
+            pv.pieces = max(pv.pieces, int(p.get("pieces", 0)))
+        # recompute: the incremental counter must agree with the map
+        tv.edges = sum(1 for pv in tv.peers.values() if pv.parent is not None)
+        return True
 
 
 # -- straggler / stuck detection ----------------------------------------
@@ -609,6 +699,7 @@ def reset() -> None:
     Prometheus counters keep their flushed monotonic totals)."""
     with _lock:
         _tasks.clear()
+        _dirty.clear()
         _peer_total[0] = 0
         for k in _totals:
             _totals[k] = 0

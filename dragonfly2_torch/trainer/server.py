@@ -16,7 +16,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from pathlib import Path
 
-from dragonfly2_torch.cli.config import check_ported
 from dragonfly2_torch.rpc import glue
 from dragonfly2_torch.rpc.glue import TRAINER_SERVICE as SERVICE_NAME
 from dragonfly2_torch.trainer.service import TrainerService
@@ -80,7 +79,6 @@ class TrainerServerConfig:
 class TrainerServer:
     def __init__(self, config: TrainerServerConfig):
         self.cfg = config
-        check_ported(config)
         Path(config.data_dir).mkdir(parents=True, exist_ok=True)
         self.storage = TrainerStorage(config.data_dir)
 

@@ -1,6 +1,5 @@
 """Embedded KV store + RESP client — the role Redis plays (counterpart of
-the reference's ``utils/kvstore.py``; its fleet and swarm-replication
-keys belong to parts not ported).
+the reference's ``utils/kvstore.py``).
 
 Upstream Dragonfly2 keeps the probe graph, probed-count counters and the job
 queue in Redis (upstream scheduler/networktopology/network_topology.go:52-436,
@@ -8,7 +7,8 @@ internal/job). Two backends share one redis-py-shaped interface here:
 
 - ``KVStore`` — in-process store for single-process deployments and tests.
 - ``RemoteKVStore`` — RESP2 client for multi-scheduler deployments: point
-  it at the manager's embedded RESP server or at an actual Redis — the wire protocol is the real one, so both work.
+  it at the manager's embedded RESP server (``utils/kvserver.KVServer``)
+  or at an actual Redis — the wire protocol is the real one, so both work.
 
 The scheduler server picks the backend from ``kv_address``: empty → an
 in-process store of its own; ``host:port`` → RESP. Like Redis, the remote backend stores
@@ -506,3 +506,23 @@ def make_probes_key(src_host_id: str, dest_host_id: str) -> str:
 
 def make_probed_count_key(host_id: str) -> str:
     return make_namespace("probedcount", host_id)
+
+
+def make_fleet_member_key(address: str) -> str:
+    """Scheduler-fleet lease key (scheduler/fleet.py): one leased key per
+    live scheduler, expiring when its heartbeat stops."""
+    return make_namespace("fleet", "member", address)
+
+
+# swarm replication plane (scheduler/swarm_replication.py): one hash per
+# replicated task, one index hash so sweeps never KEYS-scan, one receipt
+# per adoption preserving the victim's last export
+SWARM_REPLICA_INDEX_KEY = make_namespace("swarm", "replica", "index")
+
+
+def make_swarm_replica_key(task_id: str) -> str:
+    return make_namespace("swarm", "replica", task_id)
+
+
+def make_swarm_adopt_key(task_id: str) -> str:
+    return make_namespace("swarm", "adopt", task_id)

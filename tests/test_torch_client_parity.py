@@ -5,8 +5,8 @@ piece store's bytes and metadata, the rate limiter and the traffic shaper
 under one scripted clock, the host-stat overrides, the piece-metadata
 synchronizer across packages, the wire between the two packages' daemons
 (piece fetches, P2P downloads and dfget, both ways), the download records a
-port daemon's download writes against a reference daemon's, and the daemon
-option the port leaves out."""
+port daemon's download writes against a reference daemon's (the daemon's
+``kv_address`` is held to the reference's in ``tests/test_torch_fleet.py``)."""
 
 from __future__ import annotations
 
@@ -41,6 +41,7 @@ from dragonfly2_torch.scheduler.service import SERVICE_NAME as SCHED_SERVICE
 from dragonfly2_torch.scheduler.service import SchedulerService
 from dragonfly2_torch.scheduler.storage import Storage
 from dragonfly2_torch.utils import digest as t_digest
+from dragonfly2_torch.utils import profiling as t_profiling
 
 from dragonfly2_tpu.client import daemon as j_daemon
 from dragonfly2_tpu.client import dfget as j_dfget
@@ -55,9 +56,21 @@ from dragonfly2_tpu.client import synchronizer as j_sync
 from dragonfly2_tpu.client import uploader as j_uploader
 from dragonfly2_tpu.rpc import glue as j_glue
 from dragonfly2_tpu.utils import digest as j_digest
+from dragonfly2_tpu.utils import profiling as j_profiling
 
 PIECE = 64 * 1024
 PAYLOAD = random.Random(0).randbytes(300 * 1024)  # 5 pieces at 64 KiB
+
+
+@pytest.fixture(autouse=True, scope="module")
+def samplers_stop_with_the_module():
+    # each package's daemons and servers start its process-wide stack sampler
+    # and leave it running, as a server process would; stop both once the
+    # module is done so their sweeps do not tax the files run after it in
+    # this process
+    yield
+    t_profiling.stop()
+    j_profiling.stop()
 
 
 def _outcome(fn, *args):
@@ -539,21 +552,3 @@ def test_download_records_match_the_reference(tmp_path):
     assert a["host"]["hostname"] == "host-a" and a["parents"] == []
     assert [p["host"]["hostname"] for p in b["parents"]] == ["host-a"]
     assert b["host"]["cpu"]["percent"] == 12.5 and b["task"]["content_length"] == len(PAYLOAD)
-
-
-# ---------------------------------------------------------------------------
-# what the port leaves out
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("option,value,item", [
-    ("kv_address", "127.0.0.1:1", "5h"),
-])
-def test_out_of_slice_daemon_options_raise(tmp_path, option, value, item):
-    d = t_daemon.Daemon(t_daemon.DaemonConfig(
-        data_dir=str(tmp_path / "d"), scheduler_address="127.0.0.1:1", **{option: value}))
-    with pytest.raises(NotImplementedError, match=rf"{option}.*ROADMAP.*{item}"):
-        d.start()
-    # raised before anything started: no gRPC server, no task manager
-    assert d._server is None and d.task_manager is None
-    d.upload.stop()

@@ -21,8 +21,12 @@ origin, 64 KiB pieces, and images of 2 × 1 MiB layers pulled through the
 daemons' registry proxies: the preheated one by one peer, a fresh one by
 both at once; then a 1 MiB object written with dfstore through one
 peer's object-storage gateway and read through the other's, whole and as
-a range, and a 1 MiB object of an S3 stand-in pulled by both peers), and
-checks that the native decoder it loaded is its own build; the other also refuses gRPC and protobuf, imports only
+a range, and a 1 MiB object of an S3 stand-in pulled by both peers) and
+the fleet leg (3 scheduler processes leased in the manager's embedded KV,
+a seed peer and two peers, a 2 MiB origin, leases of 0.8 s: the owner of
+the task SIGKILLed mid-burst and its swarm adopted by the successor, a
+late peer served there, a second member SIGTERMed), and checks that the
+native decoder it loaded is its own build; the other also refuses gRPC and protobuf, imports only
 ``chip_smoke`` and runs the five legs again, never the servers."""
 
 import ast
@@ -161,6 +165,14 @@ if {servers!r}:
     assert s3["peer_sha256"] == [s3["sha256"]] and s3["listed"] == 1, dl
     assert s3["egress_x"] < 3 and s3["refused"] == 0, dl
     assert s3["decisions"] > 0 and s3["demoted"] == 0, dl
+    # the scheduler fleet: 3 scheduler processes, the owner SIGKILLed
+    # mid-burst, a late peer served by the successor, one member SIGTERMed
+    fl = chip_smoke.fleet_leg("cpu", peers=2, file_mib=2, piece_length=64 * 1024, lease_ttl=0.8, renew=0.2,
+                              poll=0.15, piece_delay_ms=200)
+    assert fl["kill"]["pulls_running"] == 1 and fl["adopt"]["peers"] >= 2, fl
+    assert fl["late"]["from_peers_share"] >= 0.9 and fl["late"]["rungs"] == ["serving"], fl
+    assert not fl["failover"]["resumes"].get("fallback") and fl["failover"]["blackouts"] >= 1, fl
+    assert fl["sigterm_to_lease_gone_s"] < fl["lease_ttl"], fl
 else:
     assert not any(n.startswith("dragonfly2_torch.scheduler.server") for n in sys.modules)
 loaded = sorted(
@@ -206,8 +218,9 @@ def test_port_runs_with_jax_and_reference_blocked():
     # sharded trainer, 123 with the client, 136 with the manager, 137 with
     # the order-sweep tool, 139 with the registry proxy and its transport,
     # 142 with the cloud source clients, the object-storage gateway and
-    # dfstore, 145 with the manager's REST front, auth and console)
-    assert _run_child(BLOCKED, every_module=True) >= 145
+    # dfstore, 145 with the manager's REST front, auth and console, 147
+    # with the RESP KV server and swarm replication)
+    assert _run_child(BLOCKED, every_module=True) >= 147
 
 
 def test_the_rest_front_loads_no_torch():

@@ -16,8 +16,8 @@
   case, each run on both packages with the same outcome.
 - The searcher picks the same cluster for every peer of a seeded set.
 - The server: ``ManagerServerConfig`` keeps the reference's keys and
-  defaults; ``kv_port`` raises ``NotImplementedError`` naming its ROADMAP
-  item, and so does ``ManagerService(fleet_kv=...)``; ``python -m
+  defaults (``kv_port`` and ``fleet_kv`` are held to the reference's in
+  ``tests/test_torch_fleet.py``); ``python -m
   dragonfly2_torch.manager`` starts (with ``rest_port=0`` it prints its
   ``REST manager`` line before ``READY``), and a served manager answers
   gRPC, /metrics and /healthz with the SLO section, and with
@@ -45,6 +45,7 @@ from dragonfly2_torch.manager import server as t_server
 from dragonfly2_torch.manager import service as t_service
 from dragonfly2_torch.rpc import glue as t_glue
 from dragonfly2_torch.rpc import protos
+from dragonfly2_torch.utils import profiling as t_profiling
 from dragonfly2_tpu.manager import cache as j_cache
 from dragonfly2_tpu.manager import database as j_database
 from dragonfly2_tpu.manager import models_registry as j_registry
@@ -52,11 +53,24 @@ from dragonfly2_tpu.manager import objectstorage as j_objectstorage
 from dragonfly2_tpu.manager import searcher as j_searcher
 from dragonfly2_tpu.manager import server as j_server
 from dragonfly2_tpu.manager import service as j_service
+from dragonfly2_tpu.utils import profiling as j_profiling
 
 torch.set_num_threads(1)
 
 mp = protos.load("manager_pb2")
 REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def samplers_stop_with_the_module():
+    # each package's daemons and servers start its process-wide stack sampler
+    # and leave it running, as a server process would; stop both once the
+    # module is done so their sweeps do not tax the files run after it in
+    # this process
+    yield
+    t_profiling.stop()
+    j_profiling.stop()
+
 
 PORT = dict(database=t_database, cache=t_cache, registry=t_registry, storage=t_objectstorage,
             service=t_service)
@@ -478,23 +492,6 @@ def test_server_config_keeps_the_reference_keys_and_defaults():
 
     assert fields(t_server.ManagerServerConfig) == fields(j_server.ManagerServerConfig)
     assert t_server.ManagerServerConfig().issue_certs is True
-
-
-@pytest.mark.parametrize("option,item", [("kv_port", "5h")])
-def test_out_of_slice_manager_options_raise(tmp_path, option, item):
-    cfg = t_server.ManagerServerConfig(data_dir=str(tmp_path / "m"), issue_certs=False, **{option: 0})
-    with pytest.raises(NotImplementedError, match=rf"{option} -1|ROADMAP queue A item {item}") as e:
-        t_server.ManagerServer(cfg)
-    assert f"item {item}" in str(e.value)
-    assert not (tmp_path / "m").exists()  # raised before anything was made
-
-
-def test_the_fleet_view_raises(tmp_path):
-    db = t_database.Database(tmp_path / "m.db")
-    registry = t_registry.ModelRegistry(db, t_objectstorage.FSObjectStorage(tmp_path / "o"))
-    with pytest.raises(NotImplementedError, match="5h"):
-        t_service.ManagerService(db, registry, fleet_kv=object())
-    db.close()
 
 
 def test_a_served_manager_answers_grpc_metrics_and_healthz(tmp_path):

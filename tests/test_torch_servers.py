@@ -15,9 +15,8 @@ over gRPC.
 - Both servers start at their defaults with a manager (telemetry every
   15 s, pushed to the reference's telemetry plane), serve /metrics and
   /healthz on a scrape port, and the trainer stamps its fits' snapshot
-  directory; fleet membership, which the port leaves out, raises
-  ``NotImplementedError`` naming its ROADMAP item; the binaries' ``build``
-  read configs."""
+  directory (``fleet_enabled`` is held to the reference's in
+  ``tests/test_torch_fleet.py``); the binaries' ``build`` read configs."""
 
 import gc
 import json
@@ -244,16 +243,6 @@ def test_announcer_round_lands_three_models_and_the_refresher_installs_them(mana
     finally:
         srv.stop()
         trainer.stop()
-
-
-@pytest.mark.parametrize("field,value,item", [
-    ("fleet_enabled", True, "5h"),
-])
-def test_left_out_scheduler_fields_raise(field, value, item, tmp_path):
-    cfg = t_server.SchedulerServerConfig(data_dir=str(tmp_path), device="cpu", manager_address="127.0.0.1:1")
-    setattr(cfg, field, value)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        t_server.SchedulerServer(cfg)
 
 
 @pytest.fixture

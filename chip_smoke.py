@@ -197,6 +197,23 @@ Phases (any failed check raises and the script exits non-zero):
    to the origin and every blackout must stay below 12 s; a third
    scheduler gets SIGTERM and its lease must be gone within the 3 s
    lease, after which ``ListSchedulers`` names the successor alone;
+7e. ab leg: the ``ml`` evaluator's yardsticks on the card
+   (``chip_smoke.ab_leg``), each tool at its defaults: the serving soak
+   (32 threads × 20 decisions over 12 candidates, per call against the
+   batched scoring service) and the wave soak (waves of 8 against one
+   decision a call) on the port's ``MLPScorer``, then the A/B harness:
+   10 in-process daemons, 5 of them slow, pull 6 tasks × 4 pieces under
+   the default evaluator, their records are uploaded, fitted on the card
+   and activated in the port's manager, and the refresher's MLP on the
+   card steers the same pulls through the scoring service; then the GRU
+   A/B (6 daemons, 8 training tasks, 5 measured tasks × 6 pieces with a
+   degrading parent, without and with the GRU). Every scorer must sit on
+   the card, no soak may lose a decision, waves must rank as per-peer
+   decisions, phase 2 must take the service's batches, each A/B's arms
+   must count the same pieces and the card's MLP must take a smaller
+   share of pieces from slow parents than the default evaluator (one
+   re-measurement allowed); the soaks' throughput and p99 gates, the
+   p50s and the GRU's verdict are printed with their verdict;
 8. encoder leg at full width: the piece-sequence transformer (model_dim
    256, 4 heads, 4 layers) on B = 2, T = 8192 with flash attention, against
    the plain ``local_attention``: once in bfloat16, which must launch
@@ -4893,6 +4910,166 @@ def fleet_leg(
     return out
 
 
+AB_WORK = Path(__file__).resolve().parent / "build" / "ab_leg"
+
+
+def held_on(scorer) -> "set[str]":
+    """The device types of every parameter and buffer a scorer's modules hold."""
+    mods = [v for v in vars(scorer).values() if isinstance(v, torch.nn.Module)]
+    return {t.device.type for m in mods for t in (*m.parameters(), *m.buffers())}
+
+
+def serving_ledger(profiling) -> dict:
+    """The scoring service's two phases as the port's phase ledger holds them
+    now: ``scheduler.serving_wait`` (a request's submission to its answer)
+    and ``scheduler.serving_batch`` (one batch on the serving thread)."""
+    return {name: profiling.phase(f"scheduler.{name}").snapshot() for name in ("serving_wait", "serving_batch")}
+
+
+def serving_split(serving: dict, before: dict, after: dict) -> dict:
+    """The serving soak's batched arms between the ledger's readings
+    ``before`` and ``after`` (every round the soak ran): the decisions
+    answered by the service and their mean time in it (queue, window and
+    batch), the batches and their mean time on the serving thread; beside
+    them the reported round's mean decision by Little's law (the soak
+    keeps ``serving_peers`` decisions in flight)."""
+    def delta(name):
+        count = after[name]["count"] - before[name]["count"]
+        return count, round((after[name]["total_s"] - before[name]["total_s"]) * 1e3 / max(count, 1), 3)
+
+    decisions, in_service_ms = delta("serving_wait")
+    batches, batch_ms = delta("serving_batch")
+    return {
+        "decisions": decisions,
+        "in_service_ms": in_service_ms,
+        "batches": batches,
+        "batch_ms": batch_ms,
+        "decision_ms": round(serving["serving_peers"] / serving["schedule_ops_per_s"] * 1e3, 3),
+    }
+
+
+def ab_leg(device) -> dict:
+    """The ``ml`` evaluator's yardsticks on ``device``, as a user runs them
+    (``python -m dragonfly2_torch.tools.stress --serving [--wave]`` and
+    ``python -m dragonfly2_torch.tools.ab_harness``), each at its defaults:
+
+    1. ``stress.serving_soak``: 32 threads × 20 decisions over 12 candidate
+       parents, per call against the batched scoring service (2 ms window);
+    2. ``stress.wave_soak``: the same load, waves of 8 decisions against
+       one decision a call, both through the service;
+    3. ``ab_harness.run_ab``: 10 in-process daemons (5 slow, announcing
+       cpu/memory pressure) pull 6 tasks × 4 pieces of 16 KiB under the
+       default evaluator; the announcer uploads their records, the trainer
+       fits the MLP on ``device`` and uploads it to the port's manager,
+       which activates it; the refresher installs it on ``device`` into
+       the evaluator and the scoring service, and the same pulls run again;
+    4. ``ab_harness.run_gru_ab``: 6 daemons train on 8 tasks × 6 pieces,
+       then 5 tasks run with a degrading parent under the installed MLP,
+       without and with the GRU.
+
+    Hard checks (a failure raises): no lost submission in either soak,
+    wave rankings equal to per-peer ones, every scorer the soaks built and
+    every model the A/B installed held on ``device``, phase 2 scored
+    through the service, equal piece counts in each A/B's arms, and the
+    ``ml`` evaluator's share of pieces from slow parents below the default
+    evaluator's (one re-measurement allowed, as the reference's test
+    allows). The soaks' throughput and p99 gates, the A/Bs' p50s and the
+    GRU's verdict depend on the host's clock: they are printed with their
+    verdict, not held."""
+    from dragonfly2_torch.tools import ab_harness, stress
+    from dragonfly2_torch.utils import profiling
+
+    dev = torch.device(device)
+    out: dict = {"walls_s": {}}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        got = fn(*args, **kw)
+        out["walls_s"][name] = time.perf_counter() - t0
+        return got
+
+    def on_device(what, scorer):
+        held = held_on(scorer)
+        check(held == {dev.type}, f"ab[{device}]: {what} holds its parameters on {sorted(held)}, not {dev.type}")
+
+    shutil.rmtree(AB_WORK, ignore_errors=True)
+    try:
+        scorers: list = []
+        ledger0 = serving_ledger(profiling)
+        serving = out["serving"] = timed("serving_soak", stress.serving_soak, device=device, scorers=scorers)
+        print(f"ab[{device}]: serving soak {json.dumps(serving)}")
+        print(f"ab[{device}]: serving soak gates (measured, not held): batched"
+              f" {serving['schedule_ops_per_s']} against per call {serving['schedule_ops_per_s_per_call']} ops/s"
+              f" ({'batched' if serving['schedule_ops_per_s'] > serving['schedule_ops_per_s_per_call'] else 'per call'}"
+              f" faster); p99 {serving['schedule_decision_p99_us']} us against its bound"
+              f" {serving['serving_p99_bound_us']} us"
+              f" ({'within' if serving['schedule_decision_p99_us'] <= serving['serving_p99_bound_us'] else 'past'});"
+              f" the CLI's exit {0 if stress.serving_gates(serving) else 1}")
+        check(serving["serving_lost"] == 0, f"ab[{device}]: the serving soak lost {serving['serving_lost']}")
+        split = out["serving_split"] = serving_split(serving, ledger0, serving_ledger(profiling))
+        print(f"ab[{device}]: serving soak's batched arms, every round: {split['decisions']} decisions"
+              f" {split['in_service_ms']} ms each in the service (queue, window and batch), {split['batches']}"
+              f" batches {split['batch_ms']} ms each on the serving thread; the reported round's decision"
+              f" {split['decision_ms']} ms (peers / its rate)")
+        wave = out["wave"] = timed("wave_soak", stress.wave_soak, device=device, scorers=scorers)
+        print(f"ab[{device}]: wave soak {json.dumps(wave)}")
+        print(f"ab[{device}]: wave soak gate (measured, not held): waves {wave['wave_decisions_per_s']} against"
+              f" one a call {wave['wave_decisions_per_s_per_op']} decisions/s; the CLI's exit"
+              f" {0 if stress.wave_gates(wave) else 1}")
+        check(wave["wave_lost"] == 0, f"ab[{device}]: the wave soak lost {wave['wave_lost']}")
+        check(wave["wave_rankings_match"] == 1, f"ab[{device}]: wave rankings differ from per-peer ones")
+        check(len(scorers) == 2, f"ab[{device}]: the soaks built {len(scorers)} scorers")
+        for scorer in scorers:
+            on_device("a soak's scorer", scorer)
+
+        # the MLP A/B; one re-measurement, as tests/test_ab_harness.py allows
+        out["ab_attempts"] = []
+        for attempt in range(2):
+            installed: list = []
+            got = timed(f"run_ab_{attempt}", ab_harness.run_ab, ab_harness.ABConfig(device=device),
+                        workdir=str(AB_WORK / f"ab-{attempt}"), installed=installed)
+            out["ab_attempts"].append(got)
+            print(f"ab[{device}]: run_ab attempt {attempt}: {json.dumps(got)}")
+            # the GRU too, when phase 1 left it enough piece sequences
+            kinds = [(arm, kind) for arm, kind, _ in installed]
+            check(kinds in ([("ml", "mlp")], [("ml", "mlp"), ("ml", "gru")]), f"ab[{device}]: run_ab installed {kinds}")
+            for arm, kind, scorer in installed:
+                on_device(f"run_ab's {arm} {kind}", scorer)
+            check(got["serving_batches"] > 0, f"ab[{device}]: phase 2 took no batch of the scoring service")
+            check(got["pieces_default"] == got["pieces_ml"] > 0,
+                  f"ab[{device}]: pieces {got['pieces_default']} (default) against {got['pieces_ml']} (ml)")
+            if got["slow_parent_fraction_ml"] < got["slow_parent_fraction_default"]:
+                break
+        out["ab"] = got
+        check(got["slow_parent_fraction_ml"] < got["slow_parent_fraction_default"],
+              f"ab[{device}]: the MLP took {got['slow_parent_fraction_ml']} of its pieces from slow parents,"
+              f" the default evaluator {got['slow_parent_fraction_default']}")
+        print(f"ab[{device}]: slow-parent share {got['slow_parent_fraction_default']} (default) →"
+              f" {got['slow_parent_fraction_ml']} (the MLP on {device}); p50 (measured, not held)"
+              f" {got['p50_default_ms']} → {got['p50_ml_ms']} ms, ml_wins {got['ml_wins']}")
+
+        installed = []
+        g = out["gru"] = timed("run_gru_ab", ab_harness.run_gru_ab,
+                               ab_harness.GruABConfig(device=device),
+                               workdir=str(AB_WORK / "gru"), installed=installed)
+        print(f"ab[{device}]: run_gru_ab {json.dumps(g)}")
+        check([(arm, kind) for arm, kind, _ in installed] == [("ml", "mlp"), ("ml_gru", "mlp"), ("ml_gru", "gru")],
+              f"ab[{device}]: run_gru_ab installed {[(a, k) for a, k, _ in installed]}")
+        for arm, kind, scorer in installed:
+            on_device(f"run_gru_ab's {arm} {kind}", scorer)
+        check(g["pieces_ml"] == g["pieces_ml_gru"] > 0,
+              f"ab[{device}]: pieces {g['pieces_ml']} (ml) against {g['pieces_ml_gru']} (ml_gru)")
+        print(f"ab[{device}]: GRU verdict (measured, not held): gru_wins {g['gru_wins']}; degraded-parent share"
+              f" {g['degraded_parent_fraction_ml']} → {g['degraded_parent_fraction_ml_gru']}, p50"
+              f" {g['p50_ml_ms']} → {g['p50_ml_gru_ms']} ms")
+        print(f"ab[{device}]: walls {json.dumps({k: round(v, 2) for k, v in out['walls_s'].items()})}")
+    finally:
+        # the A/Bs' in-process daemons started the port's stack sampler
+        profiling.stop()
+        shutil.rmtree(AB_WORK, ignore_errors=True)
+    return out
+
+
 def encoder_inputs(batch: int, seq: int, in_dim: int, seed: int) -> torch.Tensor:
     """Seeded piece histories [B, T, F]: a piece's log cost and its position."""
     rng = np.random.default_rng(seed)
@@ -5096,6 +5273,9 @@ def main() -> int:
     # the scheduler fleet: 3 scheduler processes on the card, the owner
     # of the burst's task SIGKILLed mid-burst, a second member SIGTERMed
     fleet_run = leg("fleet", fleet_leg, "cuda")
+    # the ml evaluator's yardsticks: the scoring soaks and the A/Bs, with
+    # the MLP and the GRU trained and served on the card
+    ab = leg("ab", ab_leg, "cuda")
     encoders = {
         kern: leg(f"encoder_{kern}", encoder_leg, "cuda", dtype=dtype, attention=True)
         for kern, dtype in (("sm90", torch.bfloat16), ("tf32x3", torch.float32))
@@ -5119,6 +5299,7 @@ def main() -> int:
         "server": server,
         "download": download,
         "fleet": fleet_run,
+        "ab": ab,
         "encoder": encoders,
         "encoder_grad": grad_legs,
         "tf32x3_d8_bf16": rows["tf32x3_d8_bf16"],

@@ -29,9 +29,22 @@ from dragonfly2_torch.scheduler.service import SERVICE_NAME as SCHED_SERVICE
 from dragonfly2_torch.scheduler.service import SchedulerService
 from dragonfly2_torch.scheduler.storage import Storage
 from dragonfly2_torch.utils.kvstore import KVStore
+from dragonfly2_torch.utils import profiling as t_profiling
+from dragonfly2_tpu.utils import profiling as j_profiling
 
 PIECE = 64 * 1024
 PAYLOAD = os.urandom(300 * 1024)  # 5 pieces at 64 KiB
+
+
+@pytest.fixture(autouse=True, scope="module")
+def samplers_stop_with_the_module():
+    # each package's daemons and servers start its process-wide stack sampler
+    # and leave it running, as a server process would; stop both once the
+    # module is done so their sweeps do not tax the files run after it in
+    # this process
+    yield
+    t_profiling.stop()
+    j_profiling.stop()
 
 
 def _cluster(tmp_path, evaluator):

@@ -7,8 +7,23 @@ populate the Download records' host columns and 5 of the 12 MLP pair
 features, so dead zeros here mean the model trains on degenerate inputs.
 """
 
+import pytest
+
 from dragonfly2_torch.client import hostinfo
 from dragonfly2_torch.client.daemon import Daemon, DaemonConfig
+from dragonfly2_torch.utils import profiling as t_profiling
+from dragonfly2_tpu.utils import profiling as j_profiling
+
+
+@pytest.fixture(autouse=True, scope="module")
+def samplers_stop_with_the_module():
+    # each package's daemons and servers start its process-wide stack sampler
+    # and leave it running, as a server process would; stop both once the
+    # module is done so their sweeps do not tax the files run after it in
+    # this process
+    yield
+    t_profiling.stop()
+    j_profiling.stop()
 
 
 def test_collect_returns_live_stats(tmp_path):

@@ -11,11 +11,24 @@ import time
 import pytest
 
 from dragonfly2_torch.client.piece_manager import ParentInfo, RateLimiter, TrafficShaper
+from dragonfly2_torch.utils import profiling as t_profiling
+from dragonfly2_tpu.utils import profiling as j_profiling
 
 
 # ---------------------------------------------------------------------------
 # Traffic shaper
 # ---------------------------------------------------------------------------
+
+
+@pytest.fixture(autouse=True, scope="module")
+def samplers_stop_with_the_module():
+    # each package's daemons and servers start its process-wide stack sampler
+    # and leave it running, as a server process would; stop both once the
+    # module is done so their sweeps do not tax the files run after it in
+    # this process
+    yield
+    t_profiling.stop()
+    j_profiling.stop()
 
 
 def test_limiter_tracks_usage_and_rate_change():

@@ -40,10 +40,23 @@ from dragonfly2_tpu.manager.objectstorage import FSObjectStorage
 from dragonfly2_tpu.manager.service import ManagerService
 from dragonfly2_tpu.rpc import glue as j_glue
 from dragonfly2_tpu.utils import dynconfig as j_dyn
+from dragonfly2_torch.utils import profiling as t_profiling
+from dragonfly2_tpu.utils import profiling as j_profiling
 
 torch.set_num_threads(1)
 
 mp = protos.load("manager_pb2")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def samplers_stop_with_the_module():
+    # each package's daemons and servers start its process-wide stack sampler
+    # and leave it running, as a server process would; stop both once the
+    # module is done so their sweeps do not tax the files run after it in
+    # this process
+    yield
+    t_profiling.stop()
+    j_profiling.stop()
 
 
 @pytest.fixture(autouse=True)

@@ -36,6 +36,8 @@ from dragonfly2_torch.rpc import protos
 from dragonfly2_torch.utils import metrics as t_metrics
 from dragonfly2_torch.utils import telemetry as t_reporter
 from dragonfly2_tpu.manager import telemetry as j_telemetry
+from dragonfly2_torch.utils import profiling as t_profiling
+from dragonfly2_tpu.utils import profiling as j_profiling
 
 torch.set_num_threads(1)
 
@@ -43,6 +45,17 @@ tp = protos.load("telemetry_pb2")
 
 T0 = 1_800_000_000.0
 EDGES = ("0.005", "0.05", "0.1", "0.5", "1.0", "+Inf")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def samplers_stop_with_the_module():
+    # each package's daemons and servers start its process-wide stack sampler
+    # and leave it running, as a server process would; stop both once the
+    # module is done so their sweeps do not tax the files run after it in
+    # this process
+    yield
+    t_profiling.stop()
+    j_profiling.stop()
 
 
 class _Source:

@@ -29,6 +29,8 @@ from dragonfly2_torch.scheduler.service import SchedulerService
 from dragonfly2_torch.scheduler.storage import Storage
 
 from dragonfly2_tpu.scheduler import job as j_job
+from dragonfly2_torch.utils import profiling as t_profiling
+from dragonfly2_tpu.utils import profiling as j_profiling
 
 PIECE = 32 * 1024
 _rng = random.Random(0)
@@ -49,6 +51,17 @@ INDEX = {
         {"digest": "sha256:amd-manifest", "platform": {"os": "linux", "architecture": "amd64"}},
     ],
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def samplers_stop_with_the_module():
+    # each package's daemons and servers start its process-wide stack sampler
+    # and leave it running, as a server process would; stop both once the
+    # module is done so their sweeps do not tax the files run after it in
+    # this process
+    yield
+    t_profiling.stop()
+    j_profiling.stop()
 
 
 @pytest.fixture

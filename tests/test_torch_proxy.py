@@ -62,6 +62,8 @@ from dragonfly2_tpu.scheduler import resource as j_res
 from dragonfly2_tpu.scheduler import scheduling as j_scheduling
 from dragonfly2_tpu.scheduler import service as j_service
 from dragonfly2_tpu.scheduler import storage as j_storage
+from dragonfly2_torch.utils import profiling as t_profiling
+from dragonfly2_tpu.utils import profiling as j_profiling
 
 torch.set_num_threads(1)
 
@@ -76,6 +78,17 @@ _PKGS = {
     "jax": (j_daemon, j_metrics, j_proxy, j_transport, j_glue, j_res, j_evaluator,
             j_scheduling, j_service, j_storage),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def samplers_stop_with_the_module():
+    # each package's daemons and servers start its process-wide stack sampler
+    # and leave it running, as a server process would; stop both once the
+    # module is done so their sweeps do not tax the files run after it in
+    # this process
+    yield
+    t_profiling.stop()
+    j_profiling.stop()
 
 
 @pytest.fixture

@@ -35,11 +35,24 @@ from dragonfly2_torch.utils import awssig as t_awssig
 from dragonfly2_tpu.client import source as j_source
 from dragonfly2_tpu.client import source_cloud as j_cloud
 from dragonfly2_tpu.utils import awssig as j_awssig
+from dragonfly2_torch.utils import profiling as t_profiling
+from dragonfly2_tpu.utils import profiling as j_profiling
 
 torch.set_num_threads(1)
 
 # each package's source module and its SourceError
 _PKGS = {"torch": (source, SourceError), "jax": (j_source, j_source.SourceError)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def samplers_stop_with_the_module():
+    # each package's daemons and servers start its process-wide stack sampler
+    # and leave it running, as a server process would; stop both once the
+    # module is done so their sweeps do not tax the files run after it in
+    # this process
+    yield
+    t_profiling.stop()
+    j_profiling.stop()
 
 
 def _serve(handler) -> ThreadingHTTPServer:

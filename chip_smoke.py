@@ -3929,6 +3929,48 @@ def _sha256_file(path) -> str:
     return h.hexdigest()
 
 
+# the download leg's load-generator step: requests per drive mode, over
+# so many connections, each a fresh file of so many MiB
+STRESS_RUN_REQUESTS, STRESS_RUN_CONNECTIONS, STRESS_RUN_MIB = 16, 4, 2
+
+
+def stress_run_step(device, files: Path, base: str, daemon: str, proxy: str, seed: int) -> dict:
+    """``tools.stress.run`` through ``daemon``'s gRPC ``Download`` and then
+    through ``proxy`` (a ``/v2/…/blobs/`` path, which the proxy's rule sends
+    through the swarm): ``STRESS_RUN_REQUESTS`` requests over
+    ``STRESS_RUN_CONNECTIONS`` connections, each a task of its own of
+    ``STRESS_RUN_MIB`` MiB that the origin serves from ``files``. Every
+    request must succeed with all its bytes; rps and the latency
+    percentiles are printed."""
+    from dragonfly2_torch.tools import stress
+
+    import os
+
+    rng = np.random.default_rng(seed + 4)
+    # a URL is a task: one seeded file a mode, under a name for every
+    # ``{i}`` a worker can reach (worker k takes k, k + c, k + 2c, …, and
+    # the requests may pass the budget by one a connection)
+    for mode in ("daemon", "proxy"):
+        blobs = files / "v2" / f"stress-{mode}" / "blobs"
+        _seeded_file(blobs / "seeded", STRESS_RUN_MIB, rng)
+        for i in range(STRESS_RUN_CONNECTIONS * (STRESS_RUN_REQUESTS + STRESS_RUN_CONNECTIONS)):
+            os.symlink("seeded", blobs / f"sha256:{i}")
+    runs = {}
+    for mode, target in (("daemon", daemon), ("proxy", proxy)):
+        got = stress.run(f"{base}/v2/stress-{mode}/blobs/sha256:{{i}}", connections=STRESS_RUN_CONNECTIONS,
+                         requests=STRESS_RUN_REQUESTS, **{mode: target})
+        runs[mode] = got
+        lat = got["latency_s"]
+        print(f"download[{device}]: stress.run --{mode}: {got['requests']} requests of {STRESS_RUN_MIB} MiB over"
+              f" {STRESS_RUN_CONNECTIONS} connections in {got['wall_s']} s, {got['rps']} rps,"
+              f" {got['throughput_mb_s']} MB/s; latency p50 {lat['p50']} p99 {lat['p99']} max {lat['max']} s;"
+              f" {got['failures']} failed {got['errors']}")
+        check(got["requests"] >= STRESS_RUN_REQUESTS and got["failures"] == 0
+              and got["bytes"] == got["requests"] * (STRESS_RUN_MIB << 20),
+              f"download[{device}]: stress.run --{mode} lost requests or bytes: {got}")
+    return runs
+
+
 def download_leg(
     device, peers=DOWNLOAD_PEERS, file_mib=DOWNLOAD_FILE_MIB, piece_length=0,
     layers=DOWNLOAD_LAYERS, layer_mib=DOWNLOAD_LAYER_MIB, probe_interval=DOWNLOAD_PROBE_INTERVAL_S,
@@ -4512,6 +4554,21 @@ def download_leg(
         print(f"download[{device}]: {out['records']} download records; {len(pairs)} probed pairs among"
               f" {len(ids)} hosts, {len(held)} held by the engine ({out['probes']['engine_edges']} edges)")
         check(pairs and len(held) == len(pairs), f"download[{device}]: the engine lacks probed pairs")
+
+        # the load generator (python -m dragonfly2_torch.tools.stress --url
+        # … --daemon | --proxy): requests through one peer's gRPC Download,
+        # then through its registry proxy, each a task of its own. Last in
+        # the leg: every task's child holds an upload slot of its parent's
+        # host until the child leaves, so the seed peer's host has fewer
+        # free slots after it (printed)
+        def slots():
+            return {h.hostname: h.concurrent_upload_count for h in srv.resource.host_manager.all()}
+
+        before = slots()
+        out["stress_run"] = stress_run_step(device, files, base, procs.address(peer0), proxies[peer0], seed)
+        out["stress_run"]["upload_slots_held"] = {"before": before, "after": slots()}
+        print(f"download[{device}]: upload slots held by host before the load generator {before}, after"
+              f" {out['stress_run']['upload_slots_held']['after']}")
     finally:
         procs.stop()
         if srv is not None:
@@ -4539,20 +4596,6 @@ FLEET_FLIGHT_RING = 65536
 # the peer states in which a parent is fed, so a scheduler may hand it out
 # (a Pending or Received* peer is a bad node to the candidate filter)
 FLEET_FED_STATES = ("Running", "BackToSource", "Succeeded")
-
-
-def _diagnose(addr: str) -> dict:
-    """A server's Diagnose snapshot over gRPC (its flight probes under
-    ``["runtime"]["probes"]``)."""
-    from dragonfly2_torch.rpc import glue, protos
-
-    channel = glue.dial(addr)
-    try:
-        reply = glue.ServiceClient(channel, glue.DIAGNOSE_SERVICE).Diagnose(
-            protos.load("diagnose_pb2").DiagnoseRequest(include_stacks=False))
-        return json.loads(reply.snapshot_json)
-    finally:
-        channel.close()
 
 
 def _blackouts(events) -> "list[float]":
@@ -4632,6 +4675,8 @@ def fleet_leg(
     from dragonfly2_torch.rpc import glue
     from dragonfly2_torch.scheduler import fleet
     from dragonfly2_torch.scheduler.swarm_replication import ReplicationConfig
+    from dragonfly2_torch.tools import dfswarm
+    from dragonfly2_torch.tools.stress import diagnose_probes
     from dragonfly2_torch.utils import kvstore
     from dragonfly2_torch.utils.idgen import URLMeta
 
@@ -4683,7 +4728,7 @@ def fleet_leg(
         by_addr = {a: n for n, a in addrs.items()}
         # the refresher polled once at serve: nothing active to install
         for n in sched_names:
-            kind = _diagnose(addrs[n])["runtime"]["probes"]["scheduler.serving"]["model_kind"]
+            kind = diagnose_probes(addrs[n])["scheduler.serving"]["model_kind"]
             check(kind == "", f"fleet[{device}]: {n} installed the inactive seeded MLP ({kind!r})")
         t0 = time.perf_counter()
         activate(ops, pb2, "mlp-seeded", 1)
@@ -4692,7 +4737,7 @@ def fleet_leg(
             check(time.perf_counter() - t0 < 120, f"fleet[{device}]: the activated MLP reached only {sorted(installed)}")
             for n in sched_names:
                 if n not in installed:
-                    probes[n] = _diagnose(addrs[n])["runtime"]["probes"]
+                    probes[n] = diagnose_probes(addrs[n])
                     if probes[n]["scheduler.serving"]["model_kind"] == "mlp":
                         installed[n] = (time.perf_counter() - t0) * 1e3
             time.sleep(0.05)
@@ -4721,7 +4766,7 @@ def fleet_leg(
         t0 = time.perf_counter()
         daemons.start({n: dict(common, host_type="super" if n == "seed" else "normal") for n in names}, env=env)
         for n in sched_names:
-            while _diagnose(addrs[n])["runtime"]["probes"]["scheduler.resource"]["hosts"] < len(names):
+            while diagnose_probes(addrs[n])["scheduler.resource"]["hosts"] < len(names):
                 check(time.perf_counter() - t0 < 60, f"fleet[{device}]: {n} was not told of every daemon's host")
                 time.sleep(0.05)
         out["daemons_up_s"] = time.perf_counter() - t0
@@ -4746,7 +4791,7 @@ def fleet_leg(
             walls[name] = time.perf_counter() - t
 
         def device_memory(n):
-            return _diagnose(addrs[n])["runtime"]["probes"].get("scheduler.device", {}).get("max_memory_allocated")
+            return diagnose_probes(addrs[n]).get("scheduler.device", {}).get("max_memory_allocated")
 
         pool = ThreadPoolExecutor(len(burst) + 1)
         t_burst = time.perf_counter()
@@ -4781,6 +4826,22 @@ def fleet_leg(
                   f"fleet[{device}]: no adoption receipt for the task")
             time.sleep(0.01)
         receipt = json.loads(kv.get(adopt_key))
+        # the successor re-journals the adopted swarm under its own
+        # ownership; the dead owner's last export, which rides the receipt,
+        # must survive into it intact (python -m dragonfly2_torch.tools.dfswarm
+        # --diff), read as soon as it is there
+        t_diff = time.perf_counter()
+        while True:
+            owner, data = kv.hmget(key, ["owner", "data"])
+            if owner and owner != addrs[victim] and data:
+                break
+            check(time.perf_counter() - t_diff < 30, f"fleet[{device}]: the successor never re-journaled the swarm")
+            time.sleep(0.01)
+        rejournal_s = time.perf_counter() - t_diff
+        t_diff = time.perf_counter()
+        diff = dfswarm.diff_replicas(receipt.get("payload") or {}, json.loads(data))
+        out["replica_diff"] = {**diff, "owner": owner, "rejournal_wait_s": rejournal_s,
+                               "diff_ms": (time.perf_counter() - t_diff) * 1e3}
         check(scheds.procs[victim][0].wait(30) == -signal.SIGKILL, f"fleet[{device}]: {victim} did not die by SIGKILL")
         out["kill"]["reaped_s"] = time.perf_counter() - t_kill
         for n, f in pulls.items():
@@ -4802,6 +4863,14 @@ def fleet_leg(
         era = set(receipt["payload"]["obs"]["peers"])
         adopted = scheds.events(successor, "scheduler.swarm_adopt_ok")
         check(len(adopted) == 1 and adopted[0]["task_id"] == task_id, f"fleet[{device}]: {successor} adopted {adopted}")
+        rd = out["replica_diff"]
+        print(f"fleet[{device}]: dfswarm --diff of the adoption: the dead owner's {len(era)} peers against the"
+              f" re-journal by {by_addr.get(rd['owner'], rd['owner'])} ({rd['rejournal_wait_s']:.3f} s after the"
+              f" receipt was read; the diff {rd['diff_ms']:.3f} ms): missing {rd['missing_peers']}, torn"
+              f" {rd['torn_peers']}, orphaned {rd['orphaned']}, moved {rd['moved']}, extra {rd['extra_peers']},"
+              f" conserved {rd['conserved']}")
+        check(rd["owner"] == addrs[successor] and rd["clean"],
+              f"fleet[{device}]: the adopted swarm did not survive intact into {rd['owner']}'s replica: {rd}")
         # when the successor's own view dropped the dead member
         seen_gone = [e for e in scheds.events(successor, "scheduler.fleet_reconcile") if addrs[victim] in e["left"]]
         check(len(seen_gone) == 1, f"fleet[{device}]: {successor} saw {victim} leave {len(seen_gone)} times")
@@ -4820,7 +4889,7 @@ def fleet_leg(
         explained = [e for e in scheds.events(successor, "scheduler.evaluate_explain") if e["peer_id"] == late_id]
         waves = scheds.events(successor, "scheduler.wave_evaluated")
         falls = scheds.counts(successor, "dragonfly_scheduler_serving_fallback_total", "to")
-        s_probes = _diagnose(addrs[successor])["runtime"]["probes"]
+        s_probes = diagnose_probes(addrs[successor])
         to_source = scheds.events(successor, "scheduler.schedule_back_to_source")
         out["late"] = {"peer_id": late_id, "wall_s": walls[late], "from_peers_share": late_share,
                        "origin_bytes": traffic.get("back_to_source", 0.0), "decisions": len(decisions),
@@ -5070,6 +5139,105 @@ def ab_leg(device) -> dict:
     return out
 
 
+# the soak leg's data-plane race: seconds of load an arm and draws of
+# each arm (the CLI's 10 and 2, cut for the script's time limit: the race's
+# verdict is printed, not held; the 2,000 children stay)
+SOAK_DATA_PLANE_S = 5.0
+SOAK_DATA_PLANE_REPEATS = 1
+
+
+def soak_leg(device) -> dict:
+    """The acceptance soaks of ``python -m dragonfly2_torch.tools.stress``, as
+    a user runs them, each at the CLI's defaults but the data-plane race
+    (``SOAK_DATA_PLANE_S`` an arm, ``SOAK_DATA_PLANE_REPEATS`` draw):
+
+    1. ``--chaos``: a scheduler and two daemons in this process under 5%
+       seeded RPC errors (seed 7), the parent's upload server killed and the
+       scheduler restarted mid-swarm, 6 downloads and two image tags
+       through the daemons' registry proxies;
+    2. ``--chaos --shard-kill``: 3 scheduler processes on ``device`` under
+       KV leases with the manager's telemetry plane, 240 announce ops, the
+       owner of a victim cohort SIGKILLed; then the rebuild arm without
+       replication;
+    3. ``--registry``: two tags sharing 2 layers (and 1 each) through two
+       daemons' proxies, and a dfstore round;
+    4. ``--preheat``: 18 tasks, 8 ramping; the planner's GRU forecaster
+       fits and forecasts on ``device``;
+    5. ``--data-plane``: 2,000 child connections on one upload loop,
+       sendfile against buffered.
+
+    Hard checks (a failure raises): each mode's CLI gates but the data
+    plane's sendfile-above-buffered race (one draw on the host's clock,
+    printed with its verdict); every shard process of both arms reports a
+    ``scheduler.device`` probe on ``device`` over ``Diagnose`` (none on
+    the CPU); the forecaster's GRU holds its parameters on ``device``."""
+    from dragonfly2_torch.tools import stress
+    from dragonfly2_torch.utils import profiling
+
+    dev = torch.device(device)
+    out: dict = {"walls_s": {}}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        got = out[name] = fn(*args, **kw)
+        out["walls_s"][name] = time.perf_counter() - t0
+        print(f"soak[{device}]: {name} {json.dumps(got)}")
+        return got
+
+    try:
+        chaos = timed("chaos", stress.chaos_soak)
+        print(f"soak[{device}]: chaos: {chaos['chaos_faults_injected']} faults injected, success"
+              f" {chaos['chaos_success_rate']}, {chaos['chaos_hangs']} hangs, swarm consistent"
+              f" {chaos['chaos_swarm_consistent']} over {chaos['chaos_swarm_samples']} samples, dedup"
+              f" {chaos['chaos_layer_dedup_ratio']}, in {chaos['chaos_wall_s']} s")
+        check(stress.chaos_gates(chaos), f"soak[{device}]: the chaos soak failed its gates: {chaos}")
+
+        probes: list = []
+        sk = timed("shard_kill", stress.shard_kill_soak, device=device, probes=probes)
+        print(f"soak[{device}]: shard-kill: success {sk['fleet_success_rate']}, {sk['fleet_hangs']} hangs,"
+              f" fleet_blackout_ms {sk['fleet_blackout_ms']}, fleet_manager_blackout_ms"
+              f" {sk.get('fleet_manager_blackout_ms')}, replicated {sk['fleet_blackout_ms_replicated']} against"
+              f" rebuild {sk['fleet_blackout_ms_rebuild']} ms, swarm_adopt_ms {sk['swarm_adopt_ms']}"
+              f" ({sk['swarm_adopt_outcome']}), replica diff clean {sk['swarm_replica_diff_clean']}; the arms"
+              f" {sk['fleet_wall_s']} and {sk['fleet_rebuild_wall_s']} s")
+        check(stress.shard_kill_gates(sk), f"soak[{device}]: the shard-kill soak failed its gates: {sk}")
+        held = [p.get("scheduler.device", {}).get("device", "") for p in probes]
+        check(len(probes) == 2 * sk["fleet_shards"] and all(
+            d.startswith("cuda") if dev.type == "cuda" else d == "" for d in held),
+            f"soak[{device}]: the shard processes' device probes read {held}")
+
+        reg = timed("registry", stress.registry_soak)
+        check(stress.registry_gates(reg), f"soak[{device}]: the registry soak failed its gates: {reg}")
+
+        forecasters: list = []
+        heat = timed("preheat", stress.preheat_soak, device=device, forecasters=forecasters)
+        print(f"soak[{device}]: preheat: cold-start p50 {heat['preheat_cold_p50_ms']} ms armed against"
+              f" {heat['preheat_cold_p50_ms_nopreheat']} ms off, hit ratio {heat['preheat_hit_ratio']},"
+              f" {heat['forecast_rate']} forecasts/s, installs in the steady sweeps {heat['preheat_retraces']},"
+              f" forecast calls a sweep {heat['preheat_h2d_per_sweep']}, on {heat['preheat_backend']}")
+        check(stress.preheat_gates(heat), f"soak[{device}]: the preheat soak failed its gates: {heat}")
+        check(len(forecasters) == 1 and held_on(forecasters[0]) == {dev.type},
+              f"soak[{device}]: the forecaster's GRU holds its parameters on"
+              f" {[sorted(held_on(f)) for f in forecasters]}, not {dev.type}")
+
+        dp = timed("data_plane", stress.data_plane_race, duration_s=SOAK_DATA_PLANE_S,
+                   repeats=SOAK_DATA_PLANE_REPEATS)
+        faster = dp["data_plane_bytes_per_s"] > dp["data_plane_bytes_per_s_buffered"]
+        print(f"soak[{device}]: data plane: {dp['data_plane_connections']} children, sendfile"
+              f" {dp['data_plane_bytes_per_s']} B/s (p99 {dp['piece_serve_p99_us']} us) against buffered"
+              f" {dp['data_plane_bytes_per_s_buffered']} B/s (p99 {dp['piece_serve_p99_us_buffered']} us):"
+              f" {'sendfile' if faster else 'buffered'} faster (measured, not held); RSS {dp['daemon_rss_mb']} MB;"
+              f" the CLI's exit {0 if stress.data_plane_gates(dp, dp['data_plane_children']) else 1}")
+        check(dp["data_plane_hangs"] == 0 and dp["data_plane_errors"] == 0 and dp["data_plane_requests"] > 0
+              and dp["data_plane_connections"] >= dp["data_plane_children"],
+              f"soak[{device}]: the data-plane race failed its gates: {dp}")
+        print(f"soak[{device}]: walls {json.dumps({k: round(v, 2) for k, v in out['walls_s'].items()})}")
+    finally:
+        # the soaks' in-process daemons started the port's stack sampler
+        profiling.stop()
+    return out
+
+
 def encoder_inputs(batch: int, seq: int, in_dim: int, seed: int) -> torch.Tensor:
     """Seeded piece histories [B, T, F]: a piece's log cost and its position."""
     rng = np.random.default_rng(seed)
@@ -5276,6 +5444,10 @@ def main() -> int:
     # the ml evaluator's yardsticks: the scoring soaks and the A/Bs, with
     # the MLP and the GRU trained and served on the card
     ab = leg("ab", ab_leg, "cuda")
+    # the acceptance soaks of tools/stress.py: chaos, shard-kill (its
+    # schedulers on the card), registry, preheat (its forecaster on the
+    # card) and the data-plane race
+    soak = leg("soak", soak_leg, "cuda")
     encoders = {
         kern: leg(f"encoder_{kern}", encoder_leg, "cuda", dtype=dtype, attention=True)
         for kern, dtype in (("sm90", torch.bfloat16), ("tf32x3", torch.float32))
@@ -5300,6 +5472,7 @@ def main() -> int:
         "download": download,
         "fleet": fleet_run,
         "ab": ab,
+        "soak": soak,
         "encoder": encoders,
         "encoder_grad": grad_legs,
         "tf32x3_d8_bf16": rows["tf32x3_d8_bf16"],

@@ -122,6 +122,9 @@ class DemandForecaster:
         self.hist_rows = bucket_rows(self.window_buckets + self.horizon)
         self.forecasts = 0
         self.fits = 0
+        # models installed (each fit, each ``set_params``): a steady
+        # sweep installs none
+        self.installs = 0
         self._np_params = None
         self._model: "GRU | None" = None
         self._lock = threading.Lock()
@@ -202,6 +205,7 @@ class DemandForecaster:
         with self._lock:
             self._np_params = np_params
             self._model = model
+            self.installs += 1
 
     def set_params(self, params) -> None:
         """Install externally trained params (tests, cross-checks)."""
@@ -249,6 +253,7 @@ class DemandForecaster:
             "backend": self.backend,
             "ready": self.ready,
             "fits": self.fits,
+            "installs": self.installs,
             "forecasts": self.forecasts,
             "horizon": self.horizon,
             "hist_rows": self.hist_rows,

@@ -12,9 +12,10 @@ in-flight peer. Then the packages cross: one hook sequence gives equal
 ``export_task`` and ``export_payload`` on both sides; a replica written
 by either replicator is adopted by the other's into an equal resource
 model (hosts, task, peer FSM states, finished pieces, DAG edges); and the
-stale-epoch and torn refusals leave equal receipts. The reference's
-``tools/dfswarm.diff_replicas`` and its announce-drill helpers serve both
-packages: they read payloads and speak the wire, nothing else."""
+stale-epoch and torn refusals leave equal receipts. Each package's own
+``tools/dfswarm.diff_replicas`` and ``tools/stress`` announce-drill helpers
+run against that package's schedulers, and every diff is also held
+against the other package's on the same payloads."""
 
 import json
 import threading
@@ -34,6 +35,8 @@ from dragonfly2_torch.scheduler import storage as t_storage
 from dragonfly2_torch.scheduler import swarm as t_swarm
 from dragonfly2_torch.scheduler import swarm_replication as t_repl
 from dragonfly2_torch.scheduler.resource import fsm as t_fsm
+from dragonfly2_torch.tools import dfswarm as t_dfswarm
+from dragonfly2_torch.tools import stress as t_stress
 from dragonfly2_torch.utils import flight as t_flight
 from dragonfly2_torch.utils import kvstore as t_kv
 
@@ -47,8 +50,8 @@ from dragonfly2_tpu.scheduler import storage as j_storage
 from dragonfly2_tpu.scheduler import swarm as j_swarm
 from dragonfly2_tpu.scheduler import swarm_replication as j_repl
 from dragonfly2_tpu.scheduler.resource import fsm as j_fsm
-from dragonfly2_tpu.tools.dfswarm import diff_replicas
-from dragonfly2_tpu.tools.stress import _drill_announce, _drill_child, _drill_close, _drill_seed
+from dragonfly2_tpu.tools import dfswarm as j_dfswarm
+from dragonfly2_tpu.tools import stress as j_stress
 from dragonfly2_tpu.utils import flight as j_flight
 from dragonfly2_tpu.utils import kvstore as j_kv
 
@@ -60,10 +63,12 @@ PKGS = {
     "torch": SimpleNamespace(
         name="torch", glue=t_glue, evaluator=t_evaluator, fleet=t_fleet, res=t_res, scheduling=t_scheduling,
         service=t_service, storage=t_storage, swarm=t_swarm, repl=t_repl, fsm=t_fsm, flight=t_flight, kv=t_kv,
+        dfswarm=t_dfswarm, stress=t_stress,
     ),
     "jax": SimpleNamespace(
         name="jax", glue=j_glue, evaluator=j_evaluator, fleet=j_fleet, res=j_res, scheduling=j_scheduling,
         service=j_service, storage=j_storage, swarm=j_swarm, repl=j_repl, fsm=j_fsm, flight=j_flight, kv=j_kv,
+        dfswarm=j_dfswarm, stress=j_stress,
     ),
 }
 both = pytest.mark.parametrize("pkg", sorted(PKGS))
@@ -82,6 +87,14 @@ def clean_swarm():
 @pytest.fixture
 def m(pkg):
     return PKGS[pkg]
+
+
+def diff_replicas(m, old: dict, new: dict) -> dict:
+    """``m``'s ``diff_replicas`` on the payloads, held equal to the other
+    package's on the same payloads."""
+    got = m.dfswarm.diff_replicas(old, new)
+    assert got == t_dfswarm.diff_replicas(old, new) == j_dfswarm.diff_replicas(old, new)
+    return got
 
 
 def _adoptions(m, outcome: str) -> float:
@@ -235,7 +248,7 @@ def test_replicate_adopt_round_trip_under_concurrent_churn(m):
     assert obs["edges"] == len(obs["peers"]) - roots
 
     # the successor's own re-journal diffs clean against the victim's
-    d = diff_replicas(victim_payload, repl_b.export_payload(tid))
+    d = diff_replicas(m, victim_payload, repl_b.export_payload(tid))
     assert d["clean"], d
 
     receipt = json.loads(kv.get(m.kv.make_swarm_adopt_key(tid)))
@@ -396,10 +409,10 @@ def test_wrong_shard_handoff_preserves_in_flight_piece_progress(m, tmp_path):
         tid = next(t for t in (f"handoff-{i}" for i in range(200)) if ring.pick(t) == s2["addr"])
         url = f"http://origin/{tid}.bin"
         c1 = sel.client_for(s1["addr"])
-        _drill_seed(c1, tid, url, "h-seed", "p-seed", PIECE, 4)
-        kind, handle = _drill_child(c1, tid, url, "h-child", "p-child", PIECE, 2)
+        m.stress._drill_seed(c1, tid, url, "h-seed", "p-seed", PIECE, 4)
+        kind, handle = m.stress._drill_child(c1, tid, url, "h-child", "p-child", PIECE, 2)
         assert kind == "normal_task"
-        _drill_close(handle)
+        m.stress._drill_close(handle)
         handle = None
         assert s1["replication"].flush_once() >= 1
 
@@ -412,7 +425,7 @@ def test_wrong_shard_handoff_preserves_in_flight_piece_progress(m, tmp_path):
         # re-announce at the old owner: typed refusal + synchronous
         # replica migration stamped with the settled post-join epoch
         with pytest.raises(Exception) as exc:
-            _drill_announce(c1, tid, url, "h-child", "p-child", timeout=10.0)
+            m.stress._drill_announce(c1, tid, url, "h-child", "p-child", timeout=10.0)
         parsed = m.fleet.parse_wrong_shard(str(exc.value))
         assert parsed is not None and parsed[0] == s2["addr"]
         index_meta = json.loads(kv.hmget(m.kv.SWARM_REPLICA_INDEX_KEY, [tid])[0])
@@ -421,8 +434,8 @@ def test_wrong_shard_handoff_preserves_in_flight_piece_progress(m, tmp_path):
         # the child follows the owner hint: first sighting on s2 adopts
         # the migrated replica, so the very first decision is a
         # re-schedule with the seed as parent — not back-to-source
-        q, responses, first = _drill_announce(sel.client_for(s2["addr"]), tid, url, "h-child", "p-child",
-                                              timeout=10.0)
+        q, responses, first = m.stress._drill_announce(sel.client_for(s2["addr"]), tid, url, "h-child", "p-child",
+                                                       timeout=10.0)
         handle = (q, responses)
         assert first.WhichOneof("response") == "normal_task"
         parents = {p.peer_id for p in first.normal_task.candidate_parents}
@@ -441,7 +454,7 @@ def test_wrong_shard_handoff_preserves_in_flight_piece_progress(m, tmp_path):
         roots = sum(1 for p in obs["peers"].values() if p["parent"] is None)
         assert obs["edges"] == len(obs["peers"]) - roots
     finally:
-        _drill_close(handle)
+        m.stress._drill_close(handle)
         sel.close()
         for s in (s2, s1):
             try:
@@ -532,7 +545,7 @@ def test_a_replica_is_adopted_across_packages(writer, adopter):
     assert view["edges"] == [("c1", "c2"), ("p-seed", "c1")]
     assert dict((p[0], p[1]) for p in view["peers"]) == {
         "c1": "Running", "c2": "Running", "c3": "BackToSource", "p-seed": "Succeeded"}
-    assert diff_replicas(victim_payload, exports[adopter][1])["clean"]
+    assert diff_replicas(a, victim_payload, exports[adopter][1])["clean"]
 
 
 @crossed
